@@ -1,0 +1,45 @@
+# Copyright 2026.
+# SPDX-License-Identifier: Apache-2.0
+"""Carry matrices in and out of the port as numpy arrays.
+
+``csr_from_parts`` and ``dia_from_parts`` take host arrays — such as
+``np.asarray(A_jax.data)`` of the JAX package's matrices, bf16 ones
+included — and build the port's arrays on a device;
+``to_numpy_parts`` gives the arrays back (bf16 values as float32).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+from .csr import csr_array
+from .dia import dia_array
+from .runtime import resolve_device
+from .utils import to_numpy
+
+
+def csr_from_parts(data, indices, indptr, shape: Tuple[int, int],
+                   device=None) -> csr_array:
+    """A ``csr_array`` on ``device`` (default: the runtime's default
+    device) from host CSR arrays."""
+    return csr_array((data, indices, indptr), shape=tuple(shape),
+                     device=resolve_device(device))
+
+
+def dia_from_parts(data, offsets, shape: Tuple[int, int],
+                   device=None) -> dia_array:
+    """A ``dia_array`` on ``device`` from host DIA arrays (scipy layout)."""
+    return dia_array((data, np.asarray(offsets)), shape=tuple(shape),
+                     device=resolve_device(device))
+
+
+def to_numpy_parts(A) -> tuple:
+    """``(data, indices, indptr)`` of a ``csr_array`` or ``(data,
+    offsets)`` of a ``dia_array``, as host numpy arrays."""
+    if isinstance(A, csr_array):
+        return to_numpy(A.data), to_numpy(A.indices), to_numpy(A.indptr)
+    if isinstance(A, dia_array):
+        return to_numpy(A.data), np.asarray(A.offsets_tuple, dtype=np.int64)
+    raise TypeError(f"expected csr_array or dia_array, got {type(A).__name__}")

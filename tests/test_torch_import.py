@@ -1,0 +1,102 @@
+# Copyright 2026.
+# SPDX-License-Identifier: Apache-2.0
+"""The PyTorch port stands alone: it imports neither ``jax`` nor the JAX
+package, and with no CUDA device it runs only where the caller asks
+for the CPU."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import legate_sparse_tpu_torch as sparse
+from legate_sparse_tpu_torch import runtime
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "legate_sparse_tpu_torch"
+PORT_FILES = sorted(p.relative_to(ROOT).as_posix()
+                    for p in PKG.rglob("*.py")) + ["chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "legate_sparse_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    # Exact top-level name: ``legate_sparse_tpu_torch`` shares a prefix
+    # with ``legate_sparse_tpu`` and is allowed.
+    return module.split(".")[0] in FORBIDDEN
+
+
+def test_import_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import legate_sparse_tpu_torch\n"
+        "import legate_sparse_tpu_torch.apps.pde\n"
+        "import legate_sparse_tpu_torch.interop\n"
+        "import legate_sparse_tpu_torch.ops.bsr\n"
+        "import legate_sparse_tpu_torch.ops.dia_kernel\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib',\n"
+        "                                    'legate_sparse_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("relpath", PORT_FILES)
+def test_no_jax_import_in_source(relpath):
+    tree = ast.parse((ROOT / relpath).read_text(), filename=relpath)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module and _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{relpath} imports {bad}"
+
+
+def test_forbidden_matches_exact_module_names():
+    assert _forbidden("jax.numpy")
+    assert _forbidden("legate_sparse_tpu.ops.bsr")
+    assert not _forbidden("legate_sparse_tpu_torch.ops.bsr")
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    runtime.set_device(None)
+    yield
+    runtime.set_device(None)
+
+
+def test_default_device_raises_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runtime.default_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sparse.diags([1.0, 2.0, 3.0], 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sparse.csr_array(np.eye(3))
+
+
+def test_cpu_on_request(no_cuda):
+    A = sparse.diags([1.0, 2.0, 3.0], 0, device="cpu")
+    assert A.device.type == "cpu"
+    runtime.set_device("cpu")
+    B = sparse.csr_array(np.eye(3))
+    assert B.device.type == "cpu"
+    y = B @ np.ones(3)
+    assert y.device.type == "cpu" and B.spmv_path == "dia-torch"
+
+
+def test_tensor_inputs_keep_their_device(no_cuda):
+    A = sparse.csr_array(torch.eye(4, dtype=torch.float32))
+    assert A.device.type == "cpu"
