@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 # Copyright 2026.
 # SPDX-License-Identifier: Apache-2.0
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's main paths on one CUDA card and check them.
 
 Run from the root of a checkout, on a machine with an NVIDIA H100:
 
@@ -10,35 +10,62 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 Phases, each printing one JSON line:
 
 1. device: the card's name and ``nvidia-smi`` power limit;
-2. build: both CUDA kernels from ``legate_sparse_tpu_torch/csrc`` (one
-   nvcc each, started together) and their seconds;
-3. kernels against their plain PyTorch versions on the card: DIA (f32
-   exact band, f32 holey band with inf/NaN in x at holes and out of
-   the band's reach, rectangular, offsets past ±128 and ±2^17, bf16)
-   and BSR (f32, bf16);
+2. build: the five CUDA kernels from ``legate_sparse_tpu_torch/csrc``
+   (one nvcc each, started together), their seconds and ptxas'
+   registers and spills;
+3. kernels against their plain PyTorch versions on the card: DIA SpMV
+   (f32 exact band, f32 holey band with inf/NaN in x at holes and out
+   of the band's reach, rectangular, offsets past ±128 and ±2^17,
+   bf16), BSR SpMV (f32, bf16), DIA SpMM (f32 exact band, f32 holey
+   band with inf/NaN in X at holes, rectangular, k in {1, 7, 16,
+   1024}, bf16), BSR SpMM (f32 and bf16, k in {1, 5, 16, 512}) and DIA
+   SpGEMM (f32 on offsets ±{0, 1, 2}, offsets past ±2^17, a
+   rectangular A·B, bf16);
 4. main path at full size: the 4096x4096-grid 5-point Poisson operator
    (16,777,216 unknowns, f32) built by ``diags(...)`` in CSR on the
    card; ``A @ x`` through ``"dia-kernel"`` against scipy's f64 SpMV,
    the explicit update ``v - 0.25*(A@v) + b``, 500 CG iterations
    (one DIA launch per iteration plus one for ``r0``), and the pde
    app solved to tolerance on a 512x512 grid;
-5. irregular SpMV at 2^20 rows, 8 present 128x128 blocks per block-row
-   (65,536 blocks), 16 nonzeros per row, f32, from seed 0: ``A @ x``
-   through ``"bsr"`` against scipy's f64 SpMV;
-6. for each kernel at the shapes of phases 4 and 5: its time (CUDA
-   events, median of 25 after warmup), the least time the card could
-   take (bytes over 3.35 TB/s, operations over 67 TFLOP/s f32), the
-   plain version's time and one PyTorch library call's time
-   (``torch.sparse_csr_tensor @ x``, a yardstick the port never calls).
+5. SpMM on the same operator: ``A @ X`` for X (2^24, 16) through
+   ``"dia-kernel"``, three columns against scipy f64;
+6. irregular SpMV and SpMM at 2^20 rows, 8 present 128x128 blocks per
+   block-row (65,536 blocks), 16 nonzeros per row, f32, from seed 0:
+   ``A @ x`` and ``A @ X`` (X (2^20, 16)) through ``"bsr"`` against
+   scipy f64;
+7. SpGEMM: ``A @ A`` for the SpGEMM microbenchmark's banded matrix
+   (``examples/common.py::banded_matrix``, 5 ones per row) at 2^24
+   rows, f32, through ``"dia-kernel"``, a seeded sample of 4096 rows
+   against scipy's f64 product (exact: the values are small integers);
+   and ``P @ P`` for the 1024x1024-grid Poisson operator, whose band
+   has holes, through ``"esc"``, all of it against scipy;
+8. GMG: ``apps/gmg.py`` on the 4096x4096 Poisson grid, f32, linear
+   restriction, 8 levels (the coarsest grid used is 32x32): the
+   hierarchy's build seconds, every SpGEMM's route and every
+   operator's SpMV path, GMG-CG to rtol 1e-5 (iterations, ms/iter, the
+   true relative residual in f64 beside its f32 floor) and plain CG on
+   the same system and tolerance, which must take more iterations.
+   The launch counts are those of the GMG-CG solve alone, and must
+   equal what its operators' SpMV paths call for.  Every level's
+   Galerkin product is held to scipy's f64 ``R @ A @ P`` on a seeded
+   sample of rows, and x to the exact solution of the f64 system (by
+   the discrete sine transform on the host);
+9. for each kernel at the shapes of phases 4-7: its time (CUDA events,
+   median of 25 after warmup), the least time the card could take
+   (bytes over 3.35 TB/s, operations over 67 TFLOP/s f32), the plain
+   version's time and one PyTorch library call's time
+   (``torch.sparse_csr_tensor @ x``, ``@ X`` or ``@`` another
+   ``sparse_csr_tensor``: a yardstick the port never calls).
 
 Launch counts come from the kernel wrappers: each is set to 0 just
-before a main-path phase drives the path and read just after.  Any
+before a main-path phase drives its path and read just after.  Any
 failed check raises, so the script exits non-zero; it exits non-zero
 without printing a result when there is no CUDA device.  The last three
 lines are the ``kernels`` JSON object, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -68,9 +95,11 @@ def main() -> int:
 
     import numpy as np
     import scipy.sparse as sp
+    from scipy import fft
 
     import legate_sparse_tpu_torch as sparse
     from legate_sparse_tpu_torch import linalg
+    from legate_sparse_tpu_torch.apps import gmg as gmg_app
     from legate_sparse_tpu_torch.apps import pde
     from legate_sparse_tpu_torch.ops import _build
     from legate_sparse_tpu_torch.ops import bsr as bsr_ops
@@ -106,12 +135,12 @@ def main() -> int:
     def sync():
         torch.cuda.synchronize(dev)
 
-    def time_ms(fn) -> float:
+    def time_ms(fn, reps: int = REPS) -> float:
         for _ in range(3):
             fn()
         sync()
         times = []
-        for _ in range(REPS):
+        for _ in range(reps):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -133,6 +162,24 @@ def main() -> int:
         check(err <= rtol * max(scale, 1.0), f"{what}: max |Δ| {err} > "
               f"{rtol} * {scale}")
         return err
+
+    counters = {"dia_spmv": dia_kernel.dia_spmv, "bsr_spmv": bsr_ops.bsr_spmv,
+                "dia_spmm": dia_kernel.dia_spmm, "bsr_spmm": bsr_ops.bsr_spmm,
+                "dia_spgemm": dia_kernel.dia_spgemm}
+
+    def reset_counts() -> None:
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts() -> dict:
+        return {name: fn.launches for name, fn in counters.items()}
+
+    def bound(nbytes: float, nops: float) -> dict:
+        """``bound_ms`` and ``bound_by`` of a kernel moving ``nbytes``
+        and doing ``nops`` f32 operations."""
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S
+        return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
     def dia_case(name, A, x, bitwise):
         packed = A._get_dia_pack()
@@ -160,6 +207,10 @@ def main() -> int:
     def randx(n, dtype=torch.float32):
         return torch.from_numpy(
             rng.standard_normal(n).astype(np.float32)).to(dev, dtype)
+
+    def randX(n, k, dtype=torch.float32):
+        return torch.from_numpy(
+            rng.standard_normal((n, k)).astype(np.float32)).to(dev, dtype)
 
     # ---- 3. kernels against their plain versions ---------------------------
     cases = []
@@ -221,6 +272,7 @@ def main() -> int:
         return data, cols.reshape(-1).astype(np.int32), indptr
 
     bsr_cases = []
+    bsr_spmm_cases = []
     for dtype in (torch.float32, torch.bfloat16):
         d, i, p = block_clustered(1 << 16, 8, 2)
         B = sparse.csr_array((d, i, p), shape=(1 << 16, 1 << 16),
@@ -231,17 +283,88 @@ def main() -> int:
         y = bsr_ops.bsr_spmv(st.blkT, st.brow, st.bcol, st.bptr, x2d, st.nbr)
         yp = bsr_ops.bsr_spmv_plain(st.blkT, st.brow, st.bcol, x2d, st.nbr)
         err = close(y, yp, 1e-5, f"bsr-{dtype}")
-        bsr_cases.append({"case": f"bsr-{str(dtype).split('.')[-1]}",
-                          "rows": 1 << 16, "blocks": st.nblocks,
-                          "max_abs_err": err})
-        del B, st
-    log({"phase": "kernels_vs_plain", "dia": cases, "bsr": bsr_cases})
-    del H, xh, yh
+        dname = str(dtype).split('.')[-1]
+        bsr_cases.append({"case": f"bsr-{dname}", "rows": 1 << 16,
+                          "blocks": st.nblocks, "max_abs_err": err})
+        for k in (1, 5, 16, 512):
+            X = randX(st.nbc * 128, k, dtype)
+            Y = bsr_ops.bsr_spmm(st.blkT, st.brow, st.bcol, st.bptr, X,
+                                 st.nbr)
+            Yp = bsr_ops.bsr_spmm_plain(st.blkT, st.brow, st.bcol, X, st.nbr)
+            err = close(Y, Yp, 1e-5, f"bsr-spmm-{dname}-k{k}")
+            bsr_spmm_cases.append({"case": f"bsr-spmm-{dname}-k{k}",
+                                   "rows": 1 << 16, "k": k,
+                                   "blocks": st.nblocks, "max_abs_err": err})
+        del B, st, X, Y, Yp
+
+    def dia_spmm_case(name, A, X):
+        packed = A._get_dia_pack()
+        check(packed is not None, f"{name}: the DIA kernel must take it")
+        Y = dia_kernel.dia_spmm(packed, X)
+        Yp = dia_kernel.dia_spmm_plain(packed.rdata, packed.rmask, X,
+                                       packed.offsets, packed.shape)
+        err = close(Y, Yp, 1e-6, name)
+        check(torch.equal(Y, Yp), f"{name}: not bitwise equal")
+        return {"case": name, "rows": packed.shape[0],
+                "cols": packed.shape[1], "k": X.shape[1],
+                "offsets": list(packed.offsets), "dtype": str(X.dtype),
+                "masked": packed.rmask is not None, "max_abs_err": err,
+                "bitwise": True}
+
+    spmm_cases = []
+    E = band(n, n, [-2, -1, 0, 1, 2], torch.float32)
+    for k in (1, 7, 16):
+        spmm_cases.append(dia_spmm_case(f"f32-exact-k{k}", E, randX(n, k)))
+    spmm_cases.append(dia_spmm_case(
+        "f32-exact-k1024", band(1 << 16, 1 << 16, [-2, -1, 0, 1, 2],
+                                torch.float32), randX(1 << 16, 1024)))
+    # The holey band of the SpMV case: X rows that only holes reach, and
+    # rows past the band's reach, hold inf/NaN.
+    Xh = randX(m, 7)
+    Xh[torch.as_tensor(S[::2], device=dev)] = float("inf")
+    Xh[torch.as_tensor(S[1::2], device=dev)] = float("nan")
+    Xh[n + 2:] = float("nan")
+    spmm_cases.append(dia_spmm_case("f32-holey-nonfinite-X-k7", H, Xh))
+    Yh = H @ Xh
+    check(H.spmm_path == "dia-kernel", f"holey SpMM took {H.spmm_path}")
+    check(bool(torch.isfinite(Yh).all()), "holey SpMM: Y must stay finite")
+    spmm_cases.append(dia_spmm_case(
+        "f32-rect-tall-k7", band(n + 300, n, [-7, 0, 3], torch.float32),
+        randX(n, 7)))
+    spmm_cases.append(dia_spmm_case(
+        "bf16-k16", band(n, n, [-2, -1, 0, 1, 2], torch.bfloat16),
+        randX(n, 16, torch.bfloat16)))
+
+    def spgemm_case(name, m_, k_, n_, offs_a, offs_b, dtype):
+        a = randX(len(offs_a), k_, dtype)
+        b = randX(len(offs_b), n_, dtype)
+        offs_c = tuple(sorted({oa + ob for oa in offs_a for ob in offs_b}))
+        C = dia_kernel.dia_spgemm(a, b, offs_a, offs_b, offs_c, (m_, k_),
+                                  (k_, n_))
+        Cp = dia_kernel.dia_spgemm_plain(a, b, offs_a, offs_b, offs_c,
+                                         (m_, k_), (k_, n_))
+        err = close(C, Cp, 1e-6, name)
+        check(torch.equal(C, Cp), f"{name}: not bitwise equal")
+        return {"case": name, "shape_a": [m_, k_], "shape_b": [k_, n_],
+                "offs_a": list(offs_a), "offs_b": list(offs_b),
+                "dtype": str(dtype), "max_abs_err": err, "bitwise": True}
+
+    pm2 = (-2, -1, 0, 1, 2)
+    spgemm_cases = [
+        spgemm_case("f32-pm012", n, n, n, pm2, pm2, torch.float32),
+        spgemm_case("f32-offsets-past-2^17", n2, n2, n2, (-far, 0, 129),
+                    (-129, 0, far), torch.float32),
+        spgemm_case("f32-rect", n, n - 1000, n + 500, (-3, 0, 2),
+                    (-1, 0, 4), torch.float32),
+        spgemm_case("bf16-pm012", n, n, n, pm2, pm2, torch.bfloat16)]
+    log({"phase": "kernels_vs_plain", "dia": cases, "bsr": bsr_cases,
+         "dia_spmm": spmm_cases, "bsr_spmm": bsr_spmm_cases,
+         "dia_spgemm": spgemm_cases})
+    del H, xh, yh, Xh, Yh, E
     torch.cuda.empty_cache()
 
     # ---- 4. main path: pde_4096 -------------------------------------------
-    dia_kernel.dia_spmv.launches = 0
-    bsr_ops.bsr_spmv.launches = 0
+    reset_counts()
     grid = 4096
     n = grid * grid
     main3 = np.full(n, 4.0, np.float32)
@@ -266,7 +389,7 @@ def main() -> int:
     check(bool(np.all(np.abs(y.double().cpu().numpy() - y_ref)
                       <= 2e-6 * mag + 1e-30)),
           f"pde SpMV vs scipy f64: max |Δ| {spmv_err}")
-    del A_sp, y_ref, mag, xn
+    del y_ref, mag, xn
 
     b = torch.full((n,), 1e-6, dtype=torch.float32, device=dev)
     v = torch.ones(n, dtype=torch.float32, device=dev)
@@ -327,9 +450,6 @@ def main() -> int:
     y_lib = A_lib @ x
     close(y_lib, yp, 1e-5, "library csr SpMV vs plain")
     dia_bytes = nd * n * (4 + 1) + 4 * n + 4 * n
-    dia_ops_count = 2 * nd * n
-    dia_bound = max(dia_bytes / HBM_BYTES_PER_S,
-                    dia_ops_count / F32_OPS_PER_S) * 1e3
     dia_row = {
         "name": "dia_spmv", "route": "cuda",
         "source": "legate_sparse_tpu_torch/csrc/dia_spmv.cu",
@@ -338,24 +458,65 @@ def main() -> int:
         "ms": time_ms(lambda: dia_kernel.dia_spmv(packed, x)),
         "plain_ms": time_ms(lambda: dia_kernel.dia_spmv_plain(
             packed.rdata, packed.rmask, x, packed.offsets, packed.shape)),
-        "bound_ms": dia_bound,
-        "bound_by": ("bytes" if dia_bytes / HBM_BYTES_PER_S
-                     >= dia_ops_count / F32_OPS_PER_S else "operations"),
+        **bound(dia_bytes, 2 * nd * n),
         "library_ms": time_ms(lambda: A_lib @ x),
         "shape": {"rows": n, "diags": nd, "masked": True, "dtype": "float32",
                   "bytes": dia_bytes},
     }
     log({"phase": "timing_dia", **dia_row})
-    del A, A_lib, packed, x, y, yk, yp, y_lib, b, v
+    del yk, yp, y_lib, b, v
+
+    # ---- 5. SpMM on the pde operator ---------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(1)
+    kX = 16
+    X = torch.randn((n, kX), generator=gen, device=dev)
+    reset_counts()
+    Y = A @ X
+    sync()
+    spmm_counts = read_counts()
+    check(A.spmm_path == "dia-kernel", f"pde SpMM took {A.spmm_path}")
+    check(spmm_counts["dia_spmm"] > 0, "pde SpMM launched no DIA SpMM kernel")
+    X3 = X[:, :3].double().cpu().numpy()
+    diff = np.abs(Y[:, :3].double().cpu().numpy() - A_sp @ X3)
+    spmm_err = float(diff.max())
+    check(bool(np.all(diff <= 2e-6 * (abs(A_sp) @ np.abs(X3)) + 1e-30)),
+          f"pde SpMM vs scipy f64: max |Δ| {spmm_err}")
+    del A_sp, X3, diff
+    log({"phase": "main_path_spmm_pde", "rows": n, "k": kX,
+         "path": A.spmm_path, "spmm_max_abs_err_vs_scipy_f64": spmm_err,
+         "launches": spmm_counts})
+    Yk = dia_kernel.dia_spmm(packed, X)
+    Yp = dia_kernel.dia_spmm_plain(packed.rdata, packed.rmask, X,
+                                   packed.offsets, packed.shape)
+    spmm_kernel_err = close(Yk, Yp, 1e-6, "pde dia SpMM kernel vs plain")
+    check(torch.equal(Yk, Yp), "pde dia SpMM kernel: not bitwise equal")
+    close(A_lib @ X, Yp, 1e-5, "library csr SpMM vs plain")
+    del Yk, Yp
+    nb_, nops_ = nd * n * (4 + 1) + 2 * 4 * n * kX, 2 * nd * n * kX
+    dia_spmm_row = {
+        "name": "dia_spmm", "route": "cuda",
+        "source": "legate_sparse_tpu_torch/csrc/dia_spmm.cu",
+        "replaces": "legate_sparse_tpu/ops/pallas_dia.py:417",
+        "launches": spmm_counts["dia_spmm"],
+        "max_abs_err": spmm_kernel_err,
+        "ms": time_ms(lambda: dia_kernel.dia_spmm(packed, X)),
+        "plain_ms": time_ms(lambda: dia_kernel.dia_spmm_plain(
+            packed.rdata, packed.rmask, X, packed.offsets, packed.shape)),
+        **bound(nb_, nops_),
+        "library_ms": time_ms(lambda: A_lib @ X),
+        "shape": {"rows": n, "diags": nd, "k": kX, "masked": True,
+                  "dtype": "float32", "bytes": nb_},
+    }
+    log({"phase": "timing_dia_spmm", **dia_spmm_row})
+    del A, A_lib, packed, x, y, X, Y
     torch.cuda.empty_cache()
 
-    # ---- 5. irregular SpMV through BSR --------------------------------------
+    # ---- 6. irregular SpMV and SpMM through BSR -----------------------------
     rows = 1 << 20
     d, i, p = block_clustered(rows, 8, 2)
     R = sparse.csr_array((d, i, p), shape=(rows, rows))
     x = randx(rows)
-    dia_kernel.dia_spmv.launches = 0
-    bsr_ops.bsr_spmv.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     y = R @ x
     sync()
@@ -369,7 +530,7 @@ def main() -> int:
     bsr_spmv_err = float(diff.max())
     check(bool(np.all(diff <= 1e-5 * (abs(R_sp) @ np.abs(xn)) + 1e-30)),
           f"irregular SpMV vs scipy f64: max |Δ| {bsr_spmv_err}")
-    del R_sp, xn, diff
+    del xn, diff
     st = R._get_bsr()
     log({"phase": "main_path_irregular", "rows": rows, "nnz": R.nnz,
          "blocks": st.nblocks, "path": R.spmv_path,
@@ -377,7 +538,7 @@ def main() -> int:
          "spmv_max_abs_err_vs_scipy_f64": bsr_spmv_err,
          "bsr_launches": bsr_launches})
 
-    # ---- 6b. BSR timings at the irregular shape ------------------------------
+    # ---- BSR timings at the irregular shape ---------------------------------
     x2d = x.reshape(-1, 128)
     yk = bsr_ops.bsr_spmv(st.blkT, st.brow, st.bcol, st.bptr, x2d, st.nbr)
     yp = bsr_ops.bsr_spmv_plain(st.blkT, st.brow, st.bcol, x2d, st.nbr)
@@ -389,8 +550,6 @@ def main() -> int:
     bsr_bytes = (st.nblocks * 128 * 128 * 4 + st.nblocks * 4
                  + (st.nbr + 1) * 8 + 4 * rows + 4 * rows)
     bsr_ops_count = 2 * st.nblocks * 128 * 128
-    bsr_bound = max(bsr_bytes / HBM_BYTES_PER_S,
-                    bsr_ops_count / F32_OPS_PER_S) * 1e3
     csr_rowids_ms = time_ms(lambda: spmv_ops.csr_spmv_rowids(
         R.data, R.indices, row_ids, x, rows))
     bsr_row = {
@@ -402,9 +561,7 @@ def main() -> int:
                                                st.bptr, x2d, st.nbr)),
         "plain_ms": time_ms(lambda: bsr_ops.bsr_spmv_plain(
             st.blkT, st.brow, st.bcol, x2d, st.nbr)),
-        "bound_ms": bsr_bound,
-        "bound_by": ("bytes" if bsr_bytes / HBM_BYTES_PER_S
-                     >= bsr_ops_count / F32_OPS_PER_S else "operations"),
+        **bound(bsr_bytes, bsr_ops_count),
         "library_ms": time_ms(lambda: R_lib @ x),
         "shape": {"rows": rows, "blocks": st.nblocks, "nnz": R.nnz,
                   "dtype": "float32", "bytes": bsr_bytes},
@@ -412,13 +569,266 @@ def main() -> int:
     log({"phase": "timing_bsr", **bsr_row,
          "csr_rowids_ms": csr_rowids_ms,
          "csr_rowids_vs_bsr": csr_rowids_ms / bsr_row["ms"]})
-    del R, R_lib, st, x, x2d, y, yk, yp, row_ids
+    del x2d, y, yk, yp
+
+    X = torch.randn((rows, kX), generator=gen, device=dev)
+    reset_counts()
+    Y = R @ X
+    sync()
+    spmm_counts = read_counts()
+    check(R.spmm_path == "bsr", f"irregular SpMM took {R.spmm_path}")
+    check(spmm_counts["bsr_spmm"] > 0, "irregular SpMM launched no BSR SpMM "
+          "kernel")
+    X3 = X[:, :3].double().cpu().numpy()
+    diff = np.abs(Y[:, :3].double().cpu().numpy() - R_sp @ X3)
+    bsr_spmm_err = float(diff.max())
+    check(bool(np.all(diff <= 1e-5 * (abs(R_sp) @ np.abs(X3)) + 1e-30)),
+          f"irregular SpMM vs scipy f64: max |Δ| {bsr_spmm_err}")
+    del R_sp, X3, diff
+    log({"phase": "main_path_spmm_irregular", "rows": rows, "k": kX,
+         "path": R.spmm_path,
+         "spmm_max_abs_err_vs_scipy_f64": bsr_spmm_err,
+         "launches": spmm_counts})
+    Yk = bsr_ops.bsr_spmm(st.blkT, st.brow, st.bcol, st.bptr, X, st.nbr)
+    Yp = bsr_ops.bsr_spmm_plain(st.blkT, st.brow, st.bcol, X, st.nbr)
+    bsr_spmm_kernel_err = close(Yk, Yp, 1e-5, "irregular bsr SpMM vs plain")
+    close(R_lib @ X, Yp, 1e-5, "library csr SpMM vs plain")
+    del Yk, Yp
+    nb_ = (st.nblocks * 128 * 128 * 4 + st.nblocks * 4 + (st.nbr + 1) * 8
+           + 2 * 4 * rows * kX)
+    nops_ = 2 * st.nblocks * 128 * 128 * kX
+    bsr_spmm_row = {
+        "name": "bsr_spmm", "route": "cuda",
+        "source": "legate_sparse_tpu_torch/csrc/bsr_spmm.cu",
+        "replaces": "legate_sparse_tpu/ops/bsr.py:198",
+        "launches": spmm_counts["bsr_spmm"],
+        "max_abs_err": bsr_spmm_kernel_err,
+        "ms": time_ms(lambda: bsr_ops.bsr_spmm(st.blkT, st.brow, st.bcol,
+                                               st.bptr, X, st.nbr)),
+        "plain_ms": time_ms(lambda: bsr_ops.bsr_spmm_plain(
+            st.blkT, st.brow, st.bcol, X, st.nbr)),
+        **bound(nb_, nops_),
+        "library_ms": time_ms(lambda: R_lib @ X),
+        "shape": {"rows": rows, "blocks": st.nblocks, "k": kX,
+                  "dtype": "float32", "bytes": nb_},
+    }
+    log({"phase": "timing_bsr_spmm", **bsr_spmm_row,
+         "csr_rowids_ms": time_ms(lambda: spmv_ops.csr_spmm_rowids(
+             R.data, R.indices, row_ids, X, rows))})
+    del R, R_lib, st, x, X, Y, row_ids
+    torch.cuda.empty_cache()
+
+    # ---- 7. SpGEMM: banded (kernel) and general (ESC) -----------------------
+    # examples/common.py::banded_matrix(2^24, 5): ones on 5 diagonals.
+    N = 1 << 24
+    half = 2
+    cols = (np.tile(np.arange(-half, half + 1), N)
+            + np.repeat(np.arange(N), 2 * half + 1))
+    keep = (cols >= 0) & (cols < N)
+    cols = cols[keep]
+    counts = keep.reshape(N, 2 * half + 1).sum(axis=1)
+    indptr = np.zeros(N + 1, dtype=np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    ones = np.ones(cols.shape[0], dtype=np.float32)
+    Ab = sparse.csr_array((ones, cols, indptr), shape=(N, N))
+    Ab._get_dia()
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    C = Ab @ Ab
+    sync()
+    spgemm_s = time.perf_counter() - t0
+    spgemm_counts = read_counts()
+    check(Ab.spgemm_path == "dia-kernel",
+          f"banded SpGEMM took {Ab.spgemm_path}")
+    check(spgemm_counts["dia_spgemm"] > 0,
+          "banded SpGEMM launched no DIA SpGEMM kernel")
+    # A seeded sample of rows (the first and last among them) against
+    # scipy's f64 product: small integers, so equal exactly.
+    Ab_sp = sp.csr_array((ones.astype(np.float64), cols, indptr),
+                         shape=(N, N))
+    del cols, keep, counts, ones
+    sel = np.unique(np.concatenate([[0, 1, N - 2, N - 1],
+                                    rng.choice(N, 4092, replace=False)]))
+    sel_t = torch.from_numpy(sel).to(dev)
+    starts = C.indptr[sel_t]
+    cnt = C.indptr[sel_t + 1] - starts
+    total = int(cnt.sum())
+    pos = (torch.repeat_interleave(starts - (torch.cumsum(cnt, 0) - cnt), cnt,
+                                   output_size=total)
+           + torch.arange(total, device=dev))
+    sub = sp.csr_array((C.data[pos].double().cpu().numpy(),
+                        C.indices[pos].cpu().numpy(),
+                        np.concatenate([[0], np.cumsum(cnt.cpu().numpy())])),
+                       shape=(sel.shape[0], N))
+    ref = sp.csr_array(Ab_sp[sel] @ Ab_sp)
+    ref.sort_indices()
+    check(np.array_equal(sub.indptr, ref.indptr)
+          and np.array_equal(sub.indices, ref.indices)
+          and np.array_equal(sub.data, ref.data),
+          "banded SpGEMM: sampled rows differ from scipy's f64 product")
+    del Ab_sp, sub, ref, sel_t, starts, cnt, pos
+    # The general route: the 1024x1024-grid Poisson operator (holes in
+    # its band) squared through ESC, all of it against scipy.
+    Pp = gmg_app.poisson2D(1024, dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    Cp = Pp @ Pp
+    sync()
+    esc_s = time.perf_counter() - t0
+    check(Pp.spgemm_path == "esc", f"Poisson SpGEMM took {Pp.spgemm_path}")
+    Pp_sp = Pp.toscipy().astype(np.float64)
+    ref = sp.csr_array(Pp_sp @ Pp_sp)
+    ref.sort_indices()
+    got = Cp.toscipy()
+    check(np.array_equal(got.indptr, ref.indptr)
+          and np.array_equal(got.indices, ref.indices)
+          and np.array_equal(got.data.astype(np.float64), ref.data),
+          "ESC SpGEMM: the Poisson square differs from scipy's f64 product")
+    log({"phase": "main_path_spgemm", "rows": N, "nnz_a": Ab.nnz,
+         "nnz_c": C.nnz, "path": Ab.spgemm_path, "spgemm_s": spgemm_s,
+         "sampled_rows_vs_scipy_f64": int(sel.shape[0]),
+         "launches": spgemm_counts,
+         "esc": {"grid": "1024x1024", "rows": Pp.shape[0], "nnz_a": Pp.nnz,
+                 "nnz_c": Cp.nnz, "path": Pp.spgemm_path, "seconds": esc_s,
+                 "vs_scipy_f64": "equal"}})
+    del Pp, Cp, Pp_sp, ref, got
+
+    da = Ab._get_dia()
+    offs_c = C._dia[1]
+    Ck = dia_kernel.dia_spgemm(da[0], da[0], da[1], da[1], offs_c, Ab.shape,
+                               Ab.shape)
+    Cpl = dia_kernel.dia_spgemm_plain(da[0], da[0], da[1], da[1], offs_c,
+                                      Ab.shape, Ab.shape)
+    spgemm_kernel_err = close(Ck, Cpl, 1e-6, "banded SpGEMM kernel vs plain")
+    check(torch.equal(Ck, Cpl), "banded SpGEMM kernel: not bitwise equal")
+    del Ck, Cpl, C
+    pairs = dia_kernel.spgemm_pairs(da[1], da[1], offs_c, Ab.shape, Ab.shape)
+    nb_ = 4 * (2 * len(da[1]) * N + len(offs_c) * N)
+    nops_ = 2 * sum(hi - lo for ps in pairs for (_, _, _, lo, hi) in ps)
+    Ab_lib = torch.sparse_csr_tensor(Ab.indptr, Ab.indices.to(torch.int64),
+                                     Ab.data, size=Ab.shape,
+                                     check_invariants=False)
+    dia_spgemm_row = {
+        "name": "dia_spgemm", "route": "cuda",
+        "source": "legate_sparse_tpu_torch/csrc/dia_spgemm.cu",
+        "replaces": "legate_sparse_tpu/ops/pallas_dia.py:609",
+        "launches": spgemm_counts["dia_spgemm"],
+        "max_abs_err": spgemm_kernel_err,
+        "ms": time_ms(lambda: dia_kernel.dia_spgemm(
+            da[0], da[0], da[1], da[1], offs_c, Ab.shape, Ab.shape)),
+        "plain_ms": time_ms(lambda: dia_kernel.dia_spgemm_plain(
+            da[0], da[0], da[1], da[1], offs_c, Ab.shape, Ab.shape)),
+        **bound(nb_, nops_),
+        "library_ms": time_ms(lambda: Ab_lib @ Ab_lib, reps=5),
+        "shape": {"rows": N, "diags_a": len(da[1]), "diags_c": len(offs_c),
+                  "dtype": "float32", "bytes": nb_},
+    }
+    # Like for like with ``library_ms``: the whole ``A @ A`` (the kernel,
+    # then ``band_to_csr``), also a complete CSR product.
+    log({"phase": "timing_dia_spgemm", **dia_spgemm_row,
+         "a_at_a_ms": time_ms(lambda: Ab @ Ab, reps=5)})
+    del Ab, Ab_lib, da
+    torch.cuda.empty_cache()
+
+    # ---- 8. GMG-preconditioned CG on the 4096x4096 Poisson grid -------------
+    gmg_counts = {}
+
+    @contextlib.contextmanager
+    def counted():
+        reset_counts()
+        yield
+        gmg_counts.update(read_counts())
+
+    grid = 4096
+    sol = gmg_app.solve(grid, 8, gridop="linear", tol=1e-5,
+                        dtype=torch.float32, device=dev, maxiter=200,
+                        compare_plain=True, plain_maxiter=40000,
+                        watch=counted)
+    sync()
+    x_gmg = sol.pop("x")
+    mg = sol.pop("gmg")
+    hierarchy = gmg_app.print_diagnostics(mg.operators)
+    check(bool(torch.isfinite(x_gmg).all()), "GMG-CG iterate must be finite")
+    check(sol["iters"] < 200, f"GMG-CG did not converge in {sol['iters']}")
+    check(sol["iters"] < sol["plain_iters"],
+          f"GMG-CG took {sol['iters']} iterations, plain CG "
+          f"{sol['plain_iters']}")
+    check(sol["rel_residual"] <= max(1e-5, 2.0 * sol["residual_floor"]),
+          f"GMG-CG true relative residual {sol['rel_residual']} (f32 floor "
+          f"{sol['residual_floor']})")
+    check(all(p == {"R@A": "esc", "RA@P": "esc"}
+              for p in sol["spgemm_paths"]), "GMG products must take ESC")
+    # Launches of the GMG-CG solve alone: A @ x for r0 and A @ p per
+    # iteration; per iteration one V-cycle, which applies each level's
+    # A twice and its R and P once, on every level above the coarsest.
+    iters = sol["iters"]
+    cycle = sol["spmv_paths"][:sol["levels"] - 1]
+    want = {"dia_spmv": (iters + 1) * (cycle[0]["A"] == "dia-kernel")
+            + iters * 2 * sum(p["A"] == "dia-kernel" for p in cycle),
+            "bsr_spmv": iters * sum((p["R"] == "bsr") + (p["P"] == "bsr")
+                                    for p in cycle)}
+    check(want["dia_spmv"] > 0, "the GMG V-cycle has no DIA kernel path")
+    for name, count in want.items():
+        check(gmg_counts[name] == count,
+              f"GMG-CG launched {name} {gmg_counts[name]} times, its "
+              f"paths {sol['spmv_paths']} call for {count}")
+
+    # Every level's Galerkin product R @ A @ P against scipy's f64
+    # product of the same R, A and P, taken from the card, on a seeded
+    # sample of its rows.  Each entry is held to 1e-5 of the sum of its
+    # terms' magnitudes, (|R| |A| |P|): f32 rounding stays far below,
+    # a lost or doubled ESC chunk far above.
+    A_h = mg.A.toscipy().astype(np.float64)
+    A_sp = A_h
+    galerkin = []
+    for level, (R_l, A_c, P_l) in enumerate(mg.operators):
+        R_h = R_l.toscipy().astype(np.float64)
+        P_h = P_l.toscipy().astype(np.float64)
+        Ac_h = A_c.toscipy().astype(np.float64)
+        sel = np.sort(rng.choice(A_c.shape[0], min(2048, A_c.shape[0]),
+                                 replace=False))
+        ref = sp.csr_array(R_h[sel] @ A_h) @ P_h
+        mag = sp.csr_array(abs(R_h[sel]) @ abs(A_h)) @ abs(P_h)
+        diff = abs(sp.csr_array(Ac_h[sel]) - ref)
+        err = float(diff.max()) if diff.nnz else 0.0
+        bad = diff - 1e-5 * mag
+        check(not bad.nnz or float(bad.max()) <= 0.0,
+              f"GMG level {level}: R @ A @ P differs from scipy's f64 "
+              f"product by {err} on sampled rows")
+        galerkin.append({"level": level, "rows": int(A_c.shape[0]),
+                         "sampled_rows": int(sel.shape[0]),
+                         "max_abs_err": err,
+                         "max_magnitude": float(mag.max())})
+        A_h = Ac_h
+    del A_h, R_h, P_h, Ac_h, ref, mag, diff, bad
+
+    # x against the exact solution of the f64 system, by the discrete
+    # sine transform on the host: A = T (x) I + I (x) T with T =
+    # tridiag(-1, 2, -1), whose eigenvectors are the DST-I basis.
+    b64 = np.random.default_rng(0).random(grid * grid)
+    lam = 2.0 - 2.0 * np.cos(np.pi * np.arange(1, grid + 1) / (grid + 1))
+    x_ref = fft.dstn(fft.dstn(b64.reshape(grid, grid), type=1, norm="ortho")
+                     / (lam[:, None] + lam[None, :]), type=1,
+                     norm="ortho").reshape(-1)
+    ref_res = float(np.linalg.norm(A_sp @ x_ref - b64) / np.linalg.norm(b64))
+    x_err = float(np.linalg.norm(x_gmg.double().cpu().numpy() - x_ref)
+                  / np.linalg.norm(x_ref))
+    log({"phase": "main_path_gmg", **sol, "launches": gmg_counts,
+         "launches_expected": want, "galerkin_vs_scipy_f64": galerkin,
+         "rel_error_to_exact": x_err, "exact_ref_rel_residual": ref_res,
+         "hierarchy_report": hierarchy.splitlines()})
+    # x is ~10^6 times b: the f64 rounding of x alone leaves ~5e-10.
+    check(ref_res <= 1e-8, f"DST reference residual {ref_res}")
+    check(x_err <= 1e-4, f"GMG-CG relative error to the exact solution "
+          f"{x_err}")
+    del x_gmg, sol, mg, A_sp, x_ref, b64
     torch.cuda.empty_cache()
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log({"kernels": [{k: row[k] for k in keys}
-                     for row in (dia_row, bsr_row)]})
+                     for row in (dia_row, bsr_row, dia_spmm_row,
+                                 bsr_spmm_row, dia_spgemm_row)]})
     print(smi_line, flush=True)
     log({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                 "count": torch.cuda.device_count()}})

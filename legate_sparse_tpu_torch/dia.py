@@ -5,8 +5,10 @@
 Mirrors ``legate_sparse_tpu/dia.py::dia_array``: storage is a 2-D
 ``data`` tensor (num_diags, width) plus the diagonals' offsets, in
 scipy's column-aligned layout ``A[j - offsets[k], j] = data[k, j]``.
-``tocsr`` converts sort-free (``dia.py:158``) and ``dot`` takes the
-same DIA kernel as ``csr_array``'s banded path (``dia.py:204-240``).
+``tocsr`` converts sort-free (``dia.py:158``) and ``dot``
+(``dia.py:224-265``) takes the same DIA kernels as ``csr_array``'s
+banded path: SpMV, and SpMM for X (cols, k <= 1024); a sparse operand
+goes through ``tocsr().dot``.
 """
 
 from __future__ import annotations
@@ -66,6 +68,7 @@ class dia_array(CompressedBase):
         self._pack = None  # cached kernel pack (False = not supported)
         self.shape: Tuple[int, int] = tuple(int(s) for s in shape)
         self.spmv_path: Optional[str] = None
+        self.spmm_path: Optional[str] = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -160,23 +163,34 @@ class dia_array(CompressedBase):
         return self._pack if self._pack is not False else None
 
     def dot(self, other, out=None):
-        """SpMV through the DIA kernel when it takes the band and x has
-        the band's dtype, else the plain shifted adds."""
+        """SpMV and SpMM through the DIA kernels when they take the band
+        and the operand has the band's dtype, else the plain shifted
+        adds; a sparse operand goes through CSR (SpGEMM)."""
+        from .csr import _is_scipy_sparse
+
         require_supported_dtype(self.dtype)
-        if isinstance(other, CompressedBase):
-            raise NotImplementedError(
-                "sparse @ sparse (SpGEMM) is not part of this port yet")
+        if isinstance(other, CompressedBase) or _is_scipy_sparse(other):
+            return self.tocsr().dot(other)
         x = as_tensor(other, self._data.device)
         squeeze = False
         if x.dim() == 2 and x.shape[1] == 1:
             x = x.reshape(-1)
             squeeze = True
-        if x.dim() == 2:
-            raise NotImplementedError(
-                "sparse @ dense matrix (SpMM) is not part of this port yet")
-        if x.dim() != 1 or x.shape[0] != self.shape[1]:
+        if x.dim() not in (1, 2) or x.shape[0] != self.shape[1]:
             raise ValueError(f"dimension mismatch: {self.shape} @ "
                              f"{tuple(x.shape)}")
+        if x.dim() == 2:
+            k = x.shape[1]
+            packed = (self._get_pack()
+                      if 0 < k <= _dia_kernel.SPMM_MAX_K else None)
+            if _dia_kernel.spmm_supported(packed, x):
+                Y = _dia_kernel.dia_spmm(packed, x.contiguous())
+                self.spmm_path = "dia-kernel"
+            else:
+                Y = _dia_ops.dia_spmm(self._data, x, self._offsets,
+                                      self.shape)
+                self.spmm_path = "dia-torch"
+            return fill_out(Y, out)
         packed = self._get_pack() if x.dtype == self.dtype else None
         if packed is not None:
             y = _dia_kernel.dia_spmv(packed, x)

@@ -114,7 +114,7 @@ class _CustomLinearOperator(LinearOperator):
 
 
 class _SparseMatrixLinearOperator(LinearOperator):
-    """Wraps a ``csr_array``; ``matvec`` is its ``dot``."""
+    """Wraps a ``csr_array``; ``matvec`` and ``matmat`` are its ``dot``."""
 
     def __init__(self, A: csr_array):
         self.A = A
@@ -126,6 +126,9 @@ class _SparseMatrixLinearOperator(LinearOperator):
 
     def _matvec(self, x, out=None):
         return self.A.dot(x, out=out)
+
+    def _matmat(self, X, out=None):
+        return self.A.dot(X, out=out)
 
 
 class _DenseMatrixLinearOperator(LinearOperator):

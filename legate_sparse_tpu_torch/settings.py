@@ -21,6 +21,11 @@ read once at import and can be overridden by assignment.
 ``bsr_force`` (``LEGATE_SPARSE_TPU_BSR_FORCE``, off)
     Build the BSR structure on any device (on the CPU its wrapper runs
     the plain version) — the differential-testing hook.
+``spgemm_chunk_products`` (``LEGATE_SPARSE_SPGEMM_CHUNK``, 2^24)
+    Most products per ESC expansion chunk: a product that expands more
+    runs in chunks, so peak memory is O(chunk + nnz(C)) instead of
+    O(T).  The JAX package's ``LEGATE_SPARSE_FAST_SPGEMM`` (one pass,
+    whatever T) has no counterpart: a chunk of at least T is one pass.
 """
 
 from __future__ import annotations
@@ -47,6 +52,8 @@ class Settings:
             os.environ.get("LEGATE_SPARSE_TPU_BSR_EXPAND", "128.0"))
         self.bsr_force: bool = _env_bool("LEGATE_SPARSE_TPU_BSR_FORCE",
                                          False)
+        self.spgemm_chunk_products: int = int(
+            os.environ.get("LEGATE_SPARSE_SPGEMM_CHUNK", 1 << 24))
 
 
 settings = Settings()

@@ -191,8 +191,12 @@ def test_dot_column_vector_and_out(rng):
     np.testing.assert_allclose(out.numpy(), y.numpy()[:, 0], rtol=0, atol=0)
     with pytest.raises(ValueError):
         At @ np.ones(81, np.float32)
-    with pytest.raises(NotImplementedError):
-        At @ np.ones((80, 3), np.float32)
+    # A matrix operand takes the SpMM branch (tests/test_torch_spmm.py).
+    X = np.ones((80, 3), np.float32)
+    Y = At @ X
+    assert tuple(Y.shape) == (120, 3)
+    np.testing.assert_allclose(Y.numpy(), np.asarray(Aj @ X), rtol=1e-6,
+                               atol=1e-6)
 
 
 def test_interop_round_trip(rng):

@@ -34,10 +34,12 @@ def test_import_loads_no_jax():
     code = (
         "import sys\n"
         "import legate_sparse_tpu_torch\n"
+        "import legate_sparse_tpu_torch.apps.gmg\n"
         "import legate_sparse_tpu_torch.apps.pde\n"
         "import legate_sparse_tpu_torch.interop\n"
         "import legate_sparse_tpu_torch.ops.bsr\n"
         "import legate_sparse_tpu_torch.ops.dia_kernel\n"
+        "import legate_sparse_tpu_torch.ops.spgemm\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib',\n"
         "                                    'legate_sparse_tpu'))\n"
