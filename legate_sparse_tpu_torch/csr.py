@@ -303,9 +303,11 @@ class csr_array(CompressedBase):
         Built for a CUDA-resident canonical f32/bf16 matrix whose
         present 128x128 blocks fit ``bsr_max_expand`` and
         ``MAX_BLOCKS`` (the JAX package builds it on the TPU alone); on
-        any device under ``bsr_force``.  Zero slots inside a present
-        block multiply x, as in scipy's ``bsr_array``: a non-finite x in
-        a column CSR never stores can give NaN here."""
+        any device under ``bsr_force``.  It is built from the matrix's
+        device tensors and holds the block list only, beside references
+        to them.  Zero slots inside a present block multiply x, as in
+        scipy's ``bsr_array``: a non-finite x in a column CSR never
+        stores can give NaN here."""
         if self._bsr is not None:
             return self._bsr if self._bsr is not False else None
         if not settings.bsr_force and self.device.type != "cuda":
@@ -318,16 +320,11 @@ class csr_array(CompressedBase):
             return None
         from .ops import bsr as _bsr_ops
 
-        pack = _bsr_ops.bsr_pack(
-            to_numpy(self._data), to_numpy(self._indices),
-            to_numpy(self._indptr), self.shape, settings.bsr_max_expand)
-        if pack is None:
-            self._bsr = False
-            return None
-        self._bsr = _bsr_ops.BsrStructure(*pack, *self.shape,
-                                          dtype=self.dtype,
-                                          device=self.device)
-        return self._bsr
+        st = _bsr_ops.build_structure(
+            self._data, self._indices, self._indptr, self._get_row_ids(),
+            self.shape, settings.bsr_max_expand)
+        self._bsr = st if st is not None else False
+        return st
 
     def _get_dia(self):
         """Cached banded structure ``(dia_data, offsets, mask)``, or None.

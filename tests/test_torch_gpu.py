@@ -11,8 +11,11 @@ it also runs on a machine that has only PyTorch, without the suite's
 
 Tolerances: the DIA SpMV, SpMM and SpGEMM kernels repeat their plain
 versions' arithmetic in the same order, so each pair agrees bit for bit
-(f32 and bf16); the BSR SpMV and SpMM kernels sum each block's 128-term
-dot in another order, so rtol = atol = 1e-5.
+(f32 and bf16); the BSR SpMV and SpMM kernels walk the stored nonzeros
+and sum in another order than the plain versions' batched dense
+product, so rtol = atol = 1e-5, with the NaN/inf pattern equal exactly
+where x holds inf or NaN (``nonfinite_case``).  The BSR cases are
+shared with the CPU tests (``test_torch_bsr.py``, ``test_torch_spmm.py``).
 """
 
 import numpy as np
@@ -59,22 +62,107 @@ def test_dia_kernel_matches_plain(cuda, dtype):
     assert torch.equal(y, yp)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_bsr_kernel_matches_plain(cuda, dtype):
-    rng = np.random.default_rng(5)
-    S = sp.random(4096, 4096, density=0.002, format="csr", random_state=rng,
+def _csr(rows, cols, shape, rng):
+    A = sp.csr_array((rng.standard_normal(len(rows)).astype(np.float32),
+                      (np.asarray(rows), np.asarray(cols))), shape=shape)
+    A.sum_duplicates()
+    return A
+
+
+def nonfinite_case(seed=9):
+    """A matrix and an x (or one column of X) with inf and NaN at
+    columns that some rows of a present block store, at columns no row
+    stores, and in the chunk of an empty block-row's zero block.
+
+    Block-row 0 stores in chunk 1 only, and rows 0 and 1 store column
+    130, where x is inf: those rows give a*inf, the others NaN (0*inf).
+    Block-row 1 stores in chunk 2 only, and x is NaN at a column none of
+    its rows stores: all NaN.  Block-row 2 is empty; its zero block
+    multiplies chunk 0, which holds an inf: all NaN.  Block-row 3 stores
+    in chunk 3, all finite.  Every row of block-row 4 stores column 520,
+    where x is -inf, beside finite products: all -inf."""
+    rng = np.random.default_rng(seed)
+    rows, cols = [0, 1], [130, 130]
+    for r in range(0, 128):
+        rows += [r] * 3
+        cols += list(128 + rng.choice(np.arange(1, 128), 3, replace=False))
+    for r in range(128, 256):
+        rows += [r] * 3
+        cols += list(256 + rng.choice(np.arange(1, 128), 3, replace=False))
+    for r in range(384, 512):
+        rows += [r] * 4
+        cols += list(384 + rng.choice(128, 4, replace=False))
+    for r in range(512, 640):
+        rows += [r, r]
+        cols += [520, 521 + r % 100]
+    A = _csr(rows, cols, (640, 640), rng)
+    x = rng.standard_normal(640).astype(np.float32)
+    x[130] = np.inf
+    x[256] = np.nan          # column 256 is stored by no row
+    x[5] = np.inf
+    x[520] = -np.inf
+    return A, x
+
+
+def many_blocks_case(seed=10):
+    """One block-row with 40 present blocks (more than a kernel stages
+    at once), an empty block-row, and one row of 3,000 entries."""
+    rng = np.random.default_rng(seed)
+    ncols = 128 * 48
+    bcols = rng.choice(48, 40, replace=False)
+    rows, cols = [], []
+    for r in range(0, 128):
+        rows += [r] * 40
+        cols += list(bcols * 128 + rng.integers(0, 128, 40))
+    rows += [300] * 3000 + [301]
+    cols += list(rng.choice(ncols, 3000, replace=False)) + [7]
+    return _csr(rows, cols, (512, ncols), rng)
+
+
+def assert_same_nonfinite(got, want):
+    """Equal NaN/inf pattern (signs of inf included) and finite values
+    within 1e-5 (numpy arrays)."""
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.isposinf(got), np.isposinf(want))
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-5, atol=1e-5)
+
+
+def _bsr_structure(S, dtype, device, index_dtype=torch.int32):
+    """The BSR structure of scipy CSR ``S`` on ``device``, whatever its
+    block fill."""
+    A = sparse.csr_array(S, dtype=dtype, device=device)
+    return bsr_ops.build_structure(A.data, A.indices.to(index_dtype),
+                                   A.indptr, A._get_row_ids(), A.shape, 1e9)
+
+
+def _bsr_cases(rng):
+    S = sp.random(4096, 3000, density=0.002, format="csr", random_state=rng,
                   dtype=np.float32)
-    st = bsr_ops.BsrStructure(*bsr_ops.bsr_pack(S.data, S.indices, S.indptr,
-                                                S.shape, max_expand=1e9),
-                              4096, 4096, dtype=dtype, device=cuda)
-    x2d = torch.from_numpy(rng.standard_normal((32, 128)).astype(np.float32))
-    x2d = x2d.to(cuda, dtype)
+    A, x = nonfinite_case()
+    return {"random": (S, None), "nonfinite": (A, x),
+            "many-blocks": (many_blocks_case(), None)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["random", "nonfinite", "many-blocks"])
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bsr_kernel_matches_plain(cuda, dtype, index_dtype, case):
+    rng = np.random.default_rng(5)
+    S, x = _bsr_cases(rng)[case]
+    st = _bsr_structure(S, dtype, cuda, index_dtype)
+    xp = rng.standard_normal(st.nbc * 128).astype(np.float32)
+    if x is not None:
+        xp[: x.shape[0]] = x
+    x2d = torch.from_numpy(xp.reshape(-1, 128)).to(cuda, dtype)
     before = bsr_ops.bsr_spmv.launches
-    y = bsr_ops.bsr_spmv(st.blkT, st.brow, st.bcol, st.bptr, x2d, st.nbr)
+    y = bsr_ops.bsr_spmv(st, x2d)
     assert bsr_ops.bsr_spmv.launches == before + 1
-    yp = bsr_ops.bsr_spmv_plain(st.blkT, st.brow, st.bcol, x2d, st.nbr)
-    torch.testing.assert_close(y, yp, rtol=1e-5, atol=1e-5)
+    yp = bsr_ops.bsr_spmv_plain(st, x2d)
+    torch.cuda.synchronize()
+    assert_same_nonfinite(y.cpu().numpy(), yp.cpu().numpy())
 
 
 @pytest.mark.gpu
@@ -132,22 +220,23 @@ def test_dia_spmm_kernel_matches_plain(cuda, dtype, k):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", ["random", "nonfinite", "many-blocks"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k", [1, 5, 40])
-def test_bsr_spmm_kernel_matches_plain(cuda, dtype, k):
+@pytest.mark.parametrize("k", [1, 5, 16, 40])
+def test_bsr_spmm_kernel_matches_plain(cuda, dtype, k, case):
     rng = np.random.default_rng(6)
-    S = sp.random(4096, 3000, density=0.002, format="csr", random_state=rng,
-                  dtype=np.float32)
-    st = bsr_ops.BsrStructure(*bsr_ops.bsr_pack(S.data, S.indices, S.indptr,
-                                                S.shape, max_expand=1e9),
-                              4096, 3000, dtype=dtype, device=cuda)
-    X = torch.from_numpy(rng.standard_normal((st.nbc * 128, k))
-                         .astype(np.float32)).to(cuda, dtype)
+    S, x = _bsr_cases(rng)[case]
+    st = _bsr_structure(S, dtype, cuda)
+    X = rng.standard_normal((st.nbc * 128, k)).astype(np.float32)
+    if x is not None:
+        X[: x.shape[0], k // 2] = x
+    X = torch.from_numpy(X).to(cuda, dtype)
     before = bsr_ops.bsr_spmm.launches
-    Y = bsr_ops.bsr_spmm(st.blkT, st.brow, st.bcol, st.bptr, X, st.nbr)
+    Y = bsr_ops.bsr_spmm(st, X)
     assert bsr_ops.bsr_spmm.launches == before + 1
-    Yp = bsr_ops.bsr_spmm_plain(st.blkT, st.brow, st.bcol, X, st.nbr)
-    torch.testing.assert_close(Y, Yp, rtol=1e-5, atol=1e-5)
+    Yp = bsr_ops.bsr_spmm_plain(st, X)
+    torch.cuda.synchronize()
+    assert_same_nonfinite(Y.cpu().numpy(), Yp.cpu().numpy())
 
 
 @pytest.mark.gpu

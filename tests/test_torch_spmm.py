@@ -39,10 +39,14 @@ import legate_sparse_tpu_torch as tsparse
 from legate_sparse_tpu_torch import interop
 from legate_sparse_tpu_torch import linalg as tlinalg
 from legate_sparse_tpu_torch.ops import bsr as tbsr
+from legate_sparse_tpu_torch.ops.convert import row_ids_from_indptr
 from legate_sparse_tpu_torch.ops import dia_kernel
 from legate_sparse_tpu_torch.ops import dia_ops as tdia_ops
 from legate_sparse_tpu_torch.ops import spmv as tspmv
 from legate_sparse_tpu_torch.settings import settings as tsettings
+
+from test_torch_gpu import (assert_same_nonfinite, many_blocks_case,
+                            nonfinite_case)
 
 
 def _port(A_jax):
@@ -155,18 +159,28 @@ def _random_csr(rows, cols, density, seed):
                      dtype=np.float32)
 
 
+def _structure(A, dtype=torch.float32):
+    data = torch.from_numpy(A.data).to(dtype)
+    indptr = torch.from_numpy(A.indptr.astype(np.int64))
+    return tbsr.build_structure(data, torch.from_numpy(A.indices), indptr,
+                                row_ids_from_indptr(indptr, A.nnz), A.shape,
+                                1e9)
+
+
+def _jax_matmat(A, X, dtype=jnp.float32):
+    pack = jbsr.bsr_pack(A.data, A.indices, A.indptr, A.shape, max_expand=1e9)
+    return np.asarray(jbsr.BsrStructure(*pack, *A.shape, dtype=dtype)
+                      .matmat(jnp.asarray(X, dtype), interpret=True)
+                      .astype(jnp.float32))
+
+
 @pytest.mark.parametrize("k", [1, 5, 16])
 def test_bsr_matmat_f32_matches_jax(k):
     A = _random_csr(300, 200, 0.04, seed=21)
     X = np.random.default_rng(22).standard_normal((200, k)).astype(
         np.float32)
-    pack = jbsr.bsr_pack(A.data, A.indices, A.indptr, A.shape, max_expand=1e9)
-    Yj = np.asarray(jbsr.BsrStructure(*pack, 300, 200).matmat(
-        X, interpret=True))
-    st = tbsr.BsrStructure(*tbsr.bsr_pack(A.data, A.indices, A.indptr,
-                                          A.shape, max_expand=1e9),
-                           300, 200, device="cpu")
-    Yt = st.matmat(torch.from_numpy(X))
+    Yj = _jax_matmat(A, X)
+    Yt = _structure(A).matmat(torch.from_numpy(X))
     assert Yt.dtype == torch.float32 and tuple(Yt.shape) == (300, k)
     np.testing.assert_allclose(Yt.numpy(), Yj, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(Yt.numpy(), A @ X, rtol=1e-5, atol=1e-5)
@@ -175,32 +189,47 @@ def test_bsr_matmat_f32_matches_jax(k):
 def test_bsr_matmat_bf16_matches_jax():
     A = _random_csr(256, 256, 0.04, seed=3)
     X = np.random.default_rng(2).standard_normal((256, 6)).astype(np.float32)
-    Xb = jnp.asarray(X, jnp.bfloat16)
-    pack = jbsr.bsr_pack(A.data, A.indices, A.indptr, A.shape, max_expand=1e9)
-    Yj = np.asarray(jbsr.BsrStructure(*pack, 256, 256, dtype=jnp.bfloat16)
-                    .matmat(Xb, interpret=True).astype(jnp.float32))
-    st = tbsr.BsrStructure(*tbsr.bsr_pack(A.data, A.indices, A.indptr,
-                                          A.shape, max_expand=1e9),
-                           256, 256, dtype=torch.bfloat16, device="cpu")
-    Yt = st.matmat(torch.from_numpy(np.array(Xb.astype(jnp.float32))))
+    Xb = np.array(jnp.asarray(X, jnp.bfloat16).astype(jnp.float32))
+    Yj = _jax_matmat(A, Xb, jnp.bfloat16)
+    Yt = _structure(A, torch.bfloat16).matmat(torch.from_numpy(Xb))
     assert Yt.dtype == torch.bfloat16
     np.testing.assert_allclose(Yt.float().numpy(), Yj, rtol=1e-2, atol=1e-2)
 
 
+def test_bsr_matmat_nonfinite_matches_jax_kernel():
+    """X with inf/NaN at stored and unstored columns of present blocks
+    (``test_torch_gpu.nonfinite_case`` in column 1, finite elsewhere):
+    the NaN/inf pattern equals the interpret-mode Pallas kernel's
+    exactly, column by column, and the finite values within 1e-5."""
+    A, x = nonfinite_case()
+    X = np.random.default_rng(23).standard_normal((A.shape[1], 3)).astype(
+        np.float32)
+    X[:, 1] = x
+    Yj = _jax_matmat(A, X)
+    Yt = _structure(A).matmat(torch.from_numpy(X)).numpy()
+    assert np.isnan(Yj[:, 1]).any() and np.isfinite(Yj[:, 0]).all()
+    assert_same_nonfinite(Yt, Yj)
+
+
+def test_bsr_matmat_many_blocks_and_long_row():
+    A = many_blocks_case()
+    X = np.random.default_rng(24).standard_normal((A.shape[1], 5)).astype(
+        np.float32)
+    Yt = _structure(A).matmat(torch.from_numpy(X)).numpy()
+    np.testing.assert_allclose(Yt, _jax_matmat(A, X), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(Yt, A.astype(np.float64) @ X, rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_bsr_spmm_wrapper_rejects_bad_inputs():
     A = _random_csr(256, 256, 0.03, seed=4)
-    st = tbsr.BsrStructure(*tbsr.bsr_pack(A.data, A.indices, A.indptr,
-                                          A.shape, max_expand=1e9),
-                           256, 256, device="cpu")
+    st = _structure(A)
     with pytest.raises(ValueError):
-        tbsr.bsr_spmm(st.blkT, st.brow, st.bcol, st.bptr,
-                      torch.zeros((200, 4)), st.nbr)
+        tbsr.bsr_spmm(st, torch.zeros((200, 4)))
     with pytest.raises(ValueError):
-        tbsr.bsr_spmm(st.blkT, st.brow, st.bcol, st.bptr,
-                      torch.zeros((256, tbsr.SPMM_MAX_K + 1)), st.nbr)
+        tbsr.bsr_spmm(st, torch.zeros((256, tbsr.SPMM_MAX_K + 1)))
     with pytest.raises(TypeError):
-        tbsr.bsr_spmm(st.blkT, st.brow, st.bcol, st.bptr,
-                      torch.zeros((256, 4), dtype=torch.float64), st.nbr)
+        tbsr.bsr_spmm(st, torch.zeros((256, 4), dtype=torch.float64))
     with pytest.raises(ValueError):
         st.matmat(torch.zeros((256, tbsr.SPMM_MAX_K + 1)))
 
