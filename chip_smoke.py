@@ -17,7 +17,14 @@ Phases, each printing one JSON line:
    (f32 exact band, f32 holey band with inf/NaN in x at holes and out
    of the band's reach, rectangular, offsets past ±128 and ±2^17,
    bf16), DIA SpMM (f32 exact band, f32 holey band with inf/NaN in X at
-   holes, rectangular, k in {1, 7, 16, 1024}, bf16), BSR SpMV and SpMM
+   holes, rectangular, k in {1, 7, 16, 1024}, bf16), and where the two
+   DIA kernels switch variants, each with inf/NaN in x or X at columns
+   that only holes reach: an odd row count, an x/X one element into a
+   larger buffer, nd past the unrolled counts (9, 33), k not divisible
+   by 4 (5, 17) or 8 (bf16, 12), bf16 with an odd row count, and the
+   strided ``A @ X[:, 0]`` and ``A @ X[:, :1]`` through
+   ``csr_array.dot`` (each DIA case bit for bit, with the variant it
+   took); BSR SpMV and SpMM
    (f32 and bf16: a block-clustered matrix with k in {1, 5, 16, 512},
    and a matrix with a block-row of 40 present blocks, an empty
    block-row and a row of 6,000 entries, with inf and NaN in x and in
@@ -422,6 +429,95 @@ def main() -> int:
         "bf16-k16", band(n, n, [-2, -1, 0, 1, 2], torch.bfloat16),
         randX(n, 16, torch.bfloat16)))
 
+    # Where the DIA kernels switch variants (16-byte or scalar; an
+    # unrolled or a chunked diagonal loop), on packs with holes and dead
+    # columns (every slot a hole), where x and X hold inf and NaN.
+    def holey_pack(rows, cols, nd, dtype):
+        offsets = tuple(2 * d - nd for d in range(nd))
+        data = rng.standard_normal((nd, cols)).astype(np.float32)
+        keep = rng.random((nd, cols)) > 0.2
+        dead = np.arange(5, cols, 997)
+        keep[:, dead] = False
+        data[~keep] = 0.0
+        packed = dia_kernel.pack_band(
+            torch.from_numpy(data).to(dev, dtype), offsets, (rows, cols),
+            torch.from_numpy(keep).to(dev))
+        check(packed is not None, "variant case: the kernel must take it")
+        return packed, torch.as_tensor(dead, device=dev)
+
+    def offset_view(shape, dtype, offset):
+        numel = int(np.prod(shape))
+        buf = torch.from_numpy(rng.standard_normal(numel + offset).astype(
+            np.float32)).to(dev, dtype)
+        return buf[offset:].view(shape)
+
+    def variant_case(name, rows, nd, dtype, k=None, offset=0):
+        packed, dead = holey_pack(rows, rows, nd, dtype)
+        x = offset_view((rows,) if k is None else (rows, k), dtype, offset)
+        x[dead[::2]] = float("inf")
+        x[dead[1::2]] = float("nan")
+        if k is None:
+            y = dia_kernel.dia_spmv(packed, x)
+            yp = dia_kernel.dia_spmv_plain(packed.rdata, packed.rmask, x,
+                                           packed.offsets, packed.shape)
+            vec = dia_kernel.spmv_vector_ok(packed)
+        else:
+            y = dia_kernel.dia_spmm(packed, x)
+            yp = dia_kernel.dia_spmm_plain(packed.rdata, packed.rmask, x,
+                                           packed.offsets, packed.shape)
+            vec = dia_kernel.spmm_vector_ok(packed, x)
+        sync()
+        check(bool(torch.isfinite(y).all()), f"{name}: y must stay finite")
+        check(torch.equal(y, yp), f"{name}: not bitwise equal")
+        return {"case": name, "kernel": "dia_spmv" if k is None
+                else "dia_spmm", "rows": rows, "nd": nd, "k": k,
+                "dtype": str(dtype), "x_offset_elems": offset,
+                "variant": "16-byte" if vec else "scalar",
+                "diag_loop": ("unrolled" if vec and nd <=
+                              dia_kernel.UNROLLED_DIAGS else "chunked"),
+                "bitwise": True}
+
+    odd = n + 3
+    variant_cases = [
+        variant_case("spmv-f32-odd-rows", odd, 5, torch.float32),
+        variant_case("spmv-f32-unaligned-x", n, 5, torch.float32, offset=1),
+        variant_case("spmv-f32-nd9", n, 9, torch.float32),
+        variant_case("spmv-f32-nd33", n, 33, torch.float32),
+        variant_case("spmv-bf16-odd-rows", odd, 5, torch.bfloat16),
+        variant_case("spmv-bf16-nd9-unaligned-x", n, 9, torch.bfloat16,
+                     offset=1),
+        variant_case("spmm-f32-k5", n, 5, torch.float32, k=5),
+        variant_case("spmm-f32-k16-unaligned-X", n, 5, torch.float32, k=16,
+                     offset=1),
+        variant_case("spmm-f32-k16-nd9", n, 9, torch.float32, k=16),
+        variant_case("spmm-f32-k17-nd33", 1 << 16, 33, torch.float32, k=17),
+        variant_case("spmm-bf16-k12-odd-rows", odd, 5, torch.bfloat16,
+                     k=12),
+        variant_case("spmm-bf16-k16-nd9", n, 9, torch.bfloat16, k=16)]
+    check([c["variant"] for c in variant_cases]
+          == ["scalar", "16-byte", "16-byte", "16-byte", "scalar", "16-byte",
+              "scalar", "scalar", "16-byte", "scalar", "scalar", "16-byte"],
+          f"variants taken: {[c['variant'] for c in variant_cases]}")
+
+    # A strided x through csr_array.dot: X[:, 0] and X[:, :1].
+    St = band(n, n, [-2, -1, 0, 1, 2], torch.float32)
+    Xs = randX(n, 3)
+    ys = St @ Xs[:, 0]
+    check(St.spmv_path == "dia-kernel", f"strided x took {St.spmv_path}")
+    ys1 = St @ Xs[:, :1]
+    check(St.spmv_path == "dia-kernel" and tuple(ys1.shape) == (n, 1),
+          f"X[:, :1] took {St.spmv_path}, shape {tuple(ys1.shape)}")
+    ps = St._get_dia_pack()
+    yps = dia_kernel.dia_spmv_plain(ps.rdata, ps.rmask, Xs[:, 0].contiguous(),
+                                    ps.offsets, ps.shape)
+    sync()
+    check(torch.equal(ys, yps) and torch.equal(ys1[:, 0], yps),
+          "strided x: not bitwise equal to the plain version")
+    variant_cases.append({"case": "csr-dot-strided-x", "kernel": "dia_spmv",
+                          "rows": n, "calls": ["A @ X[:, 0]", "A @ X[:, :1]"],
+                          "path": St.spmv_path, "bitwise": True})
+    del St, Xs, ys, ys1, yps, ps
+
     def spgemm_case(name, m_, k_, n_, offs_a, offs_b, dtype):
         a = randX(len(offs_a), k_, dtype)
         b = randX(len(offs_b), n_, dtype)
@@ -445,7 +541,8 @@ def main() -> int:
                     (-1, 0, 4), torch.float32),
         spgemm_case("bf16-pm012", n, n, n, pm2, pm2, torch.bfloat16)]
     log({"phase": "kernels_vs_plain", "dia": cases, "bsr": bsr_cases,
-         "dia_spmm": spmm_cases, "dia_spgemm": spgemm_cases})
+         "dia_spmm": spmm_cases, "dia_variants": variant_cases,
+         "dia_spgemm": spgemm_cases})
     del H, xh, yh, Xh, Yh, E
     torch.cuda.empty_cache()
 
@@ -547,7 +644,9 @@ def main() -> int:
         **bound(dia_bytes, 2 * nd * n),
         "library_ms": time_ms(lambda: A_lib @ x),
         "shape": {"rows": n, "diags": nd, "masked": True, "dtype": "float32",
-                  "bytes": dia_bytes},
+                  "bytes": dia_bytes,
+                  "variant": ("16-byte" if dia_kernel.spmv_vector_ok(packed)
+                              else "scalar")},
     }
     log({"phase": "timing_dia", **dia_row})
     del yk, yp, y_lib, b, v
@@ -591,7 +690,9 @@ def main() -> int:
         **bound(nb_, nops_),
         "library_ms": time_ms(lambda: A_lib @ X),
         "shape": {"rows": n, "diags": nd, "k": kX, "masked": True,
-                  "dtype": "float32", "bytes": nb_},
+                  "dtype": "float32", "bytes": nb_,
+                  "variant": ("16-byte" if dia_kernel.spmm_vector_ok(packed, X)
+                              else "scalar")},
     }
     log({"phase": "timing_dia_spmm", **dia_spmm_row})
     del A, A_lib, packed, x, y, X, Y

@@ -427,7 +427,7 @@ class csr_array(CompressedBase):
         if dia is not None:
             packed = src._get_dia_pack()
             if packed is not None:
-                y = _dia_kernel.dia_spmv(packed, x)
+                y = _dia_kernel.dia_spmv(packed, x.contiguous())
                 path = "dia-kernel"
             else:
                 y = _dia_ops.dia_spmv_nopad(dia[0], dia[2], x, dia[1],

@@ -193,7 +193,7 @@ class dia_array(CompressedBase):
             return fill_out(Y, out)
         packed = self._get_pack() if x.dtype == self.dtype else None
         if packed is not None:
-            y = _dia_kernel.dia_spmv(packed, x)
+            y = _dia_kernel.dia_spmv(packed, x.contiguous())
             self.spmv_path = "dia-kernel"
         else:
             y = _dia_ops.dia_spmv_nopad(self._data, None, x, self._offsets,

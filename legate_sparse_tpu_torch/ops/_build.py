@@ -5,10 +5,11 @@
 Each source in ``../csrc`` compiles on its own into a shared library
 with a plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a
 -std=c++17 -O3 -shared -Xcompiler -fPIC``), named by a hash of the
-source and the flags, under ``build/torch_kernels/`` at the root of the
-checkout (``LEGATE_SPARSE_TPU_TORCH_BUILD_DIR`` overrides it).  A
-library is built at its first use and reused while its source is
-unchanged.  ``build_all`` starts one nvcc per source at once.  A failed
+source, the shared headers (``csrc/*.cuh``) and the flags, under
+``build/torch_kernels/`` at the root of the checkout
+(``LEGATE_SPARSE_TPU_TORCH_BUILD_DIR`` overrides it).  A library is
+built at its first use and reused while its source is unchanged.
+``build_all`` starts one nvcc per source at once.  A failed
 build raises with nvcc's output; nothing falls back.
 """
 
@@ -55,9 +56,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
+    """The library's path, named by a hash of its source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    parts = [(CSRC / SOURCES[name]).read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        b"".join(parts) + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return build_dir() / f"lib{name}_{digest}.so"
 

@@ -46,6 +46,12 @@ from . import _build
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # Size of the offsets array in the kernel's parameter block.
 MAX_DIAGS = 128
+# The SpMV and SpMM kernels unroll their diagonal loop at compile time:
+# one instantiation for each nd up to UNROLLED_DIAGS in their 16-byte
+# variants (``csrc/dia_common.cuh::dispatch_nd``); above it, and in the
+# scalar variants, a loop over chunks of 8 diagonals whose loads are all
+# in flight before their sum.
+UNROLLED_DIAGS = 8
 
 
 def supported(offsets: Tuple[int, ...], dtype: torch.dtype) -> bool:
@@ -120,6 +126,18 @@ def dia_spmv_plain(rdata, rmask, x, offsets: Tuple[int, ...],
     return acc.to(rdata.dtype)
 
 
+def spmv_vector_ok(packed: PackedBand) -> bool:
+    """Whether ``dia_spmv.cu`` takes its 16-byte variant for this pack:
+    each thread owns V rows (4 in f32, 8 in bf16), so the row count must
+    be divisible by V, the band 16-byte and the mask V-byte aligned (a
+    fresh pack is).  Every other pack takes the scalar variant of the
+    same kernel.  x is read with scalar loads in both, so its alignment
+    does not matter."""
+    v = 16 // packed.rdata.element_size()
+    return (packed.shape[0] % v == 0 and packed.rdata.data_ptr() % 16 == 0
+            and (packed.rmask is None or packed.rmask.data_ptr() % v == 0))
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("dia_spmv")
     for fn in (lib.dia_spmv_f32, lib.dia_spmv_bf16):
@@ -127,7 +145,7 @@ def _lib() -> ctypes.CDLL:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                            ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                           ctypes.c_void_p]
+                           ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
     return lib
 
@@ -183,7 +201,8 @@ def dia_spmv(packed: PackedBand, x: torch.Tensor) -> torch.Tensor:
         err = fn(packed.rdata.data_ptr(),
                  packed.rmask.data_ptr() if packed.rmask is not None
                  else None,
-                 x.data_ptr(), y.data_ptr(), rows, cols, nd, offs, stream)
+                 x.data_ptr(), y.data_ptr(), rows, cols, nd, offs,
+                 int(spmv_vector_ok(packed)), stream)
     if err != 0:
         raise RuntimeError(f"dia_spmv: kernel launch failed with "
                            f"cudaError {err}")
@@ -229,6 +248,17 @@ def dia_spmm_plain(rdata, rmask, X, offsets: Tuple[int, ...],
     return acc.to(rdata.dtype)
 
 
+def spmm_vector_ok(packed: PackedBand, X: torch.Tensor) -> bool:
+    """Whether ``dia_spmm.cu`` takes its 16-byte variant for this X:
+    each thread owns G columns of a row (4 in f32, 8 in bf16), so k must
+    be divisible by G and X 16-byte aligned (Y is a fresh allocation);
+    X must have rows.  Every other X takes the scalar variant of the
+    same kernel."""
+    g = 16 // X.element_size()
+    return (X.shape[1] % g == 0 and packed.shape[1] > 0
+            and X.data_ptr() % 16 == 0)
+
+
 def _spmm_lib() -> ctypes.CDLL:
     lib = _build.load("dia_spmm")
     for fn in (lib.dia_spmm_f32, lib.dia_spmm_bf16):
@@ -236,7 +266,8 @@ def _spmm_lib() -> ctypes.CDLL:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                            ctypes.c_int64, ctypes.c_int,
-                           ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+                           ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                           ctypes.c_void_p]
             fn.restype = ctypes.c_int
     return lib
 
@@ -271,7 +302,8 @@ def dia_spmm(packed: PackedBand, X: torch.Tensor) -> torch.Tensor:
         err = fn(packed.rdata.data_ptr(),
                  packed.rmask.data_ptr() if packed.rmask is not None
                  else None,
-                 X.data_ptr(), Y.data_ptr(), rows, cols, k, nd, offs, stream)
+                 X.data_ptr(), Y.data_ptr(), rows, cols, k, nd, offs,
+                 int(spmm_vector_ok(packed, X)), stream)
     if err != 0:
         raise RuntimeError(f"dia_spmm: kernel launch failed with "
                            f"cudaError {err}")

@@ -23,6 +23,8 @@ from legate_sparse_tpu.ops import pallas_dia
 from legate_sparse_tpu_torch import interop
 from legate_sparse_tpu_torch.ops import dia_kernel
 
+from test_torch_gpu import DIA_VARIANT_CASES, band_offsets
+
 
 def _banded(n, offsets, rng, m=None, dtype=np.float32):
     m = n if m is None else m
@@ -142,18 +144,16 @@ def test_nonfinite_x_at_holes_and_out_of_range(rng):
     np.testing.assert_allclose(yt, yj, rtol=1e-6, atol=1e-6)
 
 
-def test_bf16_product_rounded(rng):
+def _check_bf16(Aj, x):
     """bf16: the port rounds each product to bf16 and adds in f32 in
     offset order (``pallas_dia.py:304``'s stated arithmetic).  It equals
     a numpy emulation of that bit for bit.  The JAX kernel in interpret
     mode on the CPU keeps the product exact in f32 (XLA drops the bf16
     round trip), so against it the bound is one bf16 rounding per
-    product plus one of the result: |Δ| <= 2^-8·Σ|a·x| + 2^-8·|y|."""
+    product plus one of the result: |Δ| <= 2^-8·Σ|a·x| + 2^-8·|y|.
+    Returns the port's pack."""
     bf16 = jnp.bfloat16
-    n = 1000
-    A_sp = _banded(n, [-3, -1, 0, 1, 3], rng)
-    Aj = _jax_matrix(A_sp, bf16)
-    x = rng.standard_normal(n).astype(np.float32)
+    n, m = Aj.shape
     xb = np.asarray(jnp.asarray(x, bf16))
     At = _port_matrix(Aj)
     assert At.dtype == torch.bfloat16
@@ -169,7 +169,7 @@ def test_bf16_product_rounded(rng):
     mag = np.zeros(n, np.float32)
     for d, off in enumerate(packed.offsets):
         xs = np.zeros(n, np.float32)
-        lo, hi = max(0, -off), min(n, n - off)
+        lo, hi = max(0, -off), min(n, m - off)
         xs[lo:hi] = xf[lo + off:hi + off]
         prod = rdata[d] * xs                      # exact in f32
         acc = acc + prod.astype(bf16).astype(np.float32)
@@ -178,6 +178,69 @@ def test_bf16_product_rounded(rng):
 
     yj = _jax_spmv(Aj, xb)
     assert np.all(np.abs(yt - yj) <= 2.0**-8 * (mag + np.abs(yj)))
+    return packed
+
+
+def test_bf16_product_rounded(rng):
+    n = 1000
+    A_sp = _banded(n, [-3, -1, 0, 1, 3], rng)
+    _check_bf16(_jax_matrix(A_sp, jnp.bfloat16),
+                rng.standard_normal(n).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(DIA_VARIANT_CASES))
+def test_kernel_variant_boundaries(case, dtype, rng):
+    """The shapes where the CUDA kernel switches variants (rows not
+    divisible by V, nd of 1, of the largest unrolled count, of one more
+    and 33): the plain version against the interpret-mode Pallas kernel,
+    f32 with holes in the band (rtol = atol = 1e-6), bf16 by
+    ``_check_bf16``; and the variant the kernel would take."""
+    rows, nd = DIA_VARIANT_CASES[case]
+    A_sp = _banded(rows, list(band_offsets(nd)), rng)
+    x = rng.standard_normal(rows).astype(np.float32)
+    if dtype == "float32":
+        A_sp.data[::5] = 0.0
+        A_sp.eliminate_zeros()
+        Aj = _jax_matrix(A_sp)
+        assert Aj._get_dia()[2] is not None, "expect a holey band"
+        packed = _port_matrix(Aj)._get_dia_pack()
+        np.testing.assert_allclose(_port_spmv(_port_matrix(Aj), x),
+                                   _jax_spmv(Aj, x), rtol=1e-6, atol=1e-6)
+    else:
+        packed = _check_bf16(_jax_matrix(A_sp, jnp.bfloat16), x)
+    v = 16 // packed.rdata.element_size()
+    assert dia_kernel.spmv_vector_ok(packed) == (rows % v == 0)
+
+
+@pytest.mark.parametrize("kind", ["csr", "dia"])
+def test_strided_x_matches_jax(kind, rng):
+    """``A @ X[:, 0]`` and ``A @ X[:, :1]`` with strided views of X: the
+    port against the JAX package's ``dot`` on the same numpy inputs
+    (rtol = atol = 1e-6), and bit for bit against a contiguous x."""
+    n = 300
+    X = rng.standard_normal((n, 3)).astype(np.float32)
+    if kind == "csr":
+        Aj = _jax_matrix(_holey(n, rng))
+        At = _port_matrix(Aj)
+    else:
+        data = rng.standard_normal((3, n)).astype(np.float32)
+        offsets = np.array([-2, 0, 5])
+        Aj = jsparse.dia_array((data, offsets), shape=(n, n))
+        At = interop.dia_from_parts(data, offsets, (n, n), device="cpu")
+    Xt = torch.from_numpy(X)
+    assert not Xt[:, 0].is_contiguous()
+    y = At @ Xt[:, 0]
+    assert At.spmv_path == "dia-kernel"
+    np.testing.assert_allclose(y.numpy(), np.asarray(Aj @ X[:, 0]),
+                               rtol=1e-6, atol=1e-6)
+    y1 = At @ Xt[:, :1]
+    assert At.spmv_path == "dia-kernel" and tuple(y1.shape) == (n, 1)
+    np.testing.assert_allclose(
+        y1.numpy(), np.asarray(Aj @ X[:, :1]).reshape(n, 1), rtol=1e-6,
+        atol=1e-6)
+    y_ref = At @ Xt[:, 0].contiguous()
+    assert torch.equal(y, y_ref) and torch.equal(y1[:, 0], y_ref)
 
 
 @pytest.mark.parametrize("holey", [False, True])

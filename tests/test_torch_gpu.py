@@ -11,11 +11,16 @@ it also runs on a machine that has only PyTorch, without the suite's
 
 Tolerances: the DIA SpMV, SpMM and SpGEMM kernels repeat their plain
 versions' arithmetic in the same order, so each pair agrees bit for bit
-(f32 and bf16); the BSR SpMV and SpMM kernels walk the stored nonzeros
-and sum in another order than the plain versions' batched dense
-product, so rtol = atol = 1e-5, with the NaN/inf pattern equal exactly
-where x holds inf or NaN (``nonfinite_case``).  The BSR cases are
-shared with the CPU tests (``test_torch_bsr.py``, ``test_torch_spmm.py``).
+(f32 and bf16), in every variant of the SpMV and SpMM kernels
+(``DIA_VARIANT_CASES``, ``SPMM_VARIANT_K``: the shapes where they
+switch between their 16-byte and scalar variants and between an
+unrolled and a chunked diagonal loop, shared with the CPU tests
+``test_torch_dia.py`` and ``test_torch_spmm.py``); the BSR SpMV and
+SpMM kernels walk the stored nonzeros and sum in another order than
+the plain versions' batched dense product, so rtol = atol = 1e-5,
+with the NaN/inf pattern equal exactly where x holds inf or NaN
+(``nonfinite_case``).  The BSR cases are shared with the CPU tests
+(``test_torch_bsr.py``, ``test_torch_spmm.py``).
 """
 
 import numpy as np
@@ -60,6 +65,127 @@ def test_dia_kernel_matches_plain(cuda, dtype):
                                    packed.offsets, packed.shape)
     torch.cuda.synchronize()
     assert torch.equal(y, yp)
+
+
+def band_offsets(nd):
+    """``nd`` distinct offsets on both sides of the main diagonal, odd
+    and even (so x windows start on and off a 16-byte boundary)."""
+    return tuple(2 * d - nd for d in range(nd))
+
+
+# Where the DIA SpMV kernel switches variants: rows not divisible by 4
+# (f32) or 8 (bf16) take the scalar variant; nd of 1 and of
+# UNROLLED_DIAGS have their own unrolled instantiation; one more, and
+# 33, take the chunked loop.  (rows, nd) per case.
+_U = dia_kernel.UNROLLED_DIAGS
+DIA_VARIANT_CASES = {"rows4099-nd5": (4099, 5), "nd1": (4096, 1),
+                     f"nd{_U}": (4096, _U), f"nd{_U + 1}": (4096, _U + 1),
+                     "nd33": (4096, 33)}
+# Where the DIA SpMM kernel switches variants: k not divisible by 4
+# (f32) or 8 (bf16) takes the scalar variant.  k -> nd, so every nd
+# boundary meets a k boundary.
+SPMM_VARIANT_K = {3: 1, 4: _U, 5: _U + 1, 17: 33}
+
+
+def masked_pack(rows, cols, offsets, dtype, rng, device):
+    """A row-aligned band pack with random holes and dead columns (every
+    slot of the column a hole), and those columns: x or X may hold inf
+    or NaN there without reaching y."""
+    data = rng.standard_normal((len(offsets), cols)).astype(np.float32)
+    mask = rng.random((len(offsets), cols)) > 0.2
+    dead = np.arange(5, cols, 97)
+    mask[:, dead] = False       # scipy layout: column j of A is slot j
+    data[~mask] = 0.0
+    packed = dia_kernel.pack_band(
+        torch.from_numpy(data).to(device, dtype), offsets, (rows, cols),
+        torch.from_numpy(mask).to(device))
+    assert packed is not None and packed.rmask is not None
+    return packed, dead
+
+
+def poison(x, dead):
+    """inf and NaN, alternately, in the rows ``dead`` of x (or X)."""
+    x[torch.as_tensor(dead[::2], device=x.device)] = float("inf")
+    x[torch.as_tensor(dead[1::2], device=x.device)] = float("nan")
+    return x
+
+
+def offset_view(shape, dtype, rng, device, offset):
+    """A random tensor of ``shape`` that starts ``offset`` elements into
+    a larger buffer (offset 1: off the 16-byte grid)."""
+    n = int(np.prod(shape))
+    buf = torch.from_numpy(rng.standard_normal(n + offset).astype(
+        np.float32)).to(device, dtype)
+    return buf[offset:].view(shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_offset", [0, 1])
+@pytest.mark.parametrize("case", sorted(DIA_VARIANT_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dia_spmv_variants_match_plain(cuda, dtype, case, x_offset):
+    rng = np.random.default_rng(4)
+    rows, nd = DIA_VARIANT_CASES[case]
+    packed, dead = masked_pack(rows, rows, band_offsets(nd), dtype, rng,
+                               cuda)
+    v = 16 // packed.rdata.element_size()
+    assert dia_kernel.spmv_vector_ok(packed) == (rows % v == 0)
+    x = poison(offset_view((rows,), dtype, rng, cuda, x_offset), dead)
+    before = dia_kernel.dia_spmv.launches
+    y = dia_kernel.dia_spmv(packed, x)
+    assert dia_kernel.dia_spmv.launches == before + 1
+    yp = dia_kernel.dia_spmv_plain(packed.rdata, packed.rmask, x,
+                                   packed.offsets, packed.shape)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all()) and torch.equal(y, yp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_offset", [0, 1])
+@pytest.mark.parametrize("k", sorted(SPMM_VARIANT_K))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dia_spmm_variants_match_plain(cuda, dtype, k, x_offset):
+    rng = np.random.default_rng(5)
+    rows = 4099
+    packed, dead = masked_pack(rows, rows, band_offsets(SPMM_VARIANT_K[k]),
+                               dtype, rng, cuda)
+    X = poison(offset_view((rows, k), dtype, rng, cuda, x_offset), dead)
+    g = 16 // X.element_size()
+    assert dia_kernel.spmm_vector_ok(packed, X) == (k % g == 0
+                                                    and x_offset == 0)
+    before = dia_kernel.dia_spmm.launches
+    Y = dia_kernel.dia_spmm(packed, X)
+    assert dia_kernel.dia_spmm.launches == before + 1
+    Yp = dia_kernel.dia_spmm_plain(packed.rdata, packed.rmask, X,
+                                   packed.offsets, packed.shape)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(Y).all()) and torch.equal(Y, Yp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["csr", "dia"])
+def test_strided_x_on_card(cuda, kind):
+    """``A @ X[:, 0]`` and ``A @ X[:, :1]`` (strided views) take the DIA
+    kernel and equal the call on a contiguous copy bit for bit."""
+    rng = np.random.default_rng(6)
+    n = 5000
+    if kind == "csr":
+        S = _holey(n, rng)
+        S.eliminate_zeros()
+        A = sparse.csr_array(S, device=cuda)
+    else:
+        A = sparse.dia_array(
+            (rng.standard_normal((3, n)).astype(np.float32),
+             np.array([-2, 0, 5])), shape=(n, n), device=cuda)
+    X = torch.from_numpy(rng.standard_normal((n, 3)).astype(np.float32))
+    X = X.to(cuda)
+    y_ref = A @ X[:, 0].contiguous()
+    y = A @ X[:, 0]
+    assert A.spmv_path == "dia-kernel"
+    y1 = A @ X[:, :1]
+    assert A.spmv_path == "dia-kernel" and tuple(y1.shape) == (n, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_ref) and torch.equal(y1[:, 0], y_ref)
 
 
 def _csr(rows, cols, shape, rng):

@@ -45,8 +45,8 @@ from legate_sparse_tpu_torch.ops import dia_ops as tdia_ops
 from legate_sparse_tpu_torch.ops import spmv as tspmv
 from legate_sparse_tpu_torch.settings import settings as tsettings
 
-from test_torch_gpu import (assert_same_nonfinite, many_blocks_case,
-                            nonfinite_case)
+from test_torch_gpu import (SPMM_VARIANT_K, assert_same_nonfinite,
+                            band_offsets, many_blocks_case, nonfinite_case)
 
 
 def _port(A_jax):
@@ -115,15 +115,18 @@ def test_dia_spmm_nonfinite_x_at_holes(rng):
     np.testing.assert_array_equal(Yt.numpy(), Yj)
 
 
-def test_dia_spmm_bf16_product_rounded(rng):
+def _check_spmm_bf16(Aj, X):
+    """The bf16 SpMM rule (module docstring): a numpy emulation bit for
+    bit, the interpret-mode kernel within one bf16 rounding per product
+    and one of the result.  Returns the port's pack and X."""
     bf16 = jnp.bfloat16
-    n, k = 800, 5
-    Aj = jsparse.csr_array(_band(n, [-3, -1, 0, 1, 3], rng)).astype(bf16)
-    X = np.asarray(jnp.asarray(rng.standard_normal((n, k)), bf16))
+    n, m = Aj.shape
+    k = X.shape[1]
+    X = np.asarray(jnp.asarray(X, bf16))
     packed = _port(Aj)._get_dia_pack()
     assert packed.rdata.dtype == torch.bfloat16
-    Yt = dia_kernel.dia_spmm(
-        packed, torch.from_numpy(X.astype(np.float32)).to(torch.bfloat16))
+    Xt = torch.from_numpy(X.astype(np.float32)).to(torch.bfloat16)
+    Yt = dia_kernel.dia_spmm(packed, Xt)
     assert Yt.dtype == torch.bfloat16
     Yt = Yt.float().numpy()
     rdata = packed.rdata.float().numpy()
@@ -132,7 +135,7 @@ def test_dia_spmm_bf16_product_rounded(rng):
     mag = np.zeros((n, k), np.float32)
     for d, off in enumerate(packed.offsets):
         xs = np.zeros((n, k), np.float32)
-        lo, hi = max(0, -off), min(n, n - off)
+        lo, hi = max(0, -off), min(n, m - off)
         xs[lo:hi] = Xf[lo + off:hi + off]
         prod = rdata[d][:, None] * xs             # exact in f32
         acc = acc + prod.astype(bf16).astype(np.float32)
@@ -140,6 +143,43 @@ def test_dia_spmm_bf16_product_rounded(rng):
     np.testing.assert_array_equal(Yt, acc.astype(bf16).astype(np.float32))
     Yj = _jax_spmm(Aj, X)
     assert np.all(np.abs(Yt - Yj) <= 2.0**-8 * (mag + np.abs(Yj)))
+    return packed, Xt
+
+
+def test_dia_spmm_bf16_product_rounded(rng):
+    n, k = 800, 5
+    Aj = jsparse.csr_array(_band(n, [-3, -1, 0, 1, 3], rng)).astype(
+        jnp.bfloat16)
+    _check_spmm_bf16(Aj, rng.standard_normal((n, k)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", sorted(SPMM_VARIANT_K))
+def test_dia_spmm_kernel_variant_boundaries(k, dtype, rng):
+    """The k where the CUDA kernel switches between its 16-byte and
+    scalar variants (k not divisible by 4 in f32, 8 in bf16), each with
+    an nd where the diagonal loop changes (1, the largest unrolled
+    count, one more, 33), at 4099 rows: the plain version against the
+    interpret-mode Pallas kernel, f32 with holes bit for bit, bf16 by
+    ``_check_spmm_bf16``; and the variant the kernel would take, also
+    for an X one element into a larger buffer (scalar)."""
+    n = 4099
+    offsets = list(band_offsets(SPMM_VARIANT_K[k]))
+    X = rng.standard_normal((n, k)).astype(np.float32)
+    if dtype == "float32":
+        Aj = jsparse.csr_array(_band(n, offsets, rng, holes=5))
+        assert Aj._get_dia()[2] is not None
+        packed = _port(Aj)._get_dia_pack()
+        Xt = torch.from_numpy(X)
+        np.testing.assert_array_equal(dia_kernel.dia_spmm(packed, Xt).numpy(),
+                                      _jax_spmm(Aj, X))
+    else:
+        Aj = jsparse.csr_array(_band(n, offsets, rng)).astype(jnp.bfloat16)
+        packed, Xt = _check_spmm_bf16(Aj, X)
+    g = 16 // Xt.element_size()
+    assert dia_kernel.spmm_vector_ok(packed, Xt) == (k % g == 0)
+    buf = torch.zeros(n * k + 1, dtype=Xt.dtype)
+    assert not dia_kernel.spmm_vector_ok(packed, buf[1:].view(n, k))
 
 
 def test_dia_spmm_wrapper_rejects_bad_inputs(rng):
