@@ -31,7 +31,14 @@ Phases, each printing one JSON line:
    one column of X at stored and unstored columns of present blocks,
    k in {5, 16, 40}, int32 and int64 column indices; the NaN/inf
    pattern equal element for element) and DIA SpGEMM (f32 on offsets
-   ±{0, 1, 2}, offsets past ±2^17, a rectangular A·B, bf16);
+   ±{0, 1, 2}, offsets past ±2^17, a rectangular A·B, bf16; and, in
+   f32 and bf16, where it switches between its tiled and general
+   variants or meets a tile's edge: n below one tile and not a
+   multiple of it, an output diagonal with no pair (its row all 0), A's
+   reach at the tiled variant's shared-memory limit and one column
+   past, 9 and 33 diagonals, one tensor as A and B, and two calls with
+   no synchronisation between; each bit for bit, with the variant it
+   took);
 4. main path at full size: the 4096x4096-grid 5-point Poisson operator
    (16,777,216 unknowns, f32) built by ``diags(...)`` in CSR on the
    card; ``A @ x`` through ``"dia-kernel"`` against scipy's f64 SpMV,
@@ -69,7 +76,12 @@ Phases, each printing one JSON line:
    stored nonzeros, not of dense blocks), the plain version's time and
    one PyTorch library call's time
    (``torch.sparse_csr_tensor @ x``, ``@ X`` or ``@`` another
-   ``sparse_csr_tensor``: a yardstick the port never calls).
+   ``sparse_csr_tensor``: a yardstick the port never calls).  The
+   SpGEMM kernel is timed with B a distinct copy of A's band; beside it
+   its device time per call under ``torch.profiler`` over the same 10
+   calls (the trace must hold no copy and fewer synchronisations than
+   calls), and the aliased ``A @ A`` whole and split into the kernel and
+   ``band_to_csr``.
 
 Launch counts come from the kernel wrappers: each is set to 0 just
 before a main-path phase drives its path and read just after.  Any
@@ -119,6 +131,7 @@ def main() -> int:
     from legate_sparse_tpu_torch.ops import _build
     from legate_sparse_tpu_torch.ops import bsr as bsr_ops
     from legate_sparse_tpu_torch.ops import dia_kernel
+    from legate_sparse_tpu_torch.ops import dia_ops
     from legate_sparse_tpu_torch.ops import spmv as spmv_ops
 
     warnings.filterwarnings(
@@ -168,6 +181,38 @@ def main() -> int:
             end.synchronize()
             times.append(start.elapsed_time(end) / INNER)
         return float(np.median(times))
+
+    def profile_calls(fn, name: str) -> dict:
+        """``INNER`` calls of ``fn`` in a row under ``torch.profiler``:
+        the device time per call of the kernels whose name holds
+        ``name`` (None when the trace holds no device time), and the
+        count of every copy and synchronisation in the trace."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(INNER):
+                fn()
+            end = torch.cuda.Event()
+            end.record()
+            end.synchronize()
+        rows = prof.key_averages()
+
+        def device_us(e):
+            return float(getattr(e, "device_time_total",
+                                 getattr(e, "cuda_time_total", 0.0)))
+
+        kern = [e for e in rows if name in e.key and device_us(e) > 0]
+        return {"kernel_device_ms_per_call": (
+                    sum(device_us(e) for e in kern) / 1e3 / INNER
+                    if kern else None),
+                "kernels": {e.key: e.count for e in kern},
+                "copies": {e.key: e.count for e in rows
+                           if "memcpy" in e.key.lower()},
+                "synchronizations": {e.key: e.count for e in rows
+                                     if "synchronize" in e.key.lower()}}
 
     def max_abs(a, b) -> float:
         return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
@@ -518,19 +563,40 @@ def main() -> int:
                           "path": St.spmv_path, "bitwise": True})
     del St, Xs, ys, ys1, yps, ps
 
-    def spgemm_case(name, m_, k_, n_, offs_a, offs_b, dtype):
+    def spgemm_offs_c(offs_a, offs_b):
+        return tuple(sorted({oa + ob for oa in offs_a for ob in offs_b}))
+
+    def spgemm_case(name, m_, k_, n_, offs_a, offs_b, dtype, aliased=False,
+                    twice=False):
+        """The SpGEMM kernel against its plain version, bit for bit, with
+        the variant it took.  ``aliased``: one tensor as A and B;
+        ``twice``: two calls with no synchronisation between."""
         a = randX(len(offs_a), k_, dtype)
-        b = randX(len(offs_b), n_, dtype)
-        offs_c = tuple(sorted({oa + ob for oa in offs_a for ob in offs_b}))
+        b = a if aliased else randX(len(offs_b), n_, dtype)
+        offs_c = spgemm_offs_c(offs_a, offs_b)
+        pairs = dia_kernel.spgemm_pairs(offs_a, offs_b, offs_c, (m_, k_),
+                                        (k_, n_))
+        tiled = dia_kernel.spgemm_tiled_ok(
+            offs_a, offs_b, offs_c, sum(map(len, pairs)), (m_, k_),
+            (k_, n_), dtype)
         C = dia_kernel.dia_spgemm(a, b, offs_a, offs_b, offs_c, (m_, k_),
                                   (k_, n_))
+        C2 = (dia_kernel.dia_spgemm(a, b, offs_a, offs_b, offs_c, (m_, k_),
+                                    (k_, n_)) if twice else C)
         Cp = dia_kernel.dia_spgemm_plain(a, b, offs_a, offs_b, offs_c,
                                          (m_, k_), (k_, n_))
         err = close(C, Cp, 1e-6, name)
-        check(torch.equal(C, Cp), f"{name}: not bitwise equal")
+        check(torch.equal(C, Cp) and torch.equal(C2, Cp),
+              f"{name}: not bitwise equal")
+        empty = [ci for ci, ps in enumerate(pairs) if not ps]
+        check(not empty or not bool(C[empty].any()),
+              f"{name}: an output diagonal with no pair is not 0")
         return {"case": name, "shape_a": [m_, k_], "shape_b": [k_, n_],
-                "offs_a": list(offs_a), "offs_b": list(offs_b),
-                "dtype": str(dtype), "max_abs_err": err, "bitwise": True}
+                "offs_a": list(offs_a) if len(offs_a) <= 9 else len(offs_a),
+                "offs_b": list(offs_b) if len(offs_b) <= 9 else len(offs_b),
+                "dtype": str(dtype), "variant": "tiled" if tiled
+                else "general", "empty_diags": len(empty),
+                "max_abs_err": err, "bitwise": True}
 
     pm2 = (-2, -1, 0, 1, 2)
     spgemm_cases = [
@@ -540,6 +606,41 @@ def main() -> int:
         spgemm_case("f32-rect", n, n - 1000, n + 500, (-3, 0, 2),
                     (-1, 0, 4), torch.float32),
         spgemm_case("bf16-pm012", n, n, n, pm2, pm2, torch.bfloat16)]
+    # Where the kernel switches between its tiled and general variants,
+    # and its tiles' edges (1,024 columns a tile).
+    nd9 = tuple(2 * d - 9 for d in range(9))
+    nd33 = tuple(2 * d - 33 for d in range(33))
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        # offs_a = (-1, 0), offs_b = (0, span): 4 output diagonals, 4
+        # pairs.
+        span = dia_kernel.spgemm_max_span(2, 2, 4, 4, dtype)
+        spgemm_cases += [
+            spgemm_case(f"{dn}-n-below-tile", 700, 700, 700, pm2, pm2, dtype),
+            spgemm_case(f"{dn}-n-not-tile-multiple", n, n + 1, n - 3,
+                        (-3, 0, 2), (-1, 0, 4), dtype),
+            spgemm_case(f"{dn}-rect-empty-diag", 1500, 1200, 1300,
+                        (-1499, 0, 3), (-1199, 0, 2), dtype),
+            spgemm_case(f"{dn}-reach-at-limit", span + 600, span + 600,
+                        span + 600, (-1, 0), (0, span), dtype),
+            spgemm_case(f"{dn}-reach-past-limit", span + 601, span + 601,
+                        span + 601, (-1, 0), (0, span + 1), dtype),
+            spgemm_case(f"{dn}-nd9", 1 << 18, 1 << 18, 1 << 18, nd9, nd9,
+                        dtype),
+            spgemm_case(f"{dn}-nd33", 1 << 16, 1 << 16, 1 << 16, nd33, nd33,
+                        dtype),
+            spgemm_case(f"{dn}-aliased", n, n, n, pm2, pm2, dtype,
+                        aliased=True),
+            spgemm_case(f"{dn}-twice-no-sync", n, n, n, pm2, pm2, dtype,
+                        twice=True)]
+    check([c["variant"] for c in spgemm_cases]
+          == ["tiled", "general", "tiled", "tiled"]
+          + ["tiled"] * 4 + ["general", "tiled", "general", "tiled", "tiled"]
+          + ["tiled"] * 4 + ["general", "tiled", "tiled", "tiled", "tiled"],
+          f"SpGEMM variants taken: {[c['variant'] for c in spgemm_cases]}")
+    check(all(c["empty_diags"] > 0 for c in spgemm_cases
+              if "empty-diag" in c["case"]),
+          "rect-empty-diag must have an output diagonal with no pair")
     log({"phase": "kernels_vs_plain", "dia": cases, "bsr": bsr_cases,
          "dia_spmm": spmm_cases, "dia_variants": variant_cases,
          "dia_spgemm": spgemm_cases})
@@ -892,14 +993,20 @@ def main() -> int:
 
     da = Ab._get_dia()
     offs_c = C._dia[1]
-    Ck = dia_kernel.dia_spgemm(da[0], da[0], da[1], da[1], offs_c, Ab.shape,
-                               Ab.shape)
-    Cpl = dia_kernel.dia_spgemm_plain(da[0], da[0], da[1], da[1], offs_c,
-                                      Ab.shape, Ab.shape)
+    nnz_c = C.nnz
+    del C
+    # Timed with B a distinct copy of A's band: with one tensor as both,
+    # B's loads hit in L2 the bytes A just staged, and the bound would
+    # count bytes that are never read from device memory.
+    b_band = da[0].clone()
+    spgemm_args = (da[1], da[1], offs_c, Ab.shape, Ab.shape)
+    Ck = dia_kernel.dia_spgemm(da[0], b_band, *spgemm_args)
+    Cpl = dia_kernel.dia_spgemm_plain(da[0], b_band, *spgemm_args)
     spgemm_kernel_err = close(Ck, Cpl, 1e-6, "banded SpGEMM kernel vs plain")
     check(torch.equal(Ck, Cpl), "banded SpGEMM kernel: not bitwise equal")
-    del Ck, Cpl, C
-    pairs = dia_kernel.spgemm_pairs(da[1], da[1], offs_c, Ab.shape, Ab.shape)
+    del Ck, Cpl
+    pairs = dia_kernel.spgemm_pairs(*spgemm_args)
+    npairs = sum(map(len, pairs))
     nb_ = 4 * (2 * len(da[1]) * N + len(offs_c) * N)
     nops_ = 2 * sum(hi - lo for ps in pairs for (_, _, _, lo, hi) in ps)
     Ab_lib = torch.sparse_csr_tensor(Ab.indptr, Ab.indices.to(torch.int64),
@@ -911,20 +1018,44 @@ def main() -> int:
         "replaces": "legate_sparse_tpu/ops/pallas_dia.py:609",
         "launches": spgemm_counts["dia_spgemm"],
         "max_abs_err": spgemm_kernel_err,
-        "ms": time_ms(lambda: dia_kernel.dia_spgemm(
-            da[0], da[0], da[1], da[1], offs_c, Ab.shape, Ab.shape)),
+        "ms": time_ms(lambda: dia_kernel.dia_spgemm(da[0], b_band,
+                                                    *spgemm_args)),
         "plain_ms": time_ms(lambda: dia_kernel.dia_spgemm_plain(
-            da[0], da[0], da[1], da[1], offs_c, Ab.shape, Ab.shape)),
+            da[0], b_band, *spgemm_args)),
         **bound(nb_, nops_),
         "library_ms": time_ms(lambda: Ab_lib @ Ab_lib, reps=5),
         "shape": {"rows": N, "diags_a": len(da[1]), "diags_c": len(offs_c),
-                  "dtype": "float32", "bytes": nb_},
+                  "pairs": npairs, "dtype": "float32", "bytes": nb_,
+                  "b": "a distinct copy of A's band",
+                  "variant": "tiled" if dia_kernel.spgemm_tiled_ok(
+                      da[1], da[1], offs_c, npairs, Ab.shape, Ab.shape,
+                      torch.float32) else "general"},
     }
-    # Like for like with ``library_ms``: the whole ``A @ A`` (the kernel,
-    # then ``band_to_csr``), also a complete CSR product.
+    # The same INNER calls in a row under the profiler: the kernel's
+    # device time beside its event time shows any host gap between the
+    # calls, and the trace's copies and synchronisations show what a
+    # call costs the stream (the loop ends on one event synchronize).
+    prof = profile_calls(lambda: dia_kernel.dia_spgemm(da[0], b_band,
+                                                       *spgemm_args),
+                         "dia_spgemm")
+    check(not prof["copies"]
+          and sum(prof["synchronizations"].values()) < INNER,
+          f"{INNER} dia_spgemm calls copied or synchronised per call: "
+          f"{prof}")
+    # ``A @ A`` as the main path runs it, one tensor as A and B: the
+    # whole product (like for like with ``library_ms``, also a complete
+    # CSR product) and its split, the kernel then ``band_to_csr``.
+    Cd = dia_kernel.dia_spgemm(da[0], da[0], *spgemm_args)
     log({"phase": "timing_dia_spgemm", **dia_spgemm_row,
-         "a_at_a_ms": time_ms(lambda: Ab @ Ab, reps=5)})
-    del Ab, Ab_lib, da
+         "profiler": prof, "table_cache": str(
+             dia_kernel.spgemm_table.cache_info()),
+         "a_at_a_ms": time_ms(lambda: Ab @ Ab, reps=5),
+         "a_at_a_split_ms": {
+             "dia_spgemm_aliased": time_ms(lambda: dia_kernel.dia_spgemm(
+                 da[0], da[0], *spgemm_args)),
+             "band_to_csr": time_ms(lambda: dia_ops.band_to_csr(
+                 Cd, offs_c, Ab.shape, nnz_c), reps=5)}})
+    del Ab, Ab_lib, da, b_band, Cd
     torch.cuda.empty_cache()
 
     # ---- 8. GMG-preconditioned CG on the 4096x4096 Poisson grid -------------

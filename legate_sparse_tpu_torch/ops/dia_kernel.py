@@ -36,6 +36,7 @@ result is rounded once more, to the storage type.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -372,12 +373,92 @@ def dia_spgemm_plain(a_data, b_data, offs_a: Tuple[int, ...],
     return C.to(dtype)
 
 
+# The tiled variant of ``csrc/dia_spgemm.cu``: a CTA owns
+# ``SPGEMM_TILE`` columns and stages A's band over the tile's reach and
+# B's over the tile in at most ``SPGEMM_SMEM_MAX`` bytes of shared
+# memory; n and k below ``SPGEMM_MAX_COLS`` keep its indices 32-bit.
+SPGEMM_TILE = 1024
+SPGEMM_SMEM_MAX = 232448
+SPGEMM_MAX_COLS = 1 << 30
+
+
+def spgemm_tiled_smem(nda: int, ndb: int, ndc: int, npairs: int, span: int,
+                      itemsize: int) -> int:
+    """Shared memory bytes of one tiled CTA (``tiled_smem`` in
+    ``csrc/dia_spgemm.cu``): A's rows over the tile and a halo of
+    ``span = max(offs_b) - min(offs_b)`` columns, B's rows over the tile,
+    each with room to start at a 16-byte boundary, and the pair table."""
+    v16 = 16 // itemsize
+    wa = (SPGEMM_TILE + span + 2 * v16 - 2) // v16 * v16
+    wb = SPGEMM_TILE + v16
+    return itemsize * (nda * wa + ndb * wb) + 16 * npairs + 4 * (ndc + 1)
+
+
+def spgemm_max_span(nda: int, ndb: int, ndc: int, npairs: int,
+                    dtype: torch.dtype) -> int:
+    """The widest ``span`` whose ``spgemm_tiled_smem`` fits
+    ``SPGEMM_SMEM_MAX`` (-1 where none does): the tiled variant's reach
+    limit for these diagonal and pair counts, ``nda >= 1``."""
+    v16 = 16 // dtype.itemsize
+    budget = (SPGEMM_SMEM_MAX - 16 * npairs - 4 * (ndc + 1)
+              - dtype.itemsize * ndb * (SPGEMM_TILE + v16))
+    # A's row width wa is the multiple of v16 that rounds up
+    # SPGEMM_TILE + span + 2 v16 - 2; the widest wa that fits gives span.
+    wa = budget // (dtype.itemsize * nda) // v16 * v16
+    return max(-1, wa - SPGEMM_TILE - v16 + 1)
+
+
+def spgemm_tiled_ok(offs_a: Tuple[int, ...], offs_b: Tuple[int, ...],
+                    offs_c: Tuple[int, ...], npairs: int,
+                    shape_a: Tuple[int, int], shape_b: Tuple[int, int],
+                    dtype: torch.dtype) -> bool:
+    """Whether ``csrc/dia_spgemm.cu`` takes its tiled variant: the CTA's
+    staged bands and pair table fit ``SPGEMM_SMEM_MAX`` and n, k and the
+    offsets of B stay below ``SPGEMM_MAX_COLS``.  Every other product
+    takes the general variant of the same kernel."""
+    k, n = shape_b
+    max_ob, span = spgemm_reach(offs_b)
+    return (n < SPGEMM_MAX_COLS and k < SPGEMM_MAX_COLS
+            and abs(max_ob) < SPGEMM_MAX_COLS and span < SPGEMM_MAX_COLS
+            and len(offs_a) <= MAX_DIAGS and len(offs_b) <= MAX_DIAGS
+            and spgemm_tiled_smem(len(offs_a), len(offs_b), len(offs_c),
+                                  npairs, span, dtype.itemsize)
+            <= SPGEMM_SMEM_MAX)
+
+
+def spgemm_reach(offs_b: Tuple[int, ...]) -> Tuple[int, int]:
+    """``(max(offs_b), max(offs_b) - min(offs_b))``: a tile of columns
+    ``[j0, j0 + T)`` reads A's columns ``[j0 - max, j0 + T - min)``."""
+    return (max(offs_b), max(offs_b) - min(offs_b)) if offs_b else (0, 0)
+
+
+@functools.lru_cache(maxsize=64)
+def spgemm_table(offs_a: Tuple[int, ...], offs_b: Tuple[int, ...],
+                 offs_c: Tuple[int, ...], shape_a: Tuple[int, int],
+                 shape_b: Tuple[int, int], device: torch.device):
+    """The kernel's pair table on ``device``, built once per product
+    shape: ``(pairs, ptr, npairs)`` with ``pairs`` the (npairs, 5) int64
+    rows ``spgemm_pairs`` gives, output diagonal by output diagonal, and
+    ``ptr`` (ndc + 1,) int64 the first row of each.  A call that finds it
+    here copies nothing to the card."""
+    by_c = spgemm_pairs(offs_a, offs_b, offs_c, shape_a, shape_b)
+    flat = [p for pairs in by_c for p in pairs]
+    ptr = [0]
+    for pairs in by_c:
+        ptr.append(ptr[-1] + len(pairs))
+    pairs_t = torch.tensor(flat if flat else [(0, 0, 0, 0, 0)],
+                           dtype=torch.int64).to(device)
+    ptr_t = torch.tensor(ptr, dtype=torch.int64).to(device)
+    return pairs_t, ptr_t, len(flat)
+
+
 def _spgemm_lib() -> ctypes.CDLL:
     lib = _build.load("dia_spgemm")
     for fn in (lib.dia_spgemm_f32, lib.dia_spgemm_bf16):
         if fn.argtypes is None:
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [
-                ctypes.c_void_p] * 3
+            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 8
+                           + [ctypes.c_void_p] * 2
+                           + [ctypes.c_int, ctypes.c_void_p])
             fn.restype = ctypes.c_int
     return lib
 
@@ -387,7 +468,8 @@ def dia_spgemm(a_data, b_data, offs_a: Tuple[int, ...],
                shape_a: Tuple[int, int],
                shape_b: Tuple[int, int]) -> torch.Tensor:
     """C_dia (ndc, n) = A_dia @ B_dia over exact scipy-layout bands (A
-    (nda, k), B (ndb, n)): the CUDA kernel for CUDA tensors, the plain
+    (nda, k), B (ndb, n)): the CUDA kernel for CUDA tensors (its tiled
+    variant where ``spgemm_tiled_ok``, else its general one), the plain
     version for CPU tensors."""
     m, k = shape_a
     kb, n = shape_b
@@ -417,22 +499,27 @@ def dia_spgemm(a_data, b_data, offs_a: Tuple[int, ...],
     if ndc > 65535:
         raise ValueError(f"dia_spgemm: {ndc} output diagonals exceed the "
                          f"grid")
-    by_c = spgemm_pairs(offs_a, offs_b, offs_c, shape_a, shape_b)
-    flat = [p for pairs in by_c for p in pairs]
-    ptr = [0]
-    for pairs in by_c:
-        ptr.append(ptr[-1] + len(pairs))
-    pairs_t = torch.tensor(flat if flat else [(0, 0, 0, 0, 0)],
-                           dtype=torch.int64).to(dev)
-    ptr_t = torch.tensor(ptr, dtype=torch.int64).to(dev)
+    offs_a, offs_b, offs_c = tuple(offs_a), tuple(offs_b), tuple(offs_c)
+    shape_a, shape_b = tuple(shape_a), tuple(shape_b)
+    pairs_t, ptr_t, npairs = spgemm_table(offs_a, offs_b, offs_c, shape_a,
+                                          shape_b, dev)
+    tiled = spgemm_tiled_ok(offs_a, offs_b, offs_c, npairs, shape_a,
+                            shape_b, b_data.dtype)
     C = torch.empty((ndc, n), dtype=b_data.dtype, device=dev)
     lib = _spgemm_lib()
     fn = (lib.dia_spgemm_f32 if b_data.dtype == torch.float32
           else lib.dia_spgemm_bf16)
+    max_ob, span = spgemm_reach(offs_b)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+        current = torch.cuda.current_stream()
+        # The cached table may be evicted while this launch still reads
+        # it: keep its blocks from reuse until this stream gets past it.
+        pairs_t.record_stream(current)
+        ptr_t.record_stream(current)
+        stream = current.cuda_stream
         err = fn(a_data.data_ptr(), b_data.data_ptr(), C.data_ptr(), k, n,
-                 ndc, pairs_t.data_ptr(), ptr_t.data_ptr(), stream)
+                 len(offs_a), len(offs_b), ndc, npairs, max_ob, span,
+                 pairs_t.data_ptr(), ptr_t.data_ptr(), int(tiled), stream)
     if err != 0:
         raise RuntimeError(f"dia_spgemm: kernel launch failed with "
                            f"cudaError {err}")

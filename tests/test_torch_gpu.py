@@ -15,7 +15,11 @@ versions' arithmetic in the same order, so each pair agrees bit for bit
 (``DIA_VARIANT_CASES``, ``SPMM_VARIANT_K``: the shapes where they
 switch between their 16-byte and scalar variants and between an
 unrolled and a chunked diagonal loop, shared with the CPU tests
-``test_torch_dia.py`` and ``test_torch_spmm.py``); the BSR SpMV and
+``test_torch_dia.py`` and ``test_torch_spmm.py``), and in both
+variants of the SpGEMM kernel (``SPGEMM_KERNEL_CASES`` and the reach
+cases: where it switches between its tiled and general variants and
+where a tile meets the matrix's edge, shared with
+``test_torch_spgemm.py``); the BSR SpMV and
 SpMM kernels walk the stored nonzeros and sum in another order than
 the plain versions' batched dense product, so rtol = atol = 1e-5,
 with the NaN/inf pattern equal exactly where x holds inf or NaN
@@ -365,23 +369,89 @@ def test_bsr_spmm_kernel_matches_plain(cuda, dtype, k, case):
     assert_same_nonfinite(Y.cpu().numpy(), Yp.cpu().numpy())
 
 
+_PM2 = (-2, -1, 0, 1, 2)
+# Where the banded SpGEMM kernel (``csrc/dia_spgemm.cu``) switches
+# between its tiled and general variants, and the edges of its tiles of
+# ``dia_kernel.SPGEMM_TILE`` columns: (m, k, n, offs_a, offs_b) per
+# case, shared with the CPU tests (``test_torch_spgemm.py``).  In
+# "rect-empty-diag" the output diagonal -2698 has no valid pair, so its
+# row of C is 0.  The "reach-*" cases (``spgemm_reach_case``) put A's
+# staged reach exactly at the tiled variant's shared-memory limit and
+# one column past it.
+SPGEMM_KERNEL_CASES = {
+    "pm2": (5000, 4000, 4500, _PM2, _PM2),
+    "far": (5000, 4000, 4500, (-300, 0, 7), (-5, 0, 299)),
+    "n-below-tile": (700, 700, 700, _PM2, _PM2),
+    "n-not-tile-multiple": (5000, 5001, 4999, (-3, 0, 2), (-1, 0, 4)),
+    "rect-empty-diag": (1500, 1200, 1300, (-1499, 0, 3), (-1199, 0, 2)),
+    "nd9": (20000, 20000, 20000, band_offsets(9), band_offsets(9)),
+    "nd33": (20000, 20000, 20000, band_offsets(33), band_offsets(33)),
+}
+
+
+def spgemm_offs_c(offs_a, offs_b):
+    return tuple(sorted({a + b for a in offs_a for b in offs_b}))
+
+
+def spgemm_reach_case(dtype, past: bool):
+    """(m, k, n, offs_a, offs_b) with A's staged reach (the span of
+    offs_b) the widest the tiled variant takes in ``dtype``, or one
+    column wider: 2 + 2 diagonals into 4, with 4 pairs."""
+    span = dia_kernel.spgemm_max_span(2, 2, 4, 4, dtype) + past
+    return span + 600, span + 600, span + 600, (-1, 0), (0, span)
+
+
+def spgemm_case(name, dtype):
+    if name.startswith("reach-"):
+        return spgemm_reach_case(dtype, name == "reach-past-limit")
+    return SPGEMM_KERNEL_CASES[name]
+
+
+# The variant each case takes: the tiled one, except past the reach
+# limit and, in f32, at 33 diagonals (the staged bands pass 227 KB).
+def spgemm_expect_tiled(name, dtype):
+    return not (name == "reach-past-limit"
+                or (name == "nd33" and dtype == torch.float32))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("offs", [((-2, -1, 0, 1, 2), (-2, -1, 0, 1, 2)),
-                                  ((-300, 0, 7), (-5, 0, 299))])
-def test_dia_spgemm_kernel_matches_plain(cuda, dtype, offs):
+@pytest.mark.parametrize("case", sorted(SPGEMM_KERNEL_CASES) + [
+    "reach-at-limit", "reach-past-limit", "aliased", "twice"])
+def test_dia_spgemm_kernel_matches_plain(cuda, dtype, case):
+    """Bit for bit with the plain version in each variant.  "aliased"
+    passes one tensor as A and B; "twice" calls the kernel twice with
+    no synchronisation between (the pair table is cached on the card,
+    so the second call copies nothing), equal both times."""
     rng = np.random.default_rng(3)
-    m, k, n = 5000, 4000, 4500
-    offs_a, offs_b = offs
-    offs_c = tuple(sorted({a + b for a in offs_a for b in offs_b}))
+    m, k, n, offs_a, offs_b = (spgemm_case("pm2", dtype)
+                               if case in ("aliased", "twice")
+                               else spgemm_case(case, dtype))
+    if case == "aliased":
+        m = k = n = 9000
+    offs_c = spgemm_offs_c(offs_a, offs_b)
     a = torch.from_numpy(rng.standard_normal((len(offs_a), k))
                          .astype(np.float32)).to(cuda, dtype)
-    b = torch.from_numpy(rng.standard_normal((len(offs_b), n))
-                         .astype(np.float32)).to(cuda, dtype)
+    b = a if case == "aliased" else torch.from_numpy(
+        rng.standard_normal((len(offs_b), n)).astype(np.float32)).to(
+            cuda, dtype)
+    pairs = dia_kernel.spgemm_pairs(offs_a, offs_b, offs_c, (m, k), (k, n))
+    assert dia_kernel.spgemm_tiled_ok(
+        offs_a, offs_b, offs_c, sum(map(len, pairs)), (m, k), (k, n),
+        dtype) == spgemm_expect_tiled(case, dtype)
     before = dia_kernel.dia_spgemm.launches
     C = dia_kernel.dia_spgemm(a, b, offs_a, offs_b, offs_c, (m, k), (k, n))
     assert dia_kernel.dia_spgemm.launches == before + 1
+    if case == "twice":
+        C2 = dia_kernel.dia_spgemm(a, b, offs_a, offs_b, offs_c, (m, k),
+                                   (k, n))
+        assert dia_kernel.dia_spgemm.launches == before + 2
     Cp = dia_kernel.dia_spgemm_plain(a, b, offs_a, offs_b, offs_c, (m, k),
                                      (k, n))
     torch.cuda.synchronize()
     assert C.dtype == dtype and torch.equal(C, Cp)
+    if case == "twice":
+        assert torch.equal(C2, Cp)
+    if case == "rect-empty-diag":
+        empty = [ci for ci, ps in enumerate(pairs) if not ps]
+        assert empty and not bool(C[empty].any())

@@ -20,7 +20,8 @@ from legate_sparse_tpu_torch import runtime
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "legate_sparse_tpu_torch"
 PORT_FILES = sorted(p.relative_to(ROOT).as_posix()
-                    for p in PKG.rglob("*.py")) + ["chip_smoke.py"]
+                    for p in PKG.rglob("*.py")) + ["chip_smoke.py",
+                                                   "chip_spgemm_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "legate_sparse_tpu")
 
 

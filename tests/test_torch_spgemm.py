@@ -8,9 +8,13 @@ wrapper takes its plain version.  Tolerances:
 
 - banded kernel, f32: the plain version equals the interpret-mode
   Pallas kernel (``pallas_dia_spgemm``) bit for bit: both add each
-  output slot's products in ``offs_b`` order in f32.  Against the XLA
-  route ``dia_ops.dia_spgemm``, which adds in ``offs_a`` order, rtol =
-  atol = 1e-6;
+  output slot's products in ``offs_b`` order in f32 (the suite's
+  ``--xla_backend_optimization_level=0`` keeps XLA:CPU from fusing a
+  product into the next add as an FMA in the interpret run).  Against
+  the XLA route ``dia_ops.dia_spgemm``, which adds in ``offs_a`` order,
+  rtol = atol = 1e-6; with 33 products a slot ("nd33") the two orders
+  part by more, so there each side is held to the bound of recursive
+  summation, |Δ| <= 2 (terms - 1) 2^-24 Σ|a b|;
 - banded kernel, bf16: a numpy emulation of the stated rule (product
   rounded to bf16, sum in f32) bit for bit; the interpret-mode kernel
   keeps the product exact in f32, so against it the bound is one bf16
@@ -40,6 +44,10 @@ from legate_sparse_tpu_torch import interop
 from legate_sparse_tpu_torch.ops import dia_kernel
 from legate_sparse_tpu_torch.ops import dia_ops as tdia_ops
 from legate_sparse_tpu_torch.ops import spgemm as tspgemm
+
+from test_torch_gpu import (SPGEMM_KERNEL_CASES, band_offsets, spgemm_case,
+                            spgemm_expect_tiled, spgemm_offs_c,
+                            spgemm_reach_case)
 
 
 def _port(A_jax):
@@ -94,10 +102,21 @@ def _to_torch(a, dtype=torch.float32):
     return torch.from_numpy(np.array(a, dtype=np.float32)).to(dtype)
 
 
+# Small versions of the shapes where the CUDA kernel switches variants
+# or meets its tiles' edges (``test_torch_gpu.SPGEMM_KERNEL_CASES``): n
+# below one tile ("square-pm012", "rectangular") and not a multiple of
+# it, an output diagonal with no valid pair, 9 and 33 diagonals, A's
+# reach at the tiled variant's limit and one column past.
 SPGEMM_CASES = {
     "square-pm012": (600, 600, 600, (-2, -1, 0, 1, 2), (-2, -1, 0, 1, 2)),
     "large-offsets": (3000, 3000, 3000, (-1100, 0, 7), (-5, 0, 1100)),
     "rectangular": (300, 400, 350, (-1, 0), (0, 2)),
+    "n-not-tile-multiple": (2100, 2101, 2099, (-3, 0, 2), (-1, 0, 4)),
+    "rect-empty-diag": SPGEMM_KERNEL_CASES["rect-empty-diag"],
+    "nd9": (1500, 1500, 1500, band_offsets(9), band_offsets(9)),
+    "nd33": (1200, 1200, 1200, band_offsets(33), band_offsets(33)),
+    "reach-at-limit": spgemm_reach_case(torch.float32, False),
+    "reach-past-limit": spgemm_reach_case(torch.float32, True),
 }
 
 
@@ -114,7 +133,68 @@ def test_dia_spgemm_plain_matches_interpret_kernel(case, rng):
     np.testing.assert_array_equal(Ct.numpy(), Cj)
     Cx = np.asarray(jdia_ops.dia_spgemm(da[0], db[0], da[1], db[1], offs_c,
                                         Aj.shape, Bj.shape))
-    np.testing.assert_allclose(Ct.numpy(), Cx, rtol=1e-6, atol=1e-6)
+    pairs = dia_kernel.spgemm_pairs(da[1], db[1], offs_c, Aj.shape,
+                                    Bj.shape)
+    if max(map(len, pairs)) <= 9:
+        np.testing.assert_allclose(Ct.numpy(), Cx, rtol=1e-6, atol=1e-6)
+    else:
+        # Up to 33 products a slot: the two summation orders each stay
+        # within (terms - 1) 2^-24 sum |a b| of the exact sum.
+        a, b = np.asarray(da[0]), np.asarray(db[0])
+        mag = np.zeros_like(Cx)
+        for ci, ps in enumerate(pairs):
+            for a_i, b_i, ob, lo, hi in ps:
+                mag[ci, lo:hi] += np.abs(a[a_i, lo - ob:hi - ob]
+                                         * b[b_i, lo:hi])
+        bound = 2 * (max(map(len, pairs)) - 1) * 2.0**-24 * mag
+        assert np.all(np.abs(Ct.numpy() - Cx) <= bound)
+    if case == "rect-empty-diag":
+        empty = [ci for ci, ps in enumerate(pairs) if not ps]
+        assert empty and not Ct[empty].any()
+
+
+def test_dia_spgemm_aliased_operands_match_interpret_kernel(rng):
+    """One tensor passed as A and B, as ``A @ A`` does."""
+    A_sp = _exact_band(2000, [-2, -1, 0, 1, 2], rng)
+    Aj, _, da, _, offs_c = _bands(A_sp, A_sp)
+    a = _to_torch(da[0])
+    Ct = dia_kernel.dia_spgemm(a, a, da[1], da[1], offs_c, Aj.shape,
+                               Aj.shape)
+    np.testing.assert_array_equal(
+        Ct.numpy(), _jax_interpret(Aj, Aj, da, da, offs_c))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dia_spgemm_variant_chooser(dtype):
+    """The pde band at the chip shape takes the tiled variant; offsets
+    past its reach, 33 diagonals in f32 (the staged bands pass 227 KB)
+    and n at 2^30 take the general one, as do the GPU test cases."""
+    def tiled(shape_a, shape_b, offs_a, offs_b):
+        offs_c = spgemm_offs_c(offs_a, offs_b)
+        pairs = dia_kernel.spgemm_pairs(offs_a, offs_b, offs_c, shape_a,
+                                        shape_b)
+        return dia_kernel.spgemm_tiled_ok(offs_a, offs_b, offs_c,
+                                          sum(map(len, pairs)), shape_a,
+                                          shape_b, dtype)
+
+    n, pm2 = 1 << 24, (-2, -1, 0, 1, 2)
+    assert tiled((n, n), (n, n), pm2, pm2)
+    n2, far = 1 << 19, (1 << 17) + 3
+    assert not tiled((n2, n2), (n2, n2), (-far, 0, 129), (-129, 0, far))
+    big = 1 << 30
+    assert not tiled((big, big), (big, big), pm2, pm2)
+    assert tiled((big - 1, big - 1), (big - 1, big - 1), pm2, pm2)
+    for case in sorted(SPGEMM_KERNEL_CASES) + ["reach-at-limit",
+                                                 "reach-past-limit"]:
+        m, k, n, offs_a, offs_b = spgemm_case(case, dtype)
+        assert (tiled((m, k), (k, n), offs_a, offs_b)
+                == spgemm_expect_tiled(case, dtype)), case
+    # The reach limit is the shared-memory budget, to the byte.
+    m, k, n, offs_a, offs_b = spgemm_case("reach-at-limit", dtype)
+    smem = dia_kernel.spgemm_tiled_smem(
+        2, 2, 4, 4, offs_b[1], dtype.itemsize)
+    assert smem <= dia_kernel.SPGEMM_SMEM_MAX < dia_kernel.spgemm_tiled_smem(
+        2, 2, 4, 4, offs_b[1] + 16 // dtype.itemsize, dtype.itemsize)
 
 
 def test_dia_spgemm_bf16_product_rounded(rng):
