@@ -69,7 +69,25 @@ Phases, each printing one JSON line:
    Galerkin product is held to scipy's f64 ``R @ A @ P`` on a seeded
    sample of rows, and x to the exact solution of the f64 system (by
    the discrete sine transform on the host);
-9. for each kernel at the shapes of phases 4-7: its time (CUDA events
+9. the scipy facade (``main_path_facade``) at full size, into the
+   kernels: on the pde_4096 operator, ``tril(A) + triu(A, 1)`` equal to
+   A bit for bit and its ``@ x`` through ``"dia-kernel"`` equal to
+   ``A @ x``; ``(A - A.T).eliminate_zeros()`` and ``A != A.T`` empty;
+   ``A.tocoo().tocsr()`` and ``A.tocsc().tocsr()`` equal to A,
+   ``A.todia() @ x`` to ``A @ x``; ``setdiag(5.0)`` and then
+   ``setdiag(1.0, k=2)`` (a new diagonal) on a copy, whose ``@ x``
+   takes the new band through the kernel, held to scipy f64 as in phase
+   4, as is ``A.multiply(A) @ x``; sums, ``max``, ``count_nonzero``, a
+   row slice and single entries against scipy.  On a block-clustered
+   2^20 matrix as in phase 6, ``R + R`` keeps R's pattern and its
+   ``@ x`` through ``"bsr"`` equals ``2 * (R @ x)``; ``R.T.T`` equals
+   R.  An R-MAT graph (``gallery.rmat(20, nnz_per_row=8, rng=0)``, f64)
+   built on the card, ``sum_duplicates`` and ``G + G.T`` against scipy
+   (the pattern exactly, the values to 1e-12), its ``@ x`` on the path
+   the dispatch picks against scipy f64.  Each op's card ms (CUDA events, median of 5 after one
+   warmup) beside scipy's host seconds for the same op, and the phase's
+   launch counts (``dia_spmv`` and ``bsr_spmv`` must be among them);
+10. for each kernel at the shapes of phases 4-7: its time (CUDA events
    around 10 calls in a row, median of 25 such samples after warmup),
    the least time the card could take (bytes over 3.35 TB/s,
    operations over 67 TFLOP/s f32; for the BSR kernels the bytes of the
@@ -1155,6 +1173,247 @@ def main() -> int:
     check(x_err <= 1e-4, f"GMG-CG relative error to the exact solution "
           f"{x_err}")
     del x_gmg, sol, mg, A_sp, x_ref, b64
+    torch.cuda.empty_cache()
+
+    # ---- 9. the scipy facade on the main path -------------------------------
+    # The pde_4096 operator of phase 4, a block-clustered 2^20 matrix as in
+    # phase 6 and an R-MAT graph at scale 20, through the facade into the
+    # DIA and BSR kernels.  Each op's card ms (CUDA events around one
+    # call, host syncs inside the op included; median of 5 after one
+    # warmup) beside scipy's host seconds for the same op (one call).
+    facade_t0 = time.perf_counter()
+
+    def card_ms(fn, setup=None) -> float:
+        samples = []
+        for rep in range(6):
+            arg = setup() if setup is not None else None
+            sync()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(arg) if setup is not None else fn()
+            end.record()
+            end.synchronize()
+            del out
+            if rep:
+                samples.append(start.elapsed_time(end))
+        return float(np.median(samples))
+
+    facade_ops = {}
+
+    def timed(name, card_fn, host_fn, card_setup=None, host_setup=None):
+        """Times ``name`` both ways; returns scipy's result, which the
+        checks reuse."""
+        arg = host_setup() if host_setup is not None else None
+        t0 = time.perf_counter()
+        res = host_fn(arg) if host_setup is not None else host_fn()
+        host_s = time.perf_counter() - t0
+        facade_ops[name] = {"card_ms": card_ms(card_fn, card_setup),
+                            "scipy_host_s": host_s}
+        return res
+
+    def same_parts(P, Q, what):
+        check(P.shape == Q.shape and torch.equal(P.indptr, Q.indptr)
+              and torch.equal(P.indices.long(), Q.indices.long())
+              and torch.equal(P.data, Q.data), f"{what}: not bit for bit")
+
+    def within(y, ref, mag, rtol, what) -> float:
+        d = np.abs(y.double().cpu().numpy() - ref)
+        check(bool(np.all(d <= rtol * mag + 1e-30)),
+              f"{what} vs scipy f64: max |Δ| {float(d.max())}")
+        return float(d.max())
+
+    reset_counts()
+    grid = 4096
+    n = grid * grid
+    A = sparse.diags([main3, p1, p1, pN, pN], offsets, shape=(n, n),
+                     format="csr", dtype=torch.float32)
+    x = randx(n)
+    A_sp = A.toscipy()                       # f32 on the host
+    xn = x.double().cpu().numpy()
+    yA = A @ x
+    L, U = sparse.tril(A), sparse.triu(A, 1)
+    S = L + U
+    same_parts(S, A, "tril(A) + triu(A, 1)")
+    yS = S @ x
+    check(S.spmv_path == "dia-kernel", f"(L+U) @ x took {S.spmv_path}")
+    check(torch.equal(yS, yA), "(L+U) @ x differs from A @ x")
+    L_sp = timed("tril", lambda: sparse.tril(A), lambda: sp.tril(A_sp))
+    U_sp = timed("triu", lambda: sparse.triu(A, 1),
+                 lambda: sp.triu(A_sp, 1))
+    S_sp = timed("L+U", lambda: L + U, lambda: L_sp + U_sp)
+    timed("(L+U)@x", lambda: S @ x, lambda: S_sp @ xn)
+    del L, U, S, L_sp, U_sp, S_sp, yS
+    D = A - A.T
+    D.eliminate_zeros()
+    check(D.nnz == 0, f"(A - A.T).eliminate_zeros() left {D.nnz} entries")
+    Ne = A != A.T
+    check(Ne.nnz == 0, f"(A != A.T) has {Ne.nnz} entries")
+    del D, Ne
+    D_sp = timed("A-A.T", lambda: A - A.T, lambda: A_sp - A_sp.T)
+    timed("eliminate_zeros", lambda D: D.eliminate_zeros(),
+          lambda D: D.eliminate_zeros(), card_setup=lambda: A - A.T,
+          host_setup=lambda: D_sp)
+    del D_sp
+    timed("A!=A.T", lambda: A != A.T, lambda: A_sp != A_sp.T)
+    same_parts(A.tocoo().tocsr(), A, "A.tocoo().tocsr()")
+    same_parts(A.tocsc().tocsr(), A, "A.tocsc().tocsr()")
+    Ad = A.todia()
+    check(torch.equal(Ad @ x, yA), "A.todia() @ x differs from A @ x")
+    check(Ad.spmv_path == "dia-kernel", f"A.todia() @ x took {Ad.spmv_path}")
+    del Ad
+    timed("tocoo().tocsr()", lambda: A.tocoo().tocsr(),
+          lambda: A_sp.tocoo().tocsr())
+    timed("tocsc().tocsr()", lambda: A.tocsc().tocsr(),
+          lambda: A_sp.tocsc().tocsr())
+    timed("todia", lambda: A.todia(), lambda: A_sp.todia())
+    # setdiag: values on the main diagonal, then a new diagonal k=2 (the
+    # band and its kernel pack change), then B @ x on the new band.
+    B = A.copy()
+    B @ x
+    B.setdiag(5.0)
+    B.setdiag(1.0, k=2)
+    yB = B @ x
+    check(B.spmv_path == "dia-kernel", f"B @ x after setdiag took "
+          f"{B.spmv_path}")
+    check(B._dia_offsets == (-grid, -1, 0, 1, 2, grid),
+          f"B's band after setdiag: {B._dia_offsets}")
+    # B = A + I + (ones on diagonal 2): its product from scipy's A @ x.
+    shift = np.zeros(n)
+    shift[:n - 2] = xn[2:]
+    setdiag_err = within(yB, A_sp @ xn + xn + shift,
+                         abs(A_sp) @ np.abs(xn) + np.abs(xn) + np.abs(shift),
+                         2e-6, "B @ x after setdiag")
+    del B, yB, shift
+
+    def sp_setdiag(M, v, k):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            M.setdiag(v, k=k)
+
+    timed("setdiag(5.0)", lambda B: B.setdiag(5.0),
+          lambda B: sp_setdiag(B, 5.0, 0), card_setup=A.copy,
+          host_setup=A_sp.copy)
+    timed("setdiag(1.0, k=2)", lambda B: B.setdiag(1.0, k=2),
+          lambda B: sp_setdiag(B, 1.0, 2), card_setup=A.copy,
+          host_setup=A_sp.copy)
+    M = A.multiply(A)
+    yM = M @ x
+    check(M.spmv_path == "dia-kernel", f"A.multiply(A) @ x took "
+          f"{M.spmv_path}")
+    M_sp = timed("multiply", lambda: A.multiply(A),
+                 lambda: A_sp.multiply(A_sp))
+    multiply_err = within(yM, M_sp @ xn, abs(M_sp) @ np.abs(xn), 2e-6,
+                          "A.multiply(A) @ x")
+    del M, yM, M_sp
+    absA = abs(A_sp)
+    for axis in (0, 1):
+        s = A.sum(axis=axis).double().cpu().numpy()
+        ref = np.asarray(A_sp.sum(axis=axis, dtype=np.float64)).ravel()
+        bound = np.asarray(absA.sum(axis=axis, dtype=np.float64)).ravel()
+        check(bool(np.all(np.abs(s - ref) <= 1e-6 * bound)),
+              f"A.sum(axis={axis}) vs scipy f64")
+    check(float(A.max()) == float(A_sp.max()), "A.max() vs scipy")
+    check(A.count_nonzero() == A_sp.count_nonzero(),
+          "A.count_nonzero() vs scipy")
+    sub, sub_sp = A[1000:2000], A_sp[1000:2000]
+    check(np.array_equal(sub.indptr.cpu().numpy(), sub_sp.indptr)
+          and np.array_equal(sub.indices.cpu().numpy(), sub_sp.indices)
+          and np.array_equal(sub.data.cpu().numpy(), sub_sp.data),
+          "A[1000:2000] vs scipy")
+    pts = [(int(i), int(i + d)) for i, d in zip(
+        rng.integers(grid, n - grid, 8), (0, 1, -1, grid, -grid, 2, 7, 0))]
+    for i, j in pts:
+        check(A[i, j] == A_sp[i, j], f"A[{i}, {j}] vs scipy")
+    del sub, sub_sp, absA
+    timed("sum(axis=0)", lambda: A.sum(axis=0), lambda: A_sp.sum(axis=0))
+    timed("sum(axis=1)", lambda: A.sum(axis=1), lambda: A_sp.sum(axis=1))
+    timed("max()", lambda: A.max(), lambda: A_sp.max())
+    timed("count_nonzero()", lambda: A.count_nonzero(),
+          lambda: A_sp.count_nonzero())
+    timed("A[1000:2000]", lambda: A[1000:2000], lambda: A_sp[1000:2000])
+    timed("A[i, j]", lambda: A[pts[0]], lambda: A_sp[pts[0]])
+    pde_nnz = A.nnz
+    del A, A_sp, x, xn, yA
+    torch.cuda.empty_cache()
+
+    # The irregular 2^20 matrix of phase 6's kind through BSR.
+    rows = 1 << 20
+    d, i, p = block_clustered(rows, 8, 2)
+    R = sparse.csr_array((d, i, p), shape=(rows, rows))
+    R_sp = sp.csr_array((d, i, p), shape=(rows, rows))
+    x = randx(rows)
+    R2 = R + R
+    check(torch.equal(R2.indptr, R.indptr)
+          and torch.equal(R2.indices.long(), R.indices.long()),
+          "R + R changed R's pattern")
+    y1 = R @ x
+    y2 = R2 @ x
+    check(R2.spmv_path == "bsr", f"(R + R) @ x took {R2.spmv_path}")
+    check(torch.equal(y2, 2 * y1), "(R + R) @ x differs from 2 * (R @ x)")
+    same_parts(R.T.T, R, "R.T.T")
+    xr = x.cpu().numpy()
+    R2_sp = timed("R+R", lambda: R + R, lambda: R_sp + R_sp)
+    timed("R.T.T", lambda: R.T.T, lambda: R_sp.T.T.tocsr())
+    timed("(R+R)@x", lambda: R2 @ x, lambda: R2_sp @ xr)
+    del R, R2, R_sp, R2_sp, y1, y2, x, xr, d, i, p
+    torch.cuda.empty_cache()
+
+    # An R-MAT graph (Graph500's quadrants), symmetrised: the graph
+    # user's step before BFS or PageRank.
+    t0 = time.perf_counter()
+    G = sparse.rmat(20, nnz_per_row=8, rng=0)
+    sync()
+    rmat_s = time.perf_counter() - t0
+    G0 = G.copy()
+    G_sp = G.toscipy()
+    check(G.sum_duplicates() is None, "sum_duplicates returns None")
+    G_sp.sum_duplicates()
+    Gs = G + G.T
+    Gs_sp = sp.csr_array(timed("G+G.T", lambda: G + G.T,
+                               lambda: G_sp + G_sp.T))
+    Gs_sp.sort_indices()
+    # The pattern exactly; the values to f64 rounding: an edge sampled
+    # many times is summed by a segment reduction on the card, in
+    # another order than scipy's running sum.
+    check(np.array_equal(Gs.indptr.cpu().numpy(), Gs_sp.indptr)
+          and np.array_equal(Gs.indices.cpu().numpy(), Gs_sp.indices),
+          "G + G.T: pattern differs from scipy's")
+    gs_rel = float(np.max(np.abs(Gs.data.cpu().numpy() - Gs_sp.data)
+                          / np.abs(Gs_sp.data)))
+    check(gs_rel <= 1e-12, f"G + G.T values vs scipy: max rel |Δ| {gs_rel}")
+    xg = randx(Gs.shape[1], torch.float64)
+    yg = Gs @ xg
+    xgn = xg.cpu().numpy()
+    rmat_err = within(yg, Gs_sp @ xgn, abs(Gs_sp) @ np.abs(xgn), 1e-12,
+                      "(G + G.T) @ x")
+    timed("rmat sum_duplicates", lambda g: g.sum_duplicates(),
+          lambda g: g.sum_duplicates(), card_setup=G0.copy,
+          host_setup=G0.toscipy)
+    timed("(G+G.T)@x", lambda: Gs @ xg, lambda: Gs_sp @ xgn)
+    facade_counts = read_counts()
+    check(facade_counts["dia_spmv"] > 0 and facade_counts["bsr_spmv"] > 0,
+          f"the facade phase launched {facade_counts}")
+    log({"phase": "main_path_facade", "nvidia_smi": smi_line,
+         "pde": {"rows": n, "nnz": pde_nnz, "paths": {
+             "(L+U)@x": "dia-kernel", "A.todia()@x": "dia-kernel",
+             "B@x after setdiag": "dia-kernel",
+             "A.multiply(A)@x": "dia-kernel"},
+             "setdiag_then_dot_max_abs_err_vs_scipy_f64": setdiag_err,
+             "multiply_then_dot_max_abs_err_vs_scipy_f64": multiply_err,
+             "bitwise": ["L+U == A", "(L+U)@x == A@x", "A.todia()@x == A@x",
+                         "A.tocoo().tocsr() == A", "A.tocsc().tocsr() == A"],
+             "emptied": ["(A - A.T).eliminate_zeros()", "A != A.T"]},
+         "irregular": {"rows": rows, "path": "bsr",
+                       "bitwise": ["(R+R)@x == 2*(R@x)", "R.T.T == R"]},
+         "rmat": {"scale": 20, "edges_sampled": G0.nnz, "nnz": G.nnz,
+                  "nnz_symmetrised": Gs.nnz, "build_s": rmat_s,
+                  "path": Gs.spmv_path,
+                  "symmetrised_max_rel_err_vs_scipy_f64": gs_rel,
+                  "dot_max_abs_err_vs_scipy_f64": rmat_err},
+         "ops": facade_ops, "launches": facade_counts,
+         "seconds": time.perf_counter() - facade_t0})
+    del G, G0, G_sp, Gs, Gs_sp, xg, yg
     torch.cuda.empty_cache()
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

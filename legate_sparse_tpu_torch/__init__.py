@@ -8,8 +8,14 @@ main path ``diags(...)`` → ``dia_array.tocsr`` → ``csr_array.dot``
 (banded SpMV through the CUDA kernel ``csrc/dia_spmv.cu``, irregular
 SpMV through ``csrc/bsr_spmv.cu``) → ``linalg.cg``; SpMM
 (``csrc/dia_spmm.cu``, ``csrc/bsr_spmm.cu``); SpGEMM (banded through
-``csrc/dia_spgemm.cu``, general by expand-sort-compress); and the apps
-``apps.pde`` and ``apps.gmg`` (multigrid-preconditioned CG).
+``csrc/dia_spgemm.cu``, general by expand-sort-compress); the apps
+``apps.pde`` and ``apps.gmg`` (multigrid-preconditioned CG); and the
+scipy facade on which operators are built: the ``csr``, ``csc``,
+``coo`` and ``dia`` formats (arrays and ``*_matrix`` flavours) with
+their arithmetic, comparisons, reductions, indexing and conversions,
+the gallery's constructors (``eye``, ``kron``, ``tril``, ``vstack``,
+``bmat``, ...) and its seeded generators (``random``, ``powerlaw``,
+``rmat``).
 
 Entry points run on ``cuda`` unless the caller names a device
 (``device="cpu"``, or ``runtime.set_device("cpu")``); with no CUDA
@@ -18,9 +24,18 @@ device and no such request they raise.  The package imports neither
 """
 
 from . import linalg, runtime
-from .csr import csr_array, csr_matrix
-from .dia import dia_array
-from .gallery import diags
+from .coo import coo_array, coo_matrix
+from .csc import csc_array, csc_matrix
+from .csr import csr_array, csr_matrix, spgemm_csr_csr_csr
+from .dia import dia_array, dia_matrix
+from .gallery import (block_array, block_diag, bmat, diags, eye, find,
+                      hstack, identity, kron, kronsum, powerlaw, random, rmat,
+                      spdiags, tril, triu, vstack)
+from .types import SparseEfficiencyWarning
 
-__all__ = ["csr_array", "csr_matrix", "dia_array", "diags", "linalg",
-           "runtime"]
+__all__ = ["SparseEfficiencyWarning", "block_array", "block_diag", "bmat",
+           "coo_array", "coo_matrix", "csc_array", "csc_matrix", "csr_array",
+           "csr_matrix", "dia_array", "dia_matrix", "diags", "eye", "find",
+           "hstack", "identity", "kron", "kronsum", "linalg", "powerlaw",
+           "random", "rmat", "runtime", "spdiags", "spgemm_csr_csr_csr",
+           "tril", "triu", "vstack"]

@@ -4,13 +4,15 @@
 
 Mirrors ``legate_sparse_tpu/csr.py::csr_array``: storage is three
 tensors on one device — ``data`` (nnz), ``indices`` (nnz, int32 unless
-an extent needs int64) and ``indptr`` (rows+1, int64).  This port
-carries the constructors (``(data, indices, indptr)``, COO ``(data,
-(row, col))``, the empty ``(M, N)``, scipy, dense), ``nnz``,
-``has_canonical_format``, ``todense``/``toscipy``, ``diagonal``,
-``transpose``/``T``, the structure caches of the SpMV hot path and
-``dot``, which dispatches by operand and structure in the JAX
-package's order:
+an extent needs int64) and ``indptr`` (rows+1, int64).  It carries the
+constructors (``(data, indices, indptr)``, COO ``(data, (row, col))``,
+the empty ``(M, N)``, scipy, dense, any sparse format of this package),
+the scipy surface of the JAX package's ``csr_array``: structure
+maintenance (``sum_duplicates``, ``eliminate_zeros``,
+``sort_indices``), element-wise arithmetic and comparisons, reductions
+(from ``base.py``), indexing, ``setdiag``, conversions to COO, CSC and
+DIA; the structure caches of the SpMV hot path; and ``dot``, which
+dispatches by operand and structure in the JAX package's order:
 
 ========================  ==============================================
 label                     SpMV (``spmv_path``) and SpMM (``spmm_path``)
@@ -32,16 +34,25 @@ A sparse operand (``csr_array``, ``dia_array``, scipy) takes SpGEMM,
 ``"dia-torch"`` (exact bands, other dtypes) or ``"esc"``
 (``ops/spgemm.py``).  The JAX package's engine/autotune/resilience
 routes and low-precision widening are not part of the port yet.
+
+In-place mutators (``sum_duplicates``, ``eliminate_zeros``,
+``sort_indices``, ``setdiag``, ``resize``, the ``data`` setter) rebind
+the tensors, never write into them (a full-slice ``A[:]`` shares
+them), and clear the caches through ``_invalidate_caches``: the
+structural ones only when the structure changed.  Host syncs follow the
+JAX package's: one per data-dependent size.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from .base import CompressedBase
+from .base import (CompressedBase, _is_scalar, _power, _scalar_dtype,
+                   _scalar_op, _extreme)
 from .ops import convert as _convert
 from .ops import dia_kernel as _dia_kernel
 from .ops import dia_ops as _dia_ops
@@ -49,9 +60,12 @@ from .ops import spgemm as _spgemm_ops
 from .ops import spmv as _spmv_ops
 from .runtime import default_float
 from .settings import settings
-from .types import check_nnz, coord_dtype_for, nnz_dtype, to_torch_dtype
+from .types import (SparseEfficiencyWarning, check_nnz, coord_dtype_for,
+                    nnz_dtype, to_numpy_dtype, to_torch_dtype)
 from .utils import (as_tensor, cast_to_common_type, device_of, fill_out,
-                    find_common_type, require_supported_dtype, to_numpy)
+                    find_common_type, is_sparse_matrix,
+                    require_supported_dtype, result_type, to_host, to_inexact,
+                    to_numpy, true_divide_type)
 
 
 def _is_scipy_sparse(obj) -> bool:
@@ -60,6 +74,22 @@ def _is_scipy_sparse(obj) -> bool:
     except ImportError:  # pragma: no cover
         return False
     return sp.issparse(obj)
+
+
+def _is_sparse_like(obj) -> bool:
+    """A sparse matrix of this package or of another library (it has a
+    CSR conversion and is not array-like)."""
+    return hasattr(obj, "tocsr") and not hasattr(obj, "__array__")
+
+
+# Comparison operators: the torch op for stored values, the numpy op
+# for the implicit-zero test and dense results (the JAX package applies
+# one ``jnp`` function to both).
+_COMPARE = {
+    "eq": (torch.eq, np.equal), "ne": (torch.ne, np.not_equal),
+    "lt": (torch.lt, np.less), "gt": (torch.gt, np.greater),
+    "le": (torch.le, np.less_equal), "ge": (torch.ge, np.greater_equal),
+}
 
 
 class csr_array(CompressedBase):
@@ -78,6 +108,8 @@ class csr_array(CompressedBase):
     def __init__(self, arg, shape=None, dtype=None, copy: bool = False,
                  device=None):
         canonical: Optional[bool] = None
+        if is_sparse_matrix(arg) and not isinstance(arg, csr_array):
+            arg = arg.tocsr()
         if isinstance(arg, csr_array):
             dev = device_of(device, arg.data)
             shape = arg.shape if shape is None else tuple(shape)
@@ -154,6 +186,7 @@ class csr_array(CompressedBase):
         self._indices = indices
         self._indptr = indptr
         self._canonical = canonical
+        self._sorted = True if canonical else None
         self.shape: Tuple[int, int] = tuple(int(s) for s in shape)
         if self._indptr.shape[0] != self.shape[0] + 1:
             raise ValueError(f"indptr length {self._indptr.shape[0]} != "
@@ -181,17 +214,20 @@ class csr_array(CompressedBase):
         obj._canonical = canonical
         return obj
 
-    def _with_data(self, data) -> "csr_array":
+    def _with_data(self, data, copy: bool = False) -> "csr_array":
         """Same structure, new values (structure caches shared)."""
+        if copy:
+            data = data.clone()
         out = type(self)._from_parts(data, self._indices, self._indptr,
                                      self.shape, canonical=self._canonical)
         out._row_ids = self._row_ids
         out._ell_width = self._ell_width
         out._dia_offsets = self._dia_offsets
+        out._sorted = self._sorted
         return out
 
     def copy(self) -> "csr_array":
-        return csr_array(self, copy=True)
+        return type(self)(self, copy=True)
 
     # ---------------- properties ----------------
     @property
@@ -205,6 +241,14 @@ class csr_array(CompressedBase):
     @property
     def data(self) -> torch.Tensor:
         return self._data
+
+    @data.setter
+    def data(self, value):
+        value = as_tensor(value, self.device)
+        if tuple(value.shape) != tuple(self._data.shape):
+            raise ValueError("cannot change nnz via data setter")
+        self._data = value
+        self._invalidate_caches(structure_changed=False)
 
     @property
     def indices(self) -> torch.Tensor:
@@ -228,10 +272,69 @@ class csr_array(CompressedBase):
                 self._canonical = bool(torch.all(~same_row | increasing))
         return self._canonical
 
+    @property
+    def has_sorted_indices(self) -> bool:
+        """Non-decreasing indices within every row (duplicates allowed:
+        weaker than canonical; scipy's ``has_sorted_indices``)."""
+        if self._canonical:
+            return True
+        if self._sorted is None:
+            if self.nnz < 2:
+                self._sorted = True
+            else:
+                row_ids = self._get_row_ids()
+                same_row = row_ids[1:] == row_ids[:-1]
+                nondecreasing = self._indices[1:] >= self._indices[:-1]
+                self._sorted = bool(torch.all(~same_row | nondecreasing))
+        return self._sorted
+
+    def sum_duplicates(self) -> None:
+        """Merge duplicate (row, col) entries in place (scipy's contract:
+        returns None).  Sorted by the fused key ``row * cols + col``;
+        the duplicates of one coordinate are summed in their stored
+        order (the JAX package's sort is unstable there)."""
+        if self.has_canonical_format:
+            return
+        row_ids, cols, vals = self._coo_parts()
+        data, indices, indptr = _spgemm_ops.coalesce_coo(
+            row_ids.to(torch.int64), cols.to(torch.int64), vals,
+            self.shape[0], self.shape[1])
+        self._data = data
+        self._indices = indices.to(self._indices.dtype)
+        self._indptr = indptr
+        self._invalidate_caches(structure_changed=True)
+        self._canonical = True
+        self._sorted = True
+
+    def _canonicalized(self) -> "csr_array":
+        if self.has_canonical_format:
+            return self
+        out = csr_array(self, copy=False)
+        out.sum_duplicates()
+        return out
+
+    def _invalidate_caches(self, structure_changed: bool) -> None:
+        """Drop the caches an in-place mutation made stale (reference
+        ``csr.py:1654-1671``).  With ``structure_changed`` False only the
+        value-derived ones go (the band and its kernel pack, the ELL
+        pack, the BSR structure, which refers to the old tensors)."""
+        self._ell = None
+        self._dia = None
+        self._dia_pack = None
+        self._bsr = None
+        if structure_changed:
+            self._row_ids = None
+            self._ell_width = None
+            self._dia_offsets = None
+            self._canonical = None
+            self._sorted = None
+
     # ---------------- conversions ----------------
-    def todense(self) -> torch.Tensor:
-        return _convert.csr_to_dense(self._data, self._indices,
-                                     self._indptr, self.shape)
+    def todense(self, order=None, out=None) -> torch.Tensor:
+        if order is not None:
+            raise NotImplementedError("order parameter is not supported")
+        return fill_out(_convert.csr_to_dense(self._data, self._indices,
+                                              self._indptr, self.shape), out)
 
     toarray = todense
 
@@ -244,6 +347,132 @@ class csr_array(CompressedBase):
 
         return sp.csr_array((to_numpy(self._data), to_numpy(self._indices),
                              to_numpy(self._indptr)), shape=self.shape)
+
+    def _coo_parts(self):
+        """(row, col, data) coordinate view (row ids in the indices'
+        dtype); the public ``tocoo`` returns a ``coo_array``."""
+        return (self._get_row_ids().to(self._indices.dtype), self._indices,
+                self._data)
+
+    def tocoo(self, copy: bool = False):
+        from .coo import coo_array
+
+        return coo_array(self)
+
+    def tocsc(self, copy: bool = False):
+        from .csc import csc_array
+
+        return csc_array(self)
+
+    def todia(self, copy: bool = False):
+        """``dia_array`` of every distinct ``col - row`` (scipy's
+        ``todia``), through the banded path's ``csr_band_offsets`` and
+        ``dia_from_csr``."""
+        from .dia import dia_array
+
+        a = self._canonicalized()
+        rows, cols = self.shape
+        if a.nnz == 0:
+            return dia_array((torch.zeros((0, 0), dtype=self.dtype,
+                                          device=self.device), ()),
+                             shape=self.shape)
+        offsets = _dia_ops.csr_band_offsets(a._indices, a._get_row_ids(),
+                                            max(rows + cols, 1))
+        dia_data = _dia_ops.dia_from_csr(a._data, a._indices,
+                                         a._get_row_ids(), offsets, cols)
+        return dia_array((dia_data, offsets), shape=self.shape)
+
+    def asformat(self, format, copy: bool = False):
+        """This matrix in ``format`` ('csr', 'csc', 'coo', 'dia')."""
+        if format is None or format == "csr":
+            return self.tocsr(copy=copy)
+        if format in ("dia", "csc", "coo"):
+            return getattr(self, "to" + format)(copy=copy)
+        raise ValueError(f"unsupported format: {format!r}")
+
+    def todok(self, copy: bool = False):
+        """scipy's DOK matrix, on the host (no DOK type here)."""
+        return self.toscipy().todok(copy=copy)
+
+    def tolil(self, copy: bool = False):
+        """scipy's LIL matrix, on the host (no LIL type here)."""
+        return self.toscipy().tolil(copy=copy)
+
+    # ---------------- structure maintenance ----------------
+    def getnnz(self, axis=None):
+        """nnz, or the stored entries per row (``axis=1``) or per column
+        (``axis=0``): int64 tensors."""
+        if axis is None:
+            return self.nnz
+        if axis in (1, -1):
+            return self._indptr[1:] - self._indptr[:-1]
+        if axis == 0:
+            return torch.bincount(self._indices.to(torch.int64),
+                                  minlength=self.shape[1])
+        raise ValueError(f"invalid axis: {axis}")
+
+    def eliminate_zeros(self) -> None:
+        """Drop the stored zeros in place (one host sync: the count)."""
+        keep = torch.nonzero(self._data != 0).reshape(-1)
+        if keep.shape[0] == self.nnz:
+            return
+        new_rows = self._get_row_ids()[keep]
+        self._data = self._data[keep]
+        self._indices = self._indices[keep]
+        self._indptr = _convert.indptr_from_row_ids(new_rows, self.shape[0])
+        canonical, srt = self._canonical, self._sorted
+        self._invalidate_caches(structure_changed=True)
+        # Dropping entries keeps a row sorted and free of duplicates.
+        self._canonical, self._sorted = canonical, srt
+
+    def sort_indices(self) -> None:
+        """Sort the column indices of every row in place, stably, without
+        merging duplicates (scipy's ``sort_indices``)."""
+        if self.has_sorted_indices:
+            return
+        key = (self._get_row_ids().to(torch.int64) * max(self.shape[1], 1)
+               + self._indices.to(torch.int64))
+        order = torch.argsort(key, stable=True)
+        self._data = self._data[order]
+        self._indices = self._indices[order]
+        self._invalidate_caches(structure_changed=True)
+        self._sorted = True
+
+    def resize(self, *shape) -> None:
+        """Resize in place; entries outside the new shape are dropped
+        (scipy's ``resize``)."""
+        if len(shape) == 1:
+            shape = tuple(shape[0])
+        nr, nc = int(shape[0]), int(shape[1])
+        r, c, v = self._coo_parts()
+        r2, c2, v2 = _convert.compact_mask((r < nr) & (c < nc), (r, c, v))
+        new = csr_array((v2, (r2, c2)), shape=(nr, nc), device=self.device)
+        self._data, self._indices, self._indptr = (new._data, new._indices,
+                                                   new._indptr)
+        self.shape = (nr, nc)
+        self._invalidate_caches(structure_changed=True)
+
+    def reshape(self, *shape, order="C"):
+        """Reshape through scipy on the host; 2-D targets only (there is
+        no 1-D sparse type here)."""
+        if len(shape) == 1:
+            if isinstance(shape[0], (int, np.integer)):
+                raise ValueError(
+                    "1-D reshape targets are not supported (no 1-D sparse "
+                    "type); pass a 2-D shape")
+            shape = tuple(shape[0])
+        if len(shape) != 2:
+            raise ValueError(f"expected a 2-D shape, got {shape}")
+        return csr_array(self.toscipy().reshape(shape, order=order).tocsr(),
+                         device=self.device)
+
+    def argmax(self, axis=None, out=None):
+        """Index of the maximum, implicit zeros included: scipy on the
+        host (its tie-breaking exactly)."""
+        return self.toscipy().argmax(axis=axis, out=out)
+
+    def argmin(self, axis=None, out=None):
+        return self.toscipy().argmin(axis=axis, out=out)
 
     # ---------------- structure ops ----------------
     def diagonal(self, k: int = 0) -> torch.Tensor:
@@ -271,6 +500,522 @@ class csr_array(CompressedBase):
     @property
     def T(self):
         return self.transpose()
+
+    def conj(self, copy: bool = True):
+        if self.dtype.is_complex:
+            return self._with_data(torch.conj_physical(self._data))
+        return self.copy() if copy else self
+
+    conjugate = conj
+
+    def trace(self, offset: int = 0):
+        """Sum along diagonal ``offset`` (a 0-d tensor)."""
+        return torch.sum(self.diagonal(offset))
+
+    def count_nonzero(self, axis=None):
+        """Entries whose value is nonzero after duplicates are merged:
+        an int, or an int32 numpy array per column (``axis=0``) or row
+        (``axis=1``)."""
+        a = self._canonicalized()
+        nz = (a._data != 0).to(torch.int32)
+        if axis is None:
+            return int(torch.sum(nz))
+        if axis not in (0, 1, -1, -2):
+            raise ValueError(f"invalid axis {axis}")
+        if int(axis) % 2 == 0:
+            counts = torch.zeros((a.shape[1],), dtype=torch.int32,
+                                 device=a.device)
+            counts.index_add_(0, a._indices.to(torch.int64), nz)
+            return to_numpy(counts)
+        return to_numpy(_convert.segment_sum(
+            nz, a._indptr[1:] - a._indptr[:-1]))
+
+    # ---------------- arithmetic ----------------
+    def power(self, n, dtype=None):
+        """Element-wise power of the merged entries (scipy sums
+        duplicates first)."""
+        a = self._canonicalized()
+        data = a._data
+        if dtype is not None:
+            data = data.to(to_torch_dtype(dtype))
+        return a._with_data(_power(data, n))
+
+    def _minmax_binary(self, other, name: str):
+        """Element-wise maximum/minimum with a scalar or a sparse operand
+        over the union of the structures, implicit zeros included
+        (scipy's ``maximum``/``minimum``)."""
+        def op(a, b):
+            return _extreme(a, b, name)
+
+        if _is_scalar(other):
+            dt, other = _scalar_dtype(self.dtype, other)
+            s = torch.tensor(other, dtype=dt, device=self.device)
+            fill = op(torch.zeros((), dtype=dt, device=self.device), s)
+            if bool(fill != 0):
+                warnings.warn(
+                    "Taking maximum/minimum with a scalar that is nonzero "
+                    "against the zero fill produces a dense result",
+                    SparseEfficiencyWarning, stacklevel=3)
+                return csr_array(op(self.toarray().to(dt), s))
+            a = self._canonicalized()   # op distributes over values,
+            return a._with_data(op(a._data.to(dt), s))  # not duplicates
+        other = self._sparse_operand(other, dense_ok=True)
+        if other.shape != self.shape:
+            raise ValueError("inconsistent shapes")
+        a, b = cast_to_common_type(self._canonicalized(),
+                                   other._canonicalized())
+        rows, cols = a.shape
+        ra, ca, va = a._coo_parts()
+        rb, cb, vb = b._coo_parts()
+        # The union: a key on one side only meets its implicit zero.
+        row = torch.cat([ra, rb])
+        col = torch.cat([ca, cb])
+        key = row.to(torch.int64) * max(cols, 1) + col.to(torch.int64)
+        val = torch.cat([va, vb])
+        order = torch.argsort(key, stable=True)
+        key = key[order]
+        val = val[order]
+        none = torch.full((1,), -1, dtype=key.dtype, device=key.device)
+        nxt = torch.cat([key[1:], none])
+        prv = torch.cat([none, key[:-1]])
+        zeros = torch.zeros_like(val)
+        pair_val = torch.where(key == nxt, op(val, torch.roll(val, -1)),
+                               zeros)
+        out_val = torch.where((key == nxt) | (key == prv), pair_val,
+                              op(val, zeros))
+        out = csr_array((out_val, (row[order], col[order])),
+                        shape=self.shape)
+        out.sum_duplicates()   # merges the zeroed slot of each pair
+        out.eliminate_zeros()
+        return out
+
+    def maximum(self, other):
+        return self._minmax_binary(other, "max")
+
+    def minimum(self, other):
+        return self._minmax_binary(other, "min")
+
+    def _sparse_operand(self, other, dense_ok: bool = False):
+        """``other`` as a ``csr_array`` on this matrix's device: scipy
+        and the other formats convert; a dense operand only with
+        ``dense_ok``, else None."""
+        if _is_scipy_sparse(other):
+            return csr_array(other, device=self.device)
+        if not isinstance(other, csr_array) and _is_sparse_like(other):
+            other = other.tocsr()
+        if isinstance(other, csr_array):
+            if other.device != self.device:
+                other = csr_array(other, device=self.device)
+            return other
+        if dense_ok:
+            return csr_array(as_tensor(other, self.device))
+        return None
+
+    def multiply(self, other):
+        """Element-wise product with a scalar, a dense matrix, row or
+        column vector (scipy's broadcasting, no densifying), or any
+        sparse operand (the intersection of the patterns)."""
+        if _is_scalar(other):
+            return self._with_data(_scalar_op(self._data, other, torch.mul))
+        sparse_other = self._sparse_operand(other)
+        if sparse_other is not None:
+            if sparse_other.shape != self.shape:
+                raise ValueError("inconsistent shapes for multiply")
+            a, b = cast_to_common_type(self._canonicalized(),
+                                       sparse_other._canonicalized())
+            return _elementwise_intersect_multiply(a, b)
+        other = as_tensor(other, self.device)
+        dt = result_type(self.dtype, other.dtype)
+        rows, cols = self.shape
+        if other.dim() == 2 and tuple(other.shape) == self.shape:
+            pick = other[self._get_row_ids(), self._indices.to(torch.int64)]
+        elif other.dim() == 1 and other.shape[0] == cols:
+            pick = other[self._indices.to(torch.int64)]
+        elif other.dim() == 2 and tuple(other.shape) == (1, cols):
+            pick = other[0, self._indices.to(torch.int64)]
+        elif other.dim() == 2 and tuple(other.shape) == (rows, 1):
+            pick = other[self._get_row_ids(), 0]
+        else:
+            raise ValueError(f"inconsistent shapes for multiply: "
+                             f"{tuple(other.shape)}")
+        return self._with_data(self._data.to(dt) * pick.to(dt))
+
+    def __mul__(self, other):
+        if _is_scalar(other):
+            return self._with_data(_scalar_op(self._data, other, torch.mul))
+        # sparray semantics: ``*`` is element-wise (csr_matrix overrides).
+        return self.multiply(other)
+
+    def __rmul__(self, other):
+        return self.__mul__(other)
+
+    def __truediv__(self, other):
+        if _is_scalar(other):
+            return self._with_data(_scalar_op(self._data, other, torch.div,
+                                              true_divide_type))
+        if _is_scipy_sparse(other) or _is_sparse_like(other):
+            if tuple(other.shape) != self.shape:
+                raise ValueError(f"inconsistent shapes {self.shape} and "
+                                 f"{tuple(other.shape)}")
+            # scipy: sparse / sparse is dense (0/0 gives nan).
+            a = self.toarray()
+            b = as_tensor(other.toarray(), self.device)
+            dt = to_inexact(torch.promote_types(a.dtype, b.dtype))
+            return a.to(dt) / b.to(dt)
+        # A dense divisor divides the stored entries only (the implicit
+        # zeros stay zero, a sparse result as in scipy); row and column
+        # vectors broadcast.
+        other = as_tensor(other, self.device)
+        recip = 1.0 / other.to(true_divide_type(other.dtype, 1.0))
+        if recip.dim() == 2 and tuple(recip.shape) != self.shape:
+            recip = torch.broadcast_to(recip, self.shape)
+        return self.multiply(recip)
+
+    def __neg__(self):
+        return self._with_data(-self._data)
+
+    def __abs__(self):
+        if self.dtype == torch.bool:
+            return self._with_data(self._data.clone())
+        return self._with_data(torch.abs(self._data))
+
+    def __pow__(self, n):
+        if np.isscalar(n) and n == 0:
+            raise NotImplementedError(
+                "zero power is not supported as it would densify the "
+                "matrix; use np.ones(A.shape, dtype=A.dtype)")
+        return self.power(n)
+
+    def _add_sub(self, other, sign: int):
+        if not isinstance(other, csr_array):
+            if np.isscalar(other) and other == 0:
+                return self.copy()   # sum() and accumulations start at 0
+            other = self._sparse_operand(other)
+            if other is None:
+                raise NotImplementedError(
+                    "sparse +/- dense is not supported; densify explicitly")
+        elif other.device != self.device:
+            other = csr_array(other, device=self.device)
+        if other.shape != self.shape:
+            raise ValueError("inconsistent shapes")
+        a, b = cast_to_common_type(self, other)
+        rows, cols = self.shape
+        ra, ca, va = a._coo_parts()
+        rb, cb, vb = b._coo_parts()
+        row = torch.cat([ra, rb]).to(torch.int64)
+        col = torch.cat([ca, cb]).to(torch.int64)
+        val = torch.cat([va, _scalar_op(vb, sign, torch.mul)])
+        data, indices, indptr = _spgemm_ops.coalesce_coo(row, col, val,
+                                                         rows, cols)
+        return type(self)._from_parts(data, indices, indptr, self.shape)
+
+    def __add__(self, other):
+        return self._add_sub(other, 1)
+
+    def __sub__(self, other):
+        return self._add_sub(other, -1)
+
+    # ---------------- comparisons ----------------
+    def _compare(self, other, name: str):
+        """Element-wise comparison, scipy's semantics: a bool sparse
+        array of the True positions, or a dense bool numpy array for a
+        dense operand.  Where the op is True at the implicit zeros
+        (``0 == 0``) the result is dense-shaped: it warns and is built
+        from a dense comparison, as in scipy."""
+        top, nop = _COMPARE[name]
+        cls = type(self)
+        scalar = _is_scalar(other)
+        sparse_other = _is_scipy_sparse(other) or _is_sparse_like(other)
+        if sparse_other and tuple(other.shape) != self.shape:
+            raise ValueError("inconsistent shapes")
+        if not scalar and not sparse_other:
+            return nop(to_numpy(self.toarray()), to_host(other))
+        if scalar:
+            dt, other = _scalar_dtype(self.dtype, other)
+        fill_true = bool(nop(0, other if scalar else 0))
+        if fill_true:
+            warnings.warn(
+                "Comparing a sparse array using a comparison that is True "
+                "for implicit zeros is inefficient (dense-shaped result)",
+                SparseEfficiencyWarning, stacklevel=3)
+        if scalar:
+            if fill_true:
+                return cls(top(self.toarray(), other))
+            a = self._canonicalized()
+            out = cls(a._with_data(top(a._data.to(dt), other)))
+            out.eliminate_zeros()
+            return out
+        if fill_true:
+            return cls(top(self.toarray(),
+                           as_tensor(other.toarray(), self.device)))
+        return self._compare_sparse_union(other, top)
+
+    def _compare_sparse_union(self, other, op):
+        """``op`` over the union of two sparse operands' structures, with
+        no dense intermediate: one stable sort by (row, col), one value
+        channel per operand."""
+        other = self._sparse_operand(other)
+        a, b = self._canonicalized(), other._canonicalized()
+        rows, cols = a.shape
+        ra, ca, va = a._coo_parts()
+        rb, cb, vb = b._coo_parts()
+        row = torch.cat([ra, rb])
+        col = torch.cat([ca, cb])
+        cha = torch.cat([va, torch.zeros_like(vb)])
+        chb = torch.cat([torch.zeros_like(va), vb])
+        key = row.to(torch.int64) * max(cols, 1) + col.to(torch.int64)
+        order = torch.argsort(key, stable=True)
+        key, row, col, cha, chb = (t[order] for t in (key, row, col, cha,
+                                                      chb))
+        same = key[1:] == key[:-1]
+        no = torch.zeros((1,), dtype=torch.bool, device=key.device)
+        same_next = torch.cat([same, no])
+        first = ~torch.cat([no, same])
+        # Merge each pair's channels onto the first slot of its key.
+        va_m = cha + torch.where(same_next, torch.roll(cha, -1),
+                                 torch.zeros_like(cha))
+        vb_m = chb + torch.where(same_next, torch.roll(chb, -1),
+                                 torch.zeros_like(chb))
+        res = first & op(va_m, vb_m)
+        out = type(self)((res, (row, col)), shape=self.shape)
+        out.eliminate_zeros()
+        return out
+
+    def __eq__(self, other):
+        return self._compare(other, "eq")
+
+    def __ne__(self, other):
+        return self._compare(other, "ne")
+
+    def __lt__(self, other):
+        return self._compare(other, "lt")
+
+    def __gt__(self, other):
+        return self._compare(other, "gt")
+
+    def __le__(self, other):
+        return self._compare(other, "le")
+
+    def __ge__(self, other):
+        return self._compare(other, "ge")
+
+    # Defining __eq__ clears the hash: sparse arrays are mutable and
+    # unhashable, as scipy's are.
+    __hash__ = None
+
+    def nonzero(self):
+        """(row, col) numpy arrays of the nonzero entries."""
+        from .gallery import find
+
+        r, c, _ = find(self)
+        return r, c
+
+    # ---------------- mutation and indexing ----------------
+    def setdiag(self, values, k: int = 0) -> None:
+        """Set diagonal ``k`` in place (scipy's ``setdiag``).  Stored
+        entries on it are overwritten; rows with no stored entry there
+        get one, sorted into their column order (as scipy does; the JAX
+        package appends them at the row's end), so a canonical matrix
+        stays canonical and keeps its banded path.  One host sync: the
+        count of the rows that need an entry."""
+        rows, cols = self.shape
+        if k <= -rows or k >= cols:
+            raise ValueError("k exceeds matrix dimensions")
+        length = min(rows + min(k, 0), cols - max(k, 0))
+        vals = as_tensor(values, self.device, dtype=self.dtype)
+        if vals.dim() == 0:
+            vals = vals.expand(length)
+        length = min(length, int(vals.shape[0]))
+        vals = vals[:length]
+        if length <= 0:
+            return
+        if self.nnz and not self.has_canonical_format:
+            self.sum_duplicates()
+        i0 = max(0, -k)
+        row_ids = self._get_row_ids().to(torch.int64)
+        on_diag = ((self._indices.to(torch.int64) - row_ids == k)
+                   & (row_ids < i0 + length))
+        rel = torch.clamp(row_ids - i0, 0, length - 1)
+        new_data = torch.where(on_diag, vals[rel], self._data)
+        has = torch.zeros((length,), dtype=torch.bool, device=self.device)
+        has[rel[on_diag]] = True
+        missing = torch.nonzero(~has).reshape(-1)
+        if missing.numel() == 0:
+            self._data = new_data
+            self._invalidate_caches(structure_changed=False)
+            return
+        r, c, _ = self._coo_parts()
+        row = torch.cat([r.to(torch.int64), missing + i0])
+        col = torch.cat([c.to(torch.int64), missing + i0 + k])
+        key = row * max(cols, 1) + col
+        order = torch.argsort(key, stable=True)
+        self._data = torch.cat([new_data, vals[missing]])[order]
+        self._indices = col[order].to(coord_dtype_for(max(self.shape)))
+        self._indptr = _convert.indptr_from_row_ids(row[order], rows)
+        self._invalidate_caches(structure_changed=True)
+        self._canonical = True
+        self._sorted = True
+
+    def _pointwise_get(self, rows_idx, cols_pt):
+        """``A[rows, cols]`` for index arrays of one shape, element by
+        element (duplicates summed), as a numpy array: three host
+        transfers, then numpy binary searches."""
+        n_rows, n_cols = self.shape
+        out_shape = rows_idx.shape
+        rows_idx = np.where(rows_idx < 0, rows_idx + n_rows,
+                            rows_idx).ravel()
+        cols_pt = np.where(cols_pt < 0, cols_pt + n_cols, cols_pt).ravel()
+        if rows_idx.size and (rows_idx.min() < 0 or rows_idx.max() >= n_rows
+                              or cols_pt.min() < 0
+                              or cols_pt.max() >= n_cols):
+            raise IndexError("pointwise index out of range")
+        indptr = to_numpy(self._indptr)
+        indices = to_numpy(self._indices)
+        data = to_numpy(self._data)
+        np_dtype = to_numpy_dtype(self.dtype)
+        if rows_idx.shape[0] <= 64:
+            # A few queries: probe each row alone, not a key over all nnz.
+            out = np.zeros(rows_idx.shape[0], dtype=np_dtype)
+            sorted_rows = bool(self.has_sorted_indices)
+            for t, (i, j) in enumerate(zip(rows_idx, cols_pt)):
+                lo, hi = int(indptr[i]), int(indptr[i + 1])
+                seg = indices[lo:hi]
+                if sorted_rows:
+                    a = np.searchsorted(seg, j, "left")
+                    b = np.searchsorted(seg, j, "right")
+                    out[t] = data[lo + a: lo + b].sum()
+                else:
+                    out[t] = data[lo:hi][seg == j].sum()
+            return out.reshape(out_shape)
+        row_ids = np.repeat(np.arange(n_rows, dtype=np.int64),
+                            np.diff(indptr))
+        key = row_ids * np.int64(n_cols) + indices.astype(np.int64)
+        if not self.has_sorted_indices:
+            order = np.argsort(key, kind="stable")
+            key = key[order]
+            data = data[order]
+        q = (rows_idx.astype(np.int64) * np.int64(n_cols)
+             + cols_pt.astype(np.int64))
+        a = np.searchsorted(key, q, "left")
+        b = np.searchsorted(key, q, "right")
+        out = np.zeros(q.shape[0], dtype=np_dtype)
+        single = (b - a) == 1
+        out[single] = data[a[single]]
+        for t in np.nonzero(b - a > 1)[0]:
+            out[t] = data[a[t]: b[t]].sum()
+        return out.reshape(out_shape)
+
+    def _select_rows(self, rows_idx) -> "csr_array":
+        rows_idx = np.asarray(rows_idx, dtype=np.int64)
+        if rows_idx.ndim != 1:
+            raise IndexError("row index arrays must be 1-D")
+        n_rows = self.shape[0]
+        if rows_idx.size and (rows_idx.min() < -n_rows
+                              or rows_idx.max() >= n_rows):
+            raise IndexError("row index out of range")
+        rows_idx = np.where(rows_idx < 0, rows_idx + n_rows, rows_idx)
+        idx = torch.from_numpy(rows_idx).to(self.device)
+        nnz_out = int(torch.sum(self._indptr[idx + 1] - self._indptr[idx]))
+        data, indices, indptr = _convert.select_rows(
+            self._data, self._indices, self._indptr, idx, nnz_out)
+        return csr_array._from_parts(data, indices, indptr,
+                                     (len(rows_idx), self.shape[1]),
+                                     canonical=self._canonical)
+
+    @staticmethod
+    def _checked_index(i: int, extent: int, axis: str) -> int:
+        if not -extent <= i < extent:
+            raise IndexError(f"{axis} index {i} out of range for extent "
+                             f"{extent}")
+        return i + extent if i < 0 else i
+
+    @staticmethod
+    def _bool_mask_to_idx(mask, extent: int, axis: str):
+        if mask.shape[0] != extent:
+            raise IndexError(f"boolean {axis} mask length {mask.shape[0]} "
+                             f"!= {extent}")
+        return np.nonzero(mask)[0]
+
+    def __getitem__(self, key):
+        """Row selection and element access (the JAX package's subset):
+
+        - ``A[i]``/``A[i, :]``: a (1, cols) CSR row (2-D, as scipy's
+          ``csr_matrix``; there is no 1-D sparse type here);
+        - ``A[i, j]``: a numpy scalar, the sum of duplicates there;
+        - ``A[i0:i1:step]``, ``A[row_array]``, ``A[bool_mask]``: rows;
+        - a column slice, index or array after any of them; two index
+          arrays of one shape pick single elements (a numpy array).
+        """
+        col_key = None
+        if isinstance(key, tuple):
+            if len(key) != 2:
+                raise IndexError("too many indices for 2-D sparse array")
+            key, col_key = key
+        if (col_key is not None and isinstance(key, (int, np.integer))
+                and isinstance(col_key, (int, np.integer))):
+            i = self._checked_index(int(key), self.shape[0], "row")
+            j = self._checked_index(int(col_key), self.shape[1], "column")
+            lo, hi = self._indptr[i:i + 2].tolist()
+            seg = to_numpy(self._indices[lo:hi])
+            vals = to_numpy(self._data[lo:hi])
+            return to_numpy_dtype(self.dtype).type(vals[seg == j].sum())
+
+        if isinstance(key, slice):
+            rows_idx = np.arange(*key.indices(self.shape[0]))
+            full_rows = key == slice(None)
+        elif isinstance(key, (int, np.integer)):
+            rows_idx = np.asarray([int(key)])
+            full_rows = False
+        else:
+            rows_idx = to_host(key)
+            if rows_idx.dtype == bool:
+                rows_idx = self._bool_mask_to_idx(rows_idx, self.shape[0],
+                                                  "row")
+            full_rows = False
+            # Two index arrays pick single elements (numpy and scipy),
+            # not the outer-product submatrix.
+            if (col_key is not None
+                    and not isinstance(col_key, (slice, int, np.integer))):
+                cols_pt = to_host(col_key)
+                if cols_pt.dtype == bool:
+                    cols_pt = self._bool_mask_to_idx(cols_pt, self.shape[1],
+                                                     "column")
+                if rows_idx.shape != cols_pt.shape:
+                    raise IndexError("pointwise row/column index arrays "
+                                     "must have the same shape")
+                return self._pointwise_get(rows_idx, cols_pt)
+
+        # A full row slice is a new wrapper over the same tensors (the
+        # mutators rebind, never write into them).
+        out = (self._with_data(self._data) if full_rows
+               else self._select_rows(rows_idx))
+        if col_key is None or (isinstance(col_key, slice)
+                               and col_key == slice(None)):
+            return out
+        # Column arrays may repeat or reorder columns: through the
+        # transpose and row selection.  Slices and single columns take a
+        # mask, a compaction and a rebase.
+        if not isinstance(col_key, (slice, int, np.integer)):
+            cols_sel = to_host(col_key)
+            if cols_sel.dtype == bool:
+                cols_sel = self._bool_mask_to_idx(cols_sel, self.shape[1],
+                                                  "column")
+            return out.transpose()._select_rows(cols_sel).transpose()
+        if isinstance(col_key, slice):
+            cols_sel = np.arange(*col_key.indices(self.shape[1]))
+        else:
+            cols_sel = np.asarray([self._checked_index(
+                int(col_key), self.shape[1], "column")])
+        remap = np.full(self.shape[1], -1, dtype=np.int64)
+        remap[cols_sel] = np.arange(len(cols_sel))
+        new_cols = torch.from_numpy(remap).to(self.device)[
+            out.indices.to(torch.int64)]
+        data, cols2, rows_kept = _convert.compact_mask(
+            new_cols >= 0, (out.data, new_cols, out._get_row_ids()))
+        return csr_array._from_parts(
+            data, cols2.to(coord_dtype_for(max(len(cols_sel), 1))),
+            _convert.indptr_from_row_ids(rows_kept, out.shape[0]),
+            (out.shape[0], len(cols_sel)), canonical=None)
 
     # ---------------- cached matvec structure ----------------
     def _get_row_ids(self) -> torch.Tensor:
@@ -393,8 +1138,7 @@ class csr_array(CompressedBase):
         require_supported_dtype(self.dtype)
         if _is_scipy_sparse(other):
             other = csr_array(other, device=self.device)
-        elif (isinstance(other, CompressedBase)
-              and not isinstance(other, csr_array)):
+        elif is_sparse_matrix(other) and not isinstance(other, csr_array):
             other = other.tocsr()
         if isinstance(other, csr_array):
             if out is not None:
@@ -498,6 +1242,14 @@ class csr_array(CompressedBase):
         self.spmm_path = path
         return Y
 
+    def __rmatmul__(self, other):
+        raise NotImplementedError("dense @ csr is not yet supported")
+
+    def __str__(self) -> str:
+        r, c, v = (to_numpy(t) for t in self._coo_parts())
+        return "\n".join(f"  ({int(i)}, {int(j)})\t{x}"
+                         for i, j, x in zip(r, c, v))
+
     def __repr__(self) -> str:
         return (f"<{self.shape[0]}x{self.shape[1]} sparse array of type "
                 f"'{self.dtype}' with {self.nnz} stored elements in "
@@ -505,18 +1257,77 @@ class csr_array(CompressedBase):
 
 
 class csr_matrix(csr_array):
-    """scipy's ``csr_matrix`` flavour (reference ``csr.py:1961``): ``*``
-    is the matrix product, and a scalar ``*`` scales the values."""
+    """scipy's ``csr_matrix`` flavour (reference ``csr.py:1961-2010``):
+    ``*`` and ``**`` are the matrix product and power, and the legacy
+    ``getrow``/``getcol``/``getH`` exist here only, as in scipy."""
+
+    _is_spmatrix = True
+
+    def __pow__(self, n):
+        if not isinstance(n, (int, np.integer)) or n < 0:
+            raise ValueError("matrix power requires a non-negative int")
+        if self.shape[0] != self.shape[1]:
+            raise TypeError("matrix is not square")
+        from .gallery import identity
+
+        result = csr_matrix(identity(self.shape[0], dtype=self.dtype,
+                                     format="csr", device=self.device))
+        base = self
+        n = int(n)
+        while n:
+            if n & 1:
+                result = csr_matrix(result.dot(base))
+            n >>= 1
+            if n:
+                base = csr_matrix(base.dot(base))
+        return result
+
+    def getrow(self, i):
+        return csr_matrix(self[int(i), :])
+
+    def getcol(self, j):
+        return csr_matrix(self[:, int(j)])
+
+    def getH(self):
+        return self.conj().transpose()
 
     def __mul__(self, other):
-        if np.isscalar(other) or getattr(other, "ndim", None) == 0:
-            return self._with_data(self._data * other)
+        if _is_scalar(other):
+            return self._with_data(_scalar_op(self._data, other, torch.mul))
         return self.dot(other)
 
     def __rmul__(self, other):
-        if np.isscalar(other) or getattr(other, "ndim", None) == 0:
-            return self._with_data(self._data * other)
-        return NotImplemented
+        if _is_scalar(other):
+            return self._with_data(_scalar_op(self._data, other, torch.mul))
+        # scipy's spmatrix: x * A is x @ A (a row-vector product).
+        other = as_tensor(other, self.device)
+        AT = self.transpose()
+        if other.dim() == 1:
+            return to_numpy(AT @ other)
+        return to_numpy(AT @ other.T).T
+
+
+def _elementwise_intersect_multiply(a: csr_array, b: csr_array) -> csr_array:
+    """Hadamard product of two canonical CSR matrices of one dtype
+    (reference ``csr.py:2015-2043``): after one sort of the joined
+    coordinates by (row, col), a coordinate in both is an adjacent pair,
+    and the product of the pair's channel sums is its value."""
+    rows, cols = a.shape
+    ra, ca, va = a._coo_parts()
+    rb, cb, vb = b._coo_parts()
+    r = torch.cat([ra, rb])
+    c = torch.cat([ca, cb])
+    ch_a = torch.cat([va, torch.zeros_like(vb)])
+    ch_b = torch.cat([torch.zeros_like(va), vb])
+    key = r.to(torch.int64) * max(cols, 1) + c.to(torch.int64)
+    order = torch.argsort(key, stable=True)
+    key, r, c, ch_a, ch_b = (t[order] for t in (key, r, c, ch_a, ch_b))
+    prod = (ch_a[:-1] + ch_a[1:]) * (ch_b[:-1] + ch_b[1:])
+    out_rows, out_cols, out_vals = _convert.compact_mask(
+        key[1:] == key[:-1], (r[:-1], c[:-1], prod))
+    return csr_array._from_parts(
+        out_vals, out_cols, _convert.indptr_from_row_ids(out_rows, rows),
+        (rows, cols))
 
 
 def spgemm_csr_csr_csr(A: csr_array, B: csr_array) -> csr_array:

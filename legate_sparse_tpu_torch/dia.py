@@ -8,7 +8,9 @@ scipy's column-aligned layout ``A[j - offsets[k], j] = data[k, j]``.
 ``tocsr`` converts sort-free (``dia.py:158``) and ``dot``
 (``dia.py:224-265``) takes the same DIA kernels as ``csr_array``'s
 banded path: SpMV, and SpMM for X (cols, k <= 1024); a sparse operand
-goes through ``tocsr().dot``.
+goes through ``tocsr().dot``.  ``transpose`` realigns the diagonals
+(``dia.py:123-142``); the rest of the scipy surface (sums, max/min,
+arithmetic, comparisons) comes from ``base.py`` through CSR.
 """
 
 from __future__ import annotations
@@ -101,8 +103,33 @@ class dia_array(CompressedBase):
         return dia_array((self._data, self._offsets), shape=self.shape,
                          copy=True)
 
-    def _with_data(self, data) -> "dia_array":
-        return dia_array((data, self._offsets), shape=self.shape)
+    def _with_data(self, data, copy: bool = False) -> "dia_array":
+        return type(self)((data, self._offsets), shape=self.shape,
+                          copy=copy)
+
+    def transpose(self, axes=None, copy: bool = False):
+        """Diagonal k of A is diagonal -k of A.T; in scipy's
+        column-aligned layout ``A.T``'s ``data[d, p]`` is A's
+        ``data[d, p + offsets[d]]`` (0 where that column is outside the
+        stored width)."""
+        if axes is not None:
+            raise ValueError("axes parameter not supported")
+        rows, cols = self.shape
+        num_d, width = self._data.shape
+        dev = self._data.device
+        offs = torch.tensor(self._offsets, dtype=torch.int64, device=dev)
+        src = (torch.arange(max(rows, cols), dtype=torch.int64,
+                            device=dev)[None, :] + offs[:, None])
+        valid = (src >= 0) & (src < width)
+        gathered = torch.where(
+            valid, self._data.gather(1, src.clamp(0, max(width - 1, 0))),
+            torch.zeros((), dtype=self.dtype, device=dev))
+        return dia_array((gathered, tuple(-o for o in self._offsets)),
+                         shape=(cols, rows))
+
+    @property
+    def T(self):
+        return self.transpose()
 
     def todia(self, copy: bool = False) -> "dia_array":
         return self.copy() if copy else self
@@ -213,3 +240,17 @@ class dia_array(CompressedBase):
                 f"'{self.dtype}' with {self.nnz} stored elements "
                 f"({self._data.shape[0]} diagonals) in DIAgonal format on "
                 f"{self._data.device}>")
+
+
+class dia_matrix(dia_array):
+    """scipy's ``dia_matrix`` flavour: ``*`` and ``**`` are the matrix
+    product and power."""
+
+    _is_spmatrix = True
+
+    def __pow__(self, n):
+        from .csr import csr_matrix
+
+        out = (csr_matrix(self.tocsr()) ** n).asformat("dia")
+        out.__class__ = type(self)
+        return out

@@ -35,7 +35,7 @@ import ctypes
 import torch
 
 from . import _build
-from .convert import row_ids_from_indptr
+from .convert import row_ids_from_indptr, segment_sum
 
 B = 128  # block edge
 # Most present blocks a structure may hold (the JAX package's cap).
@@ -159,22 +159,23 @@ def densify(st: BsrStructure) -> torch.Tensor:
 def bsr_spmv_plain(st: BsrStructure, x2d) -> torch.Tensor:
     """(nbr, B) f32 ``y2d = A @ x`` in plain PyTorch: densify the
     present blocks, gather the x chunk of each, one batched matvec in
-    f32, sum per block-row."""
+    f32, sum per block-row.  The blocks are sorted by block-row, so the
+    sum is a segment sum over ``bptr``'s runs, in one fixed order (an
+    ``index_add_`` is an atomic add on CUDA, in no fixed order)."""
     xg = x2d[st.bcol.long()].float()                          # (nb, B)
     prod = torch.einsum("bc,bcr->br", xg, densify(st))        # (nb, B)
-    y = torch.zeros((st.nbr, B), dtype=torch.float32, device=x2d.device)
-    return y.index_add_(0, st.brow.long(), prod)
+    return segment_sum(prod, st.bptr[1:] - st.bptr[:-1])
 
 
 def bsr_spmm_plain(st: BsrStructure, X) -> torch.Tensor:
     """(nbr * B, k) f32 ``Y = A @ X`` in plain PyTorch, for X (nbc * B,
     k): densify, gather the X chunk of each block, one batched product
-    in f32, sum per block-row."""
+    in f32, a segment sum per block-row (as ``bsr_spmv_plain``)."""
     k = X.shape[1]
     xg = X.reshape(-1, B, k)[st.bcol.long()].float()              # (nb, B, k)
     prod = torch.einsum("bck,bcr->brk", xg, densify(st))          # (nb, B, k)
-    Y = torch.zeros((st.nbr, B, k), dtype=torch.float32, device=X.device)
-    return Y.index_add_(0, st.brow.long(), prod).reshape(st.nbr * B, k)
+    return segment_sum(prod, st.bptr[1:] - st.bptr[:-1]).reshape(
+        st.nbr * B, k)
 
 
 def _check(st: BsrStructure, x2d, name: str) -> None:

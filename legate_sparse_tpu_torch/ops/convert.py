@@ -2,8 +2,10 @@
 # SPDX-License-Identifier: Apache-2.0
 """Format conversions (mirrors ``legate_sparse_tpu/ops/convert.py``):
 indptr ↔ per-nonzero row ids, dense ↔ CSR and COO → CSR for the
-constructors, the CSR transpose and diagonal extraction, and the
-deterministic segment sum they and the SpGEMM share."""
+constructors, the CSR transpose and diagonal extraction, mask
+compaction and row selection (``compact_mask``, ``select_rows``), and
+the segment reductions they, the facade's reductions and the SpGEMM
+share, each of which gives the same result on every call on CUDA."""
 
 from __future__ import annotations
 
@@ -30,16 +32,69 @@ def indptr_from_row_ids(row_ids: torch.Tensor, rows: int) -> torch.Tensor:
                                              minlength=rows))
 
 
+def _lengths_to_ids(lengths: torch.Tensor, total: int) -> torch.Tensor:
+    return torch.repeat_interleave(
+        torch.arange(lengths.shape[0], dtype=torch.int64,
+                     device=lengths.device), lengths, output_size=total)
+
+
 def segment_sum(vals: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """Sum of each run of ``lengths[s]`` consecutive values (empty runs
-    give 0).  ``torch.segment_reduce`` reduces each run on its own, so
-    the result does not change from run to run on CUDA, unlike the
-    atomic ``index_add_``; complex values are summed as (re, im)."""
+    """Sum of each run of ``lengths[s]`` consecutive values along dim 0
+    (empty runs give 0).  ``torch.segment_reduce`` reduces each run on
+    its own, so the result does not change from run to run on CUDA,
+    unlike the atomic ``index_add_`` (which is kept for integers, whose
+    sum does not depend on order); complex values are summed as (re,
+    im), and bool values are OR-ed, as XLA's scatter-add does."""
     if vals.is_complex():
         out = torch.segment_reduce(torch.view_as_real(vals), "sum",
                                    lengths=lengths, axis=0)
         return torch.view_as_complex(out.contiguous())
-    return torch.segment_reduce(vals, "sum", lengths=lengths)
+    if vals.is_floating_point():
+        return torch.segment_reduce(vals, "sum", lengths=lengths)
+    seg = _lengths_to_ids(lengths, vals.shape[0])
+    out = torch.zeros((lengths.shape[0],) + tuple(vals.shape[1:]),
+                      dtype=torch.int64 if vals.dtype == torch.bool
+                      else vals.dtype, device=vals.device)
+    out.index_add_(0, seg, vals.to(out.dtype))
+    return out != 0 if vals.dtype == torch.bool else out
+
+
+def segment_extreme(vals: torch.Tensor, lengths: torch.Tensor,
+                    op: str) -> torch.Tensor:
+    """Max (``op="max"``) or min of each run of ``lengths[s]``
+    consecutive values; an empty run gives -inf/+inf (integers: the
+    type's min/max).  NaN propagates, as in XLA's max and min."""
+    if vals.is_floating_point():
+        return torch.segment_reduce(vals, op, lengths=lengths)
+    info = torch.iinfo(vals.dtype)
+    init = info.min if op == "max" else info.max
+    out = torch.full((lengths.shape[0],), init, dtype=vals.dtype,
+                     device=vals.device)
+    return out.scatter_reduce(0, _lengths_to_ids(lengths, vals.shape[0]),
+                              vals, "amax" if op == "max" else "amin")
+
+
+def compact_mask(mask: torch.Tensor, arrays) -> tuple:
+    """The elements of each array where ``mask`` is True, in order
+    (``:158``).  One host sync: the count of True elements, which
+    ``torch.nonzero`` takes where the JAX package takes
+    ``int(mask.sum())``."""
+    idx = torch.nonzero(mask).reshape(-1)
+    return tuple(a[idx] for a in arrays)
+
+
+def select_rows(data, indices, indptr, rows_idx, nnz_out: int):
+    """(data, indices, indptr) of the rows ``rows_idx`` (any order,
+    repeats allowed) of a CSR matrix (``:170``); ``nnz_out`` is their
+    total count of entries, summed on the host by the caller."""
+    starts = indptr[rows_idx]
+    counts = indptr[rows_idx + 1] - starts
+    new_indptr = indptr_from_counts(counts)
+    out_row = _lengths_to_ids(counts, nnz_out)
+    src = (starts[out_row]
+           + torch.arange(nnz_out, dtype=torch.int64, device=data.device)
+           - new_indptr[out_row])
+    return data[src], indices[src], new_indptr
 
 
 def coo_to_csr(rows_idx, cols_idx, values, rows: int):

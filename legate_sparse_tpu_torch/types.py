@@ -16,6 +16,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+try:  # scipy's own class, so ``pytest.warns`` and filters match both
+    from scipy.sparse import SparseEfficiencyWarning
+except ImportError:  # pragma: no cover
+    class SparseEfficiencyWarning(UserWarning):
+        """An operation whose result is dense-shaped or needs a
+        structure change (scipy's warning class)."""
+
 # Default coordinate type; promoted to int64 for extents past int32.
 coord_ty = torch.int32
 wide_coord_ty = torch.int64

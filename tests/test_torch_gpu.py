@@ -455,3 +455,72 @@ def test_dia_spgemm_kernel_matches_plain(cuda, dtype, case):
     if case == "rect-empty-diag":
         empty = [ci for ci, ps in enumerate(pairs) if not ps]
         assert empty and not bool(C[empty].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["random", "nonfinite", "many-blocks"])
+def test_bsr_plain_versions_repeat_exactly(cuda, case):
+    """The plain BSR versions sum each block-row's block products by a
+    segment sum over ``bptr``'s runs, in one fixed order: two calls on
+    one input give the same bits, NaN and inf included (an
+    ``index_add_`` would add atomically in no fixed order)."""
+    rng = np.random.default_rng(7)
+    S, x = _bsr_cases(rng)[case]
+    st = _bsr_structure(S, torch.float32, cuda)
+    xp = rng.standard_normal(st.nbc * 128).astype(np.float32)
+    if x is not None:
+        xp[: x.shape[0]] = x
+    x2d = torch.from_numpy(xp.reshape(-1, 128)).to(cuda)
+
+    def same_bits(a, b):    # NaN included, which torch.equal is not
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    assert same_bits(bsr_ops.bsr_spmv_plain(st, x2d),
+                     bsr_ops.bsr_spmv_plain(st, x2d))
+    X = torch.from_numpy(rng.standard_normal(
+        (st.nbc * 128, 40)).astype(np.float32)).to(cuda)
+    assert same_bits(bsr_ops.bsr_spmm_plain(st, X),
+                     bsr_ops.bsr_spmm_plain(st, X))
+
+
+@pytest.mark.gpu
+def test_setdiag_then_dot_on_card(cuda):
+    """The caches of a mutated matrix on the card: after a value-only
+    ``setdiag`` and one that inserts a diagonal, ``A @ x`` launches the
+    DIA kernel over the new band and agrees with scipy's f64 product
+    (f32 rounding: 2e-6 of each row's sum of magnitudes)."""
+    n = 200_000
+    rng = np.random.default_rng(11)
+    S = sp.diags([rng.standard_normal(n - 1), rng.standard_normal(n),
+                  rng.standard_normal(n - 1)], [-1, 0, 1], format="csr",
+                 dtype=np.float32)
+    A = sparse.csr_array(S, device=cuda)
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda)
+    A @ x
+    S = S.astype(np.float64).tolil()
+    for val, k in ((5.0, 0), (1.0, 2)):
+        A.setdiag(val, k=k)
+        S.setdiag(val, k=k)
+        before = dia_kernel.dia_spmv.launches
+        y = A @ x
+        assert A.spmv_path == "dia-kernel"
+        assert dia_kernel.dia_spmv.launches == before + 1
+        Sc = S.tocsr()
+        xn = x.double().cpu().numpy()
+        err = np.abs(y.double().cpu().numpy() - Sc @ xn)
+        assert np.all(err <= 2e-6 * (abs(Sc) @ np.abs(xn)) + 1e-30)
+    assert A._dia_offsets == (-1, 0, 1, 2)
+
+
+@pytest.mark.gpu
+def test_sum_axis0_repeats_exactly(cuda):
+    """Column sums are segment sums over column-sorted values: two calls
+    give equal tensors on the card (a scatter-add would not)."""
+    S = sp.random(50_000, 300, density=0.05, format="csr", random_state=3,
+                  dtype=np.float32)
+    A = sparse.csr_array(S, device=cuda)
+    s1, s2 = A.sum(axis=0), A.sum(axis=0)
+    assert torch.equal(s1, s2)
+    np.testing.assert_allclose(
+        s1.cpu().numpy(), np.asarray(S.astype(np.float64).sum(axis=0)).ravel(),
+        rtol=1e-4)

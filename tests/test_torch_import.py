@@ -37,6 +37,10 @@ def test_import_loads_no_jax():
         "import legate_sparse_tpu_torch\n"
         "import legate_sparse_tpu_torch.apps.gmg\n"
         "import legate_sparse_tpu_torch.apps.pde\n"
+        "import legate_sparse_tpu_torch.base\n"
+        "import legate_sparse_tpu_torch.coo\n"
+        "import legate_sparse_tpu_torch.csc\n"
+        "import legate_sparse_tpu_torch.gallery\n"
         "import legate_sparse_tpu_torch.interop\n"
         "import legate_sparse_tpu_torch.ops.bsr\n"
         "import legate_sparse_tpu_torch.ops.dia_kernel\n"
@@ -65,6 +69,21 @@ def test_no_jax_import_in_source(relpath):
             if node.level == 0 and node.module and _forbidden(node.module):
                 bad.append(node.module)
     assert not bad, f"{relpath} imports {bad}"
+
+
+FACADE_NAMES = ("coo_array", "coo_matrix", "csc_array", "csc_matrix",
+                "csr_matrix", "dia_matrix", "eye", "identity", "kron",
+                "kronsum", "tril", "triu", "spdiags", "vstack", "hstack",
+                "block_diag", "bmat", "block_array", "find", "random",
+                "powerlaw", "rmat", "SparseEfficiencyWarning")
+
+
+def test_facade_names_exported_without_jax():
+    """The facade's names come from the port's own modules."""
+    for name in FACADE_NAMES:
+        obj = getattr(sparse, name)
+        assert getattr(obj, "__module__", "").startswith(
+            ("legate_sparse_tpu_torch", "scipy")), (name, obj)
 
 
 def test_forbidden_matches_exact_module_names():
@@ -103,3 +122,27 @@ def test_cpu_on_request(no_cuda):
 def test_tensor_inputs_keep_their_device(no_cuda):
     A = sparse.csr_array(torch.eye(4, dtype=torch.float32))
     assert A.device.type == "cpu"
+
+
+@pytest.mark.parametrize("make", [
+    lambda: sparse.coo_array(np.eye(3)),
+    lambda: sparse.coo_array((np.ones(2), (np.arange(2), np.arange(2)))),
+    lambda: sparse.csc_array(np.eye(3)),
+    lambda: sparse.eye(3), lambda: sparse.identity(3),
+    lambda: sparse.spdiags(np.ones((1, 3)), [0]),
+    lambda: sparse.random(4, 4, density=0.5, rng=0),
+    lambda: sparse.powerlaw(8, rng=0), lambda: sparse.rmat(3, rng=0)])
+def test_facade_entry_points_raise_without_cuda(no_cuda, make):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+
+
+def test_facade_entry_points_on_request(no_cuda):
+    for A in (sparse.eye(3, device="cpu"), sparse.rmat(3, rng=0,
+                                                        device="cpu"),
+              sparse.csc_array(np.eye(3), device="cpu"),
+              sparse.coo_array(np.eye(3), device="cpu")):
+        assert A.device.type == "cpu"
+    runtime.set_device("cpu")
+    assert sparse.random(4, 4, density=0.5, rng=0).device.type == "cpu"
+    assert sparse.kron(np.eye(2), np.eye(2)).device.type == "cpu"
