@@ -87,7 +87,36 @@ Phases, each printing one JSON line:
    the dispatch picks against scipy f64.  Each op's card ms (CUDA events, median of 5 after one
    warmup) beside scipy's host seconds for the same op, and the phase's
    launch counts (``dia_spmv`` and ``bsr_spmv`` must be among them);
-10. for each kernel at the shapes of phases 4-7: its time (CUDA events
+10. the solvers (``main_path_solvers``) at full width, each from
+   ``b = A @ x_true``: on the backward-Euler heat step of the 4096x4096
+   grid (SPD) ``cg`` with ``jacobi`` and with ``block_jacobi(.., 32)``
+   (its build seconds and ms per apply), ``minres``, ``lsqr`` and
+   ``lsmr`` (their transposed products through ``"dia-kernel"`` too),
+   damped ``lsqr``/``lsmr`` held by their normal equations, and the
+   gradient of ``<w, differentiable_solve(A, b)>`` against a second
+   solve; on upwinded convection-diffusion (nonsymmetric) ``gmres``
+   (restart 20; its host fetches counted, one cycle run in PyTorch's
+   sync debug mode, which must report no synchronisation; the card's
+   busy share in a cycle as the device time of the same cycle captured
+   in a CUDA graph and replayed over its time run eagerly, both by CUDA
+   events, and the share under ``torch.profiler`` beside it) and
+   ``bicgstab``; on a
+   strictly diagonally dominant 2^20-row block-clustered matrix
+   ``bicgstab`` through ``"bsr"``.  Each to rtol 1e-5: its f64 true
+   relative residual at most twice that, its error to ``x_true`` at
+   most 1e-3, its launch counts exactly what its iteration count calls
+   for, its card ms by CUDA events.  Then ``expm_multiply(-0.5 L, B)``
+   for four DST eigenmodes of the pde_4096 Laplacian (and one as a
+   vector) against ``e^(-lambda/2) B`` at 1e-4, ``s * m`` SpMM (SpMV)
+   launches; ``norm`` against scipy; ``mmwrite``/``mmread`` (the numpy
+   and the native parser) and ``save_npz``/``load_npz`` of the
+   1024x1024-grid Poisson matrix, bit for bit, each read back through
+   the DIA kernel; scipy's predicates, a scipy fallback returning a
+   tensor on the card, and ``linalg.eigsh``/``csgraph`` raising.
+   Every kernel is held against its plain version at each shape the
+   phase gives it (the DIA kernels bit for bit, among them ``dia_spmm``
+   at k = 4, the 16-byte variant ``expm_multiply`` runs);
+11. for each kernel at the shapes of phases 4-7: its time (CUDA events
    around 10 calls in a row, median of 25 such samples after warmup),
    the least time the card could take (bytes over 3.35 TB/s,
    operations over 67 TFLOP/s f32; for the BSR kernels the bytes of the
@@ -102,7 +131,10 @@ Phases, each printing one JSON line:
    ``band_to_csr``.
 
 Launch counts come from the kernel wrappers: each is set to 0 just
-before a main-path phase drives its path and read just after.  Any
+before a main-path phase (in phase 10, each run) drives its path and
+read just after; the ``kernels`` line's launches add phase 10's to
+those of phases 4-7, and its ``max_abs_err`` is the largest over the
+kernel's shapes in phases 4-7 and 10.  Any
 failed check raises, so the script exits non-zero; it exits non-zero
 without printing a result when there is no CUDA device.  The last three
 lines are the ``kernels`` JSON object, the ``nvidia-smi`` line and
@@ -111,8 +143,10 @@ lines are the ``kernels`` JSON object, the ``nvidia-smi`` line and
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -143,7 +177,7 @@ def main() -> int:
     from scipy import fft
 
     import legate_sparse_tpu_torch as sparse
-    from legate_sparse_tpu_torch import linalg
+    from legate_sparse_tpu_torch import linalg, utils_native
     from legate_sparse_tpu_torch.apps import gmg as gmg_app
     from legate_sparse_tpu_torch.apps import pde
     from legate_sparse_tpu_torch.ops import _build
@@ -1415,6 +1449,533 @@ def main() -> int:
          "seconds": time.perf_counter() - facade_t0})
     del G, G0, G_sp, Gs, Gs_sp, xg, yg
     torch.cuda.empty_cache()
+
+    # ---- 10. the solvers on the main path -----------------------------------
+    # Three operators at full width, each solved from b = A @ x_true (x_true
+    # seeded): the backward-Euler step of the heat equation on the
+    # 4096x4096 grid (5 on the diagonal, -1 on +-1 with pde_4096's row-end
+    # holes and on +-4096: SPD, kappa <= 9), upwinded convection-diffusion
+    # on the same grid (-1.5 on -1, -0.5 on +1: nonsymmetric, diagonally
+    # dominant), and a 2^20-row block-clustered matrix of phase 6's kind
+    # whose diagonal block is one of every block-row's 8 and whose diagonal
+    # is twice its row's other magnitudes (strictly dominant, through BSR).
+    # Each run is held to its true relative residual in f64 (at most twice
+    # the rtol asked), its error to x_true (1e-3) and launch counts equal
+    # to what its returned iteration count calls for; a run's card time by
+    # CUDA events around the call, host syncs included, after a warm-up
+    # call of two iterations (the first use of cuBLAS and of each
+    # elementwise kernel costs tens of ms once).
+    solver_t0 = time.perf_counter()
+    grid, irr_rows, io_grid = 4096, 1 << 20, 1024
+    n = grid * grid
+    solver_runs, solver_timing = {}, {}
+    phase10 = {name: 0 for name in counters}
+
+    def run(fn):
+        """``fn()`` with the counts set to 0 just before it: its launches,
+        card ms (CUDA events) and host s; the launches also add up in
+        ``phase10``."""
+        sync()
+        reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        for k, v in counts.items():
+            phase10[k] += v
+        return out, counts, start.elapsed_time(end), secs
+
+    # Every kernel at each shape this phase gives it, against its plain
+    # version on the same inputs, outside the counted runs: the DIA
+    # kernels bit for bit, the BSR SpMV to 1e-5 of the largest |y| (its
+    # sums run in another order), as phases 3-6 hold them.
+    kernel_vs_plain = {}
+
+    def hold(name, kernel, got, want):
+        bitwise = kernel != "bsr_spmv"
+        err = close(got, want, 1e-6 if bitwise else 1e-5, name)
+        same = bool(torch.equal(got, want))
+        check(same or not bitwise, f"{name}: kernel and plain version not "
+              f"bit for bit equal")
+        kernel_vs_plain[name] = {"kernel": kernel, "max_abs_err": err,
+                                 "bitwise": same}
+
+    def hold_dia_spmv(name, A, x):
+        pk = A._get_dia_pack()
+        check(pk is not None, f"{name}: the DIA kernel must take it")
+        hold(name, "dia_spmv", dia_kernel.dia_spmv(pk, x),
+             dia_kernel.dia_spmv_plain(pk.rdata, pk.rmask, x, pk.offsets,
+                                       pk.shape))
+
+    def expect(name, counts, **want):
+        full = {k: want.get(k, 0) for k in counters}
+        check(counts == full, f"{name} launched {counts}, its iterations "
+              f"call for {full}")
+
+    def rel_norm(v, ref) -> float:
+        return float(torch.linalg.vector_norm(v.double() - ref.double())
+                     / torch.linalg.vector_norm(ref.double()))
+
+    def rel_residual(A64, x, b) -> float:
+        return rel_norm(A64 @ x.double(), b)
+
+    def judge(name, A, A64, b, x_true, x, iters, counts, ms, secs, rtol,
+              path, unit="iteration", **extra):
+        res = rel_residual(A64, x, b)
+        err = rel_norm(x, x_true)
+        check(bool(torch.isfinite(x).all()), f"{name}: x not finite")
+        check(res <= 2 * rtol, f"{name}: true relative residual {res} > "
+              f"2 * {rtol}")
+        check(err <= 1e-3, f"{name}: relative error to x_true {err}")
+        check(A.spmv_path == path, f"{name} took {A.spmv_path}")
+        per = extra.pop("per", iters)
+        solver_runs[name] = {"iters": iters, "rel_residual_f64": res,
+                             "rel_error_to_x_true": err, "path": A.spmv_path,
+                             "launches": {k: v for k, v in counts.items()
+                                          if v},
+                             f"ms_per_{unit}": ms / max(per, 1),
+                             "card_ms": ms, "host_s": secs, **extra}
+
+    hole = np.ones(n - 1, np.float32)
+    hole[np.arange(1, grid) * grid - 1] = 0.0
+    far = np.full(n - grid, -1.0, np.float32)
+    ones = np.ones(n, np.float32)
+    five_offsets = [0, 1, -1, grid, -grid]
+    step = sparse.diags([5.0 * ones, -hole, -hole, far, far], five_offsets,
+                        shape=(n, n), format="csr", dtype=torch.float32)
+    convdiff = sparse.diags([5.0 * ones, -0.5 * hole, -1.5 * hole, far, far],
+                            five_offsets, shape=(n, n), format="csr",
+                            dtype=torch.float32)
+    x_true = randx(n)
+    b_step, b_cd = step @ x_true, convdiff @ x_true
+    step64, cd64 = step.astype(torch.float64), convdiff.astype(torch.float64)
+    hold_dia_spmv("step @ x", step, x_true)
+    hold_dia_spmv("convdiff @ x", convdiff, x_true)
+
+    # 1. CG with the two preconditioners.
+    sync()
+    t0 = time.perf_counter()
+    Mj = linalg.jacobi(step)
+    sync()
+    jacobi_build_s = time.perf_counter() - t0
+    linalg.cg(step, b_step, M=Mj, maxiter=2)
+    (x, it), counts, ms, secs = run(lambda: linalg.cg(step, b_step, M=Mj,
+                                                      rtol=1e-5))
+    expect("cg+jacobi", counts, dia_spmv=it + 1)
+    judge("cg+jacobi", step, step64, b_step, x_true, x, it, counts, ms, secs,
+          1e-5, "dia-kernel", build_s=jacobi_build_s)
+    del Mj
+    sync()
+    t0 = time.perf_counter()
+    Mb = linalg.block_jacobi(step, 32)
+    sync()
+    bj_build_s = time.perf_counter() - t0
+    bj_apply_ms = time_ms(lambda: Mb.matvec(b_step), reps=5)
+    linalg.cg(step, b_step, M=Mb, maxiter=2)
+    (x, it), counts, ms, secs = run(lambda: linalg.cg(step, b_step, M=Mb,
+                                                      rtol=1e-5))
+    expect("cg+block_jacobi", counts, dia_spmv=it + 1)
+    judge("cg+block_jacobi", step, step64, b_step, x_true, x, it, counts, ms,
+          secs, 1e-5, "dia-kernel", build_s=bj_build_s,
+          apply_ms=bj_apply_ms, blocks=n // 32)
+    log({"phase": "solvers_timing", "what": "block_jacobi(step, 32)",
+         "build_s": bj_build_s, "apply_ms": bj_apply_ms,
+         "cg_ms_per_iteration": solver_runs["cg+block_jacobi"][
+             "ms_per_iteration"], "nvidia_smi": smi_line})
+    del Mb, x
+    torch.cuda.empty_cache()
+
+    # 2. Nonsymmetric solves.  GMRES's host fetches are counted through
+    # the one helper that makes them: [beta, resid] once a cycle (two
+    # values), the true residual's norm at a suspected convergence (one).
+    restart = 20
+    linalg.gmres(convdiff, b_cd, restart=2, maxiter=2)
+    fetches = []
+    real_fetch = linalg._host_fetch
+
+    def counted_fetch(t):
+        fetches.append(t.numel())
+        return real_fetch(t)
+
+    linalg._host_fetch = counted_fetch
+    try:
+        (x, it), counts, ms, secs = run(lambda: linalg.gmres(
+            convdiff, b_cd, restart=restart, rtol=1e-5))
+    finally:
+        linalg._host_fetch = real_fetch
+    cycles, confirms = fetches.count(2), fetches.count(1)
+    check(it in (cycles * restart, (cycles - 1) * restart),
+          f"gmres: {it} iterations from {cycles} cycles")
+    expect("gmres", counts, dia_spmv=cycles * (restart + 1) + confirms)
+    # One cycle alone: no synchronising CUDA call inside it (PyTorch's
+    # sync debug mode warns on each), and the card's busy share in it.
+    op_cd = linalg.make_linear_operator(convdiff)
+    x0 = torch.zeros_like(b_cd)
+
+    def cycle():
+        return linalg._gmres_cycle(op_cd.matvec, lambda v: v, x0, b_cd,
+                                   restart)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            linalg._gmres_cycle(op_cd.matvec, lambda v: v, x0, b_cd, restart)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sorted({str(w.message)[:120] for w in caught
+                    if "called a synchronizing" in str(w.message)})
+    check(not syncs, f"a GMRES cycle synchronised: {syncs}")
+
+    def event_ms(fn) -> float:
+        """Median card ms of ``fn()`` alone (CUDA events), of 3 calls."""
+        times = []
+        for _ in range(3):
+            sync()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times))
+
+    # The busy share: the cycle's device time alone (the same kernels
+    # captured in a CUDA graph and replayed, so no host work sits
+    # between them) over its time run eagerly as gmres runs it.  The
+    # graph only measures; the solver runs the eager cycle.
+    eager_ms = event_ms(cycle)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cycle()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        graph_out = cycle()
+    graph_ms = event_ms(graph.replay)
+    x_eager, stats_eager = cycle()
+    close(graph_out[0], x_eager, 1e-5, "captured GMRES cycle's x vs eager")
+    close(graph_out[1], stats_eager, 1e-5,
+          "captured GMRES cycle's [beta, resid] vs eager")
+    del graph, graph_out, x_eager, stats_eager
+    busy_share = graph_ms / eager_ms
+    cycle_prof = gmg_app.profile_device(cycle, dev, top=4)
+    judge("gmres", convdiff, cd64, b_cd, x_true, x, it, counts, ms, secs,
+          1e-5, "dia-kernel", unit="cycle", per=cycles, restart=restart,
+          cycles=cycles, host_fetches=len(fetches), confirms=confirms,
+          syncs_in_a_cycle=0, cycle_eager_ms=eager_ms,
+          cycle_graph_replay_ms=graph_ms, cycle_device_busy_share=busy_share,
+          cycle_profile=cycle_prof)
+    log({"phase": "solvers_timing", "what": "gmres(convdiff, restart=20)",
+         "ms_per_cycle": solver_runs["gmres"]["ms_per_cycle"],
+         "cycle_eager_ms": eager_ms, "cycle_graph_replay_ms": graph_ms,
+         "cycle_device_busy_share": busy_share,
+         "cycle_busy_share_under_profiler": cycle_prof["device_busy_share"],
+         "nvidia_smi": smi_line})
+    del op_cd, x0
+    linalg.bicgstab(convdiff, b_cd, maxiter=2)
+    (x, it), counts, ms, secs = run(lambda: linalg.bicgstab(convdiff, b_cd,
+                                                            rtol=1e-5))
+    expect("bicgstab", counts, dia_spmv=2 * it + 1)
+    judge("bicgstab", convdiff, cd64, b_cd, x_true, x, it, counts, ms, secs,
+          1e-5, "dia-kernel")
+    del cd64, x
+    torch.cuda.empty_cache()
+
+    def dominant_clustered(rows):
+        """Canonical CSR arrays of block_clustered(rows, 8, 2)'s kind, with
+        the diagonal block among every block-row's 8, the diagonal entry
+        stored, and the diagonal twice the row's other magnitudes."""
+        nbr = rows // 128
+        others = np.stack([rng.choice(nbr - 1, 7, replace=False)
+                           for _ in range(nbr)])
+        others += others >= np.arange(nbr)[:, None]
+        bcols = np.sort(np.concatenate([np.arange(nbr)[:, None], others],
+                                       axis=1), axis=1)
+        row_bcols = np.repeat(bcols, 128, axis=0)             # (rows, 8)
+        r = np.arange(rows)
+        first = rng.integers(0, 128, (rows, 8))
+        on_diag = row_bcols == (r // 128)[:, None]
+        first[on_diag] = r % 128
+        second = (first + 1 + rng.integers(0, 64, (rows, 8))) % 128
+        cols = np.sort((row_bcols[:, :, None] * 128
+                        + np.stack([first, second], axis=2)).reshape(rows, -1),
+                       axis=1)
+        check(bool((np.diff(cols, axis=1) > 0).all()), "columns distinct")
+        vals = rng.standard_normal(cols.shape).astype(np.float32)
+        diag = cols == r[:, None]
+        check(bool((diag.sum(axis=1) == 1).all()), "one diagonal entry a row")
+        vals[diag] = 0.0
+        vals[diag] = 2.0 * np.abs(vals).sum(axis=1)
+        indptr = np.arange(rows + 1, dtype=np.int64) * cols.shape[1]
+        return vals.reshape(-1), cols.reshape(-1).astype(np.int32), indptr
+
+    d, i, p = dominant_clustered(irr_rows)
+    R = sparse.csr_array((d, i, p), shape=(irr_rows, irr_rows))
+    check(R._get_dia() is None, "the irregular matrix must not be banded")
+    st = R._get_bsr()
+    check(st is not None and st.nblocks == irr_rows // 128 * 8,
+          "the irregular matrix must take BSR with 8 blocks a block-row")
+    xr_true = randx(irr_rows)
+    b_r = R @ xr_true
+    x2d = xr_true.reshape(-1, 128)
+    hold("irregular @ x", "bsr_spmv", bsr_ops.bsr_spmv(st, x2d),
+         bsr_ops.bsr_spmv_plain(st, x2d))
+    del x2d
+    R64 = R.astype(torch.float64)
+    linalg.bicgstab(R, b_r, maxiter=2)
+    (x, it), counts, ms, secs = run(lambda: linalg.bicgstab(R, b_r,
+                                                            rtol=1e-5))
+    expect("bicgstab(irregular)", counts, bsr_spmv=2 * it + 1)
+    judge("bicgstab(irregular)", R, R64, b_r, xr_true, x, it, counts, ms,
+          secs, 1e-5, "bsr", blocks=st.nblocks, nnz=R.nnz)
+    del R, R64, st, d, i, p, x, xr_true, b_r
+    torch.cuda.empty_cache()
+
+    # 3. Symmetric and least-squares solves.  One operator object serves
+    # LSQR and LSMR, as a user's would: its transpose for rmatvec is built
+    # once (in the warm-up) and must be banded too.
+    linalg.minres(step, b_step, maxiter=2)
+    (x, it), counts, ms, secs = run(lambda: linalg.minres(step, b_step,
+                                                          rtol=1e-5))
+    expect("minres", counts, dia_spmv=it + 1)
+    judge("minres", step, step64, b_step, x_true, x, it, counts, ms, secs,
+          1e-5, "dia-kernel")
+    op = linalg.make_linear_operator(step)
+    linalg.lsqr(op, b_step, iter_lim=2)
+    linalg.lsmr(op, b_step, maxiter=2)
+    for name, solve in (("lsqr", linalg.lsqr), ("lsmr", linalg.lsmr)):
+        out, counts, ms, secs = run(lambda: solve(op, b_step, atol=0.0,
+                                                  btol=1e-5))
+        x, istop, it = out[:3]
+        check(istop == 1, f"{name} stopped with istop {istop}")
+        check(op.AT.spmv_path == "dia-kernel",
+              f"{name}'s transposed product took {op.AT.spmv_path}")
+        expect(name, counts, dia_spmv=2 * it + 2)
+        judge(name, step, step64, b_step, x_true, x, it, counts, ms, secs,
+              1e-5, "dia-kernel", istop=istop,
+              transpose_path=op.AT.spmv_path)
+    hold_dia_spmv("step^T @ x (rmatvec)", op.AT, b_step)
+    # Damped: (A^T A + damp^2 I) x = A^T b holds, b - A x does not vanish.
+    # A is symmetric, so A^T = A.
+    damp = 0.1
+    atb = step64 @ b_step.double()
+    for name, solve in (("lsqr(damp=0.1)", linalg.lsqr),
+                        ("lsmr(damp=0.1)", linalg.lsmr)):
+        out, counts, ms, secs = run(lambda: solve(op, b_step, damp=damp,
+                                                  atol=1e-5, btol=1e-5))
+        x, istop, it = out[:3]
+        expect(name, counts, dia_spmv=2 * it + 2)
+        x64 = x.double()
+        normal = rel_norm(step64 @ (step64 @ x64) + damp ** 2 * x64, atb)
+        check(normal <= 1e-4, f"{name}: normal-equation residual {normal}")
+        solver_runs[name] = {"iters": it, "istop": istop,
+                             "normal_equation_rel_residual_f64": normal,
+                             "launches": {k: v for k, v in counts.items()
+                                          if v},
+                             "ms_per_iteration": ms / max(it, 1),
+                             "card_ms": ms, "host_s": secs}
+    del op, atb, x, x64
+
+    # 4. A gradient through a solve: d<w, A^-1 b>/db = A^-1 w, one more
+    # solve; held to a second solve of A y = w.
+    w = randx(n)
+    rtol_d = float(np.sqrt(torch.finfo(torch.float32).eps) * 1e-2)
+    x_fwd, it_fwd = linalg.cg(step, b_step, rtol=rtol_d)
+    y_ref, it_bwd = linalg.cg(step, w, rtol=rtol_d)
+    bg = b_step.clone().requires_grad_()
+
+    def grad_run():
+        xg = linalg.differentiable_solve(step, bg)
+        torch.dot(w, xg).backward()
+        return xg.detach()
+
+    xg, counts, ms, secs = run(grad_run)
+    grad_err = rel_norm(bg.grad, y_ref)
+    check(grad_err <= 1e-4, f"b.grad vs A^-1 w: relative error {grad_err}")
+    expect("differentiable_solve", counts, dia_spmv=it_fwd + it_bwd + 2)
+    judge("differentiable_solve", step, step64, b_step, x_true, xg,
+          it_fwd + it_bwd, counts, ms, secs, rtol_d, "dia-kernel",
+          grad_rel_err_vs_second_solve=grad_err, forward_iters=it_fwd,
+          backward_iters=it_bwd)
+    del w, bg, xg, x_fwd, y_ref, step64
+    torch.cuda.empty_cache()
+
+    # 5. expm_multiply(-0.5 L, B), L the pde_4096 Laplacian [4, -1], B four
+    # of its DST eigenmodes: e^{-0.5 lambda_pq} B column by column.
+    L = sparse.diags([4.0 * ones, -hole, -hole, far, far], five_offsets,
+                     shape=(n, n), format="csr", dtype=torch.float32)
+    Lh = -0.5 * L
+    k = torch.arange(1, grid + 1, dtype=torch.float64, device=dev)
+    modes = ((1, 1), (2, 3), (5, 2), (40, 17))
+    B64 = torch.stack([torch.outer(torch.sin(np.pi * pm * k / (grid + 1)),
+                                   torch.sin(np.pi * qm * k / (grid + 1)))
+                       .reshape(-1) for pm, qm in modes], dim=1)
+    lam = torch.tensor([4 - 2 * np.cos(np.pi * pm / (grid + 1))
+                        - 2 * np.cos(np.pi * qm / (grid + 1))
+                        for pm, qm in modes], dtype=torch.float64,
+                       device=dev)
+    exact = B64 * torch.exp(-0.5 * lam)
+    Bm = B64.float()
+    del B64, k
+    norm1 = (float(abs(Lh).sum(axis=0).max())
+             + abs(float(Lh.trace()) / n))
+    s_steps, m_terms = max(1, int(np.ceil(norm1))), 13
+    E, counts, ms, secs = run(lambda: linalg.expm_multiply(Lh, Bm))
+    expm_err = float((E.double() - exact).abs().max())
+    check(expm_err <= 1e-4, f"expm_multiply vs e^(-lambda/2) B: {expm_err}")
+    check(Lh.spmm_path == "dia-kernel", f"expm_multiply's SpMM took "
+          f"{Lh.spmm_path}")
+    expect("expm_multiply", counts, dia_spmm=s_steps * m_terms)
+    pk = Lh._get_dia_pack()
+    hold(f"-0.5 L @ B, k = {Bm.shape[1]} "
+         f"({'16-byte' if dia_kernel.spmm_vector_ok(pk, Bm) else 'scalar'})",
+         "dia_spmm", dia_kernel.dia_spmm(pk, Bm),
+         dia_kernel.dia_spmm_plain(pk.rdata, pk.rmask, Bm, pk.offsets,
+                                   pk.shape))
+    del pk
+    e1, counts1, ms1, secs1 = run(lambda: linalg.expm_multiply(Lh,
+                                                               Bm[:, 0]))
+    expm1_err = float((e1.double() - exact[:, 0]).abs().max())
+    check(expm1_err <= 1e-4, f"expm_multiply of a vector: {expm1_err}")
+    # A vector's term is an SpMV: A @ X takes an (n, 1) X as a vector.
+    expect("expm_multiply(vector)", counts1, dia_spmv=s_steps * m_terms)
+    hold_dia_spmv("-0.5 L @ b", Lh, Bm[:, 0].contiguous())
+    solver_runs["expm_multiply"] = {
+        "k": Bm.shape[1], "s": s_steps, "m": m_terms, "norm1": norm1,
+        "max_abs_err_vs_exact": expm_err, "path": Lh.spmm_path,
+        "launches": {k_: v for k_, v in counts.items() if v},
+        "card_ms": ms, "host_s": secs,
+        "vector": {"max_abs_err_vs_exact": expm1_err, "path": Lh.spmv_path,
+                   "launches": {k_: v for k_, v in counts1.items() if v},
+                   "card_ms": ms1, "host_s": secs1}}
+    log({"phase": "solvers_timing", "what": "expm_multiply(-0.5 L, B)",
+         "seconds": secs, "vector_seconds": secs1, "nvidia_smi": smi_line})
+    del Lh, Bm, E, e1, exact, lam
+
+    # 6. norm(pde_4096) against scipy's on the host (f64).
+    L_sp = L.toscipy().astype(np.float64)
+    norms = {}
+    for ord_ in (None, 1, np.inf):
+        got, want = linalg.norm(L, ord=ord_), sp.linalg.norm(L_sp, ord=ord_)
+        check(abs(got - want) <= 1e-6 * want, f"norm(ord={ord_}): {got} vs "
+              f"scipy {want}")
+        norms[str(ord_)] = got
+    for axis in (0, 1):
+        got = linalg.norm(L, axis=axis).double().cpu().numpy()
+        want = sp.linalg.norm(L_sp, axis=axis)
+        check(bool(np.all(np.abs(got - want) <= 1e-6 * want)),
+              f"norm(axis={axis}) vs scipy")
+        norms[f"axis={axis}"] = [float(got.min()), float(got.max())]
+    solver_runs["norm"] = norms
+    del L, L_sp, step, convdiff, x_true, b_step, b_cd, hole, far, ones
+    torch.cuda.empty_cache()
+
+    # 7. IO: the 1024x1024-grid Poisson matrix through mmwrite and mmread
+    # (both parser tiers) and save_npz/load_npz, each read back bit for
+    # bit and its product through the DIA kernel.
+    P = gmg_app.poisson2D(io_grid, dtype=torch.float32, device=dev)
+    xp = randx(P.shape[0])
+    yp = P @ xp
+    io_runs = {"rows": P.shape[0], "nnz": P.nnz}
+    hold_dia_spmv("poisson 1024^2 @ x (io)", P, xp)
+
+    def read_back(name, R, secs):
+        same_parts(R, P, name)
+        y, counts, _, _ = run(lambda: R @ xp)
+        check(R.spmv_path == "dia-kernel", f"{name} @ x took {R.spmv_path}")
+        check(torch.equal(y, yp), f"{name} @ x differs from P @ x")
+        io_runs[name] = {"seconds": secs, "launches": counts["dia_spmv"]}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "poisson.mtx")
+        t0 = time.perf_counter()
+        sparse.mmwrite(path, P)
+        io_runs["mmwrite_s"] = time.perf_counter() - t0
+        io_runs["file_bytes"] = os.path.getsize(path)
+        real_load = utils_native._load
+        utils_native._load = lambda: None          # the numpy tier
+        try:
+            t0 = time.perf_counter()
+            R = sparse.mmread(path)
+            sync()
+            secs = time.perf_counter() - t0
+        finally:
+            utils_native._load = real_load
+        read_back("mmread(numpy)", R.astype(torch.float32), secs)
+        t0 = time.perf_counter()
+        utils_native.build()
+        io_runs["native_build_s"] = time.perf_counter() - t0
+        check(utils_native.reload(), "the native parser must load")
+        t0 = time.perf_counter()
+        R = sparse.mmread(path)
+        sync()
+        secs = time.perf_counter() - t0
+        read_back("mmread(native)", R.astype(torch.float32), secs)
+        for compressed in (True, False):
+            path = os.path.join(tmp, f"poisson_{compressed}.npz")
+            sparse.save_npz(path, P, compressed=compressed)
+            t0 = time.perf_counter()
+            R = sparse.load_npz(path)
+            sync()
+            secs = time.perf_counter() - t0
+            read_back(f"load_npz(compressed={compressed})", R, secs)
+    solver_runs["io"] = io_runs
+    log({"phase": "solvers_timing", "what": "io, 1024x1024 Poisson",
+         "mmwrite_s": io_runs["mmwrite_s"],
+         "mmread_numpy_s": io_runs["mmread(numpy)"]["seconds"],
+         "mmread_native_s": io_runs["mmread(native)"]["seconds"],
+         "load_npz_s": {c: io_runs[f"load_npz(compressed={c})"]["seconds"]
+                        for c in (True, False)}, "nvidia_smi": smi_line})
+    del R, xp, yp
+
+    # 8. The namespace: scipy's predicates, a scipy fallback returning a
+    # tensor on the card, and the names not ported yet raising.
+    check(sparse.issparse(P) and sparse.isspmatrix_csr(P)
+          and not sparse.issparse(P.toscipy())
+          and not sparse.isspmatrix_csr(P.toscipy()),
+          "issparse/isspmatrix_csr on port and scipy matrices")
+    small = sparse.diags([1.0, -2.0, 1.0], [-1, 0, 1], shape=(64, 64),
+                         format="csr")
+    xs = sparse.linalg.spsolve(small, torch.ones(64, dtype=torch.float64,
+                                                 device=dev))
+    check(isinstance(xs, torch.Tensor) and xs.device.type == "cuda",
+          f"spsolve returned {type(xs)}")
+    check(float(torch.linalg.vector_norm(small @ xs - 1.0)) < 1e-10,
+          "spsolve's solution")
+    for what, fn in (("linalg.eigsh", lambda: sparse.linalg.eigsh(small,
+                                                                   k=2)),
+                     ("csgraph", lambda: sparse.csgraph)):
+        try:
+            fn()
+        except NotImplementedError:
+            continue
+        check(False, f"{what} must raise NotImplementedError")
+    del P, small, xs
+    torch.cuda.empty_cache()
+
+    solver_seconds = time.perf_counter() - solver_t0
+    check(phase10["dia_spmv"] > 0 and phase10["dia_spmm"] > 0
+          and phase10["bsr_spmv"] > 0,
+          f"the solver phase launched {phase10}")
+    log({"phase": "solvers_timing", "what": "phase 10",
+         "seconds": solver_seconds, "nvidia_smi": smi_line})
+    log({"phase": "main_path_solvers", "nvidia_smi": smi_line,
+         "grid": f"{grid}x{grid}", "rows": n, "irregular_rows": irr_rows,
+         "runs": solver_runs, "launches": phase10,
+         "kernel_vs_plain": kernel_vs_plain, "seconds": solver_seconds})
+    for row in (dia_row, bsr_row, dia_spmm_row, bsr_spmm_row,
+                dia_spgemm_row):
+        row["launches"] += phase10[row["name"]]
+        row["max_abs_err"] = max([row["max_abs_err"]] + [
+            h["max_abs_err"] for h in kernel_vs_plain.values()
+            if h["kernel"] == row["name"]])
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -6,36 +6,54 @@ A scipy.sparse-shaped sparse package on PyTorch tensors for an NVIDIA
 H100 (``import legate_sparse_tpu_torch as sparse``).  It holds the
 main path ``diags(...)`` → ``dia_array.tocsr`` → ``csr_array.dot``
 (banded SpMV through the CUDA kernel ``csrc/dia_spmv.cu``, irregular
-SpMV through ``csrc/bsr_spmv.cu``) → ``linalg.cg``; SpMM
+SpMV through ``csrc/bsr_spmv.cu``) → the solvers of ``linalg`` (``cg``,
+``gmres``, ``bicgstab``, ``minres``, ``lsqr``, ``lsmr``,
+``differentiable_solve``, the ``jacobi``/``block_jacobi``
+preconditioners, ``expm_multiply``, ``norm``); SpMM
 (``csrc/dia_spmm.cu``, ``csrc/bsr_spmm.cu``); SpGEMM (banded through
 ``csrc/dia_spgemm.cu``, general by expand-sort-compress); the apps
-``apps.pde`` and ``apps.gmg`` (multigrid-preconditioned CG); and the
-scipy facade on which operators are built: the ``csr``, ``csc``,
-``coo`` and ``dia`` formats (arrays and ``*_matrix`` flavours) with
-their arithmetic, comparisons, reductions, indexing and conversions,
-the gallery's constructors (``eye``, ``kron``, ``tril``, ``vstack``,
+``apps.pde`` and ``apps.gmg`` (multigrid-preconditioned CG); the scipy
+facade on which operators are built: the ``csr``, ``csc``, ``coo`` and
+``dia`` formats (arrays and ``*_matrix`` flavours) with their
+arithmetic, comparisons, reductions, indexing and conversions, the
+gallery's constructors (``eye``, ``kron``, ``tril``, ``vstack``,
 ``bmat``, ...) and its seeded generators (``random``, ``powerlaw``,
-``rmat``).
+``rmat``); Matrix Market and npz io; and the rest of scipy.sparse's
+namespace, through scipy on the host (``coverage.clone_module``).
 
 Entry points run on ``cuda`` unless the caller names a device
 (``device="cpu"``, or ``runtime.set_device("cpu")``); with no CUDA
 device and no such request they raise.  The package imports neither
-``jax`` nor ``legate_sparse_tpu``.
+``jax`` nor ``legate_sparse_tpu``.  ``csgraph`` is not ported yet and
+raises rather than handing scipy's module out.
 """
 
-from . import linalg, runtime
-from .coo import coo_array, coo_matrix
-from .csc import csc_array, csc_matrix
-from .csr import csr_array, csr_matrix, spgemm_csr_csr_csr
-from .dia import dia_array, dia_matrix
-from .gallery import (block_array, block_diag, bmat, diags, eye, find,
-                      hstack, identity, kron, kronsum, powerlaw, random, rmat,
-                      spdiags, tril, triu, vstack)
-from .types import SparseEfficiencyWarning
+import scipy.sparse as _scipy_sparse
 
-__all__ = ["SparseEfficiencyWarning", "block_array", "block_diag", "bmat",
-           "coo_array", "coo_matrix", "csc_array", "csc_matrix", "csr_array",
-           "csr_matrix", "dia_array", "dia_matrix", "diags", "eye", "find",
-           "hstack", "identity", "kron", "kronsum", "linalg", "powerlaw",
-           "random", "rmat", "runtime", "spdiags", "spgemm_csr_csr_csr",
-           "tril", "triu", "vstack"]
+from . import runtime  # noqa: F401
+from .module import *  # noqa: F401,F403  (module.__all__)
+from .types import SparseEfficiencyWarning  # noqa: F401
+from .coverage import clone_module as _clone_module
+from . import linalg  # noqa: F401
+
+# Every other scipy.sparse name as its scipy fallback, so the namespace
+# is complete (reference ``__init__.py:36``).
+_clone_module(_scipy_sparse, globals())
+
+# scipy's csgraph module object came in with the clone; the JAX
+# package replaces it with its own csgraph, which is not ported yet
+# (ROADMAP queue 1 item 5): until then ``csgraph`` raises (``__getattr__``).
+globals().pop("csgraph", None)
+del _scipy_sparse, _clone_module
+
+_UNPORTED = {"csgraph": "csgraph.py"}
+
+
+def __getattr__(name):
+    if name in _UNPORTED:
+        raise NotImplementedError(
+            f"legate_sparse_tpu_torch.{name} is not ported yet (ROADMAP "
+            f"queue 1 item 5: {_UNPORTED[name]}); it does not fall back "
+            "to scipy on the host")
+    raise AttributeError(
+        f"module 'legate_sparse_tpu_torch' has no attribute {name!r}")

@@ -1330,6 +1330,12 @@ def _elementwise_intersect_multiply(a: csr_array, b: csr_array) -> csr_array:
         (rows, cols))
 
 
+def spmv(A: csr_array, x, y):
+    """Free-function SpMV: ``y <- A @ x``, ``y`` filled in place
+    (reference ``csr.py:2045-2047``)."""
+    return A.dot(x, out=y)
+
+
 def spgemm_csr_csr_csr(A: csr_array, B: csr_array) -> csr_array:
     """C = A @ B for CSR operands of one dtype on one device (reference
     ``csr.py:2050-2136``); the route goes to ``A.spgemm_path``.

@@ -1,31 +1,49 @@
 # Copyright 2026.
 # SPDX-License-Identifier: Apache-2.0
-"""Linear operators and the conjugate-gradient solver.
+"""Linear operators, the Krylov solvers and sparse norms.
 
 Mirrors ``legate_sparse_tpu/linalg.py``: ``LinearOperator`` (``:48``),
-``_SparseMatrixLinearOperator`` (``:153``), ``IdentityOperator``
-(``:229``), ``make_linear_operator`` (``:270``), ``_get_atol_rtol``
-(``:319``) and ``cg`` (``:588``).
+``_SparseMatrixLinearOperator`` (``:153``, with its cached transpose
+for ``rmatvec``), ``IdentityOperator`` (``:229``),
+``make_linear_operator`` (``:270``), ``cg_axpby`` (``:291``),
+``_get_atol_rtol`` (``:319``), ``cg`` (``:588``), ``gmres``
+(``:807``, its restart cycle ``_gmres_cycle`` ``:706``), ``bicgstab``
+(``:963``), ``norm`` (``:1092``) and the scipy fallback of the module
+``__getattr__`` (``:1175``).  ``minres``, ``lsqr``, ``lsmr`` and
+``differentiable_solve`` live in ``krylov_extra.py``, ``jacobi`` and
+``block_jacobi`` in ``precond.py``, ``expm_multiply`` in ``expm.py``;
+all are importable from here, as in the JAX package.
 
-The JAX package runs the whole CG solve as one ``lax.while_loop``
-(``_cg_builders``, ``:430-469``).  Here the loop is a Python loop over
-device tensors with the same iteration: safe divides, ``done`` tested
-only when ``iters % conv_test_iters == 0`` or ``iters == maxiter - 1``,
-and the same returned iteration count.  The device→host sync (one
-``.item()``) happens only at those check iterations.
+The JAX package runs each solve as one ``lax.while_loop``.  Here the
+loops are Python loops over device tensors with the same iterations:
+safe divides, convergence tested only at the JAX package's cadence
+(``iters % conv_test_iters == 0`` or the last iteration), the same
+returned iteration count, and a device→host sync only at those tests.
+A GMRES restart cycle makes no host sync at all: the Givens scalars,
+the rotations and the back-substitution stay on the device, and the
+outer loop fetches ``[beta, resid]`` once a cycle (``_host_fetch``).
+
+Not ported yet: ``refine=`` on ``cg``/``gmres`` (it needs
+``csr_array.compress``, ROADMAP queue 1 item 6) raises, and so do
+``eigs``, ``eigsh``, ``lobpcg`` and ``svds`` (``eigen.py``, queue 1
+item 5), rather than reaching host scipy through the fallback.  The
+JAX package's engine routing, resilience hooks, spans and latency
+timers wait for queue 1 items 7 and 10.
 """
 
 from __future__ import annotations
 
+import math
 import warnings
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
+import numpy as np
 import torch
 
 from .csr import csr_array
 from .runtime import resolve_device
 from .utils import (as_tensor, fill_out, find_common_type,
-                    is_sparse_matrix)
+                    is_sparse_matrix, to_numpy)
 from .types import to_torch_dtype
 
 
@@ -114,10 +132,13 @@ class _CustomLinearOperator(LinearOperator):
 
 
 class _SparseMatrixLinearOperator(LinearOperator):
-    """Wraps a ``csr_array``; ``matvec`` and ``matmat`` are its ``dot``."""
+    """Wraps a ``csr_array``; ``matvec`` and ``matmat`` are its ``dot``,
+    ``rmatvec`` that of its conjugate transpose, built on the first call
+    and cached (reference ``linalg.py:211-214``)."""
 
     def __init__(self, A: csr_array):
         self.A = A
+        self.AT = None
         super().__init__(A.dtype, A.shape)
 
     @property
@@ -130,8 +151,21 @@ class _SparseMatrixLinearOperator(LinearOperator):
     def _matmat(self, X, out=None):
         return self.A.dot(X, out=out)
 
+    def _rmatvec(self, x, out=None):
+        if self.AT is None:
+            self.AT = self.A.T.conj(copy=False)
+        return self.AT.dot(x, out=out)
+
+
+def _promoted(A: torch.Tensor, x: torch.Tensor):
+    dt = torch.promote_types(A.dtype, x.dtype)
+    return A.to(dt), x.to(dt)
+
 
 class _DenseMatrixLinearOperator(LinearOperator):
+    """A dense tensor; a vector of another dtype is promoted with it, as
+    ``jnp``'s ``@`` does."""
+
     def __init__(self, A: torch.Tensor):
         self.A = A
         super().__init__(A.dtype, A.shape)
@@ -141,10 +175,16 @@ class _DenseMatrixLinearOperator(LinearOperator):
         return self.A.device
 
     def _matvec(self, x, out=None):
-        return fill_out(self.A @ x, out)
+        A, x = _promoted(self.A, x)
+        return fill_out(A @ x, out)
+
+    def _matmat(self, X, out=None):
+        A, X = _promoted(self.A, X)
+        return fill_out(A @ X, out)
 
     def _rmatvec(self, x, out=None):
-        return fill_out(self.A.conj().T @ x, out)
+        A, x = _promoted(self.A, x)
+        return fill_out(A.conj().T @ x, out)
 
 
 class IdentityOperator(LinearOperator):
@@ -178,6 +218,28 @@ def make_linear_operator(A) -> LinearOperator:
     return _DenseMatrixLinearOperator(A)
 
 
+def cg_axpby(y, x, a, b, isalpha: bool = True, negate: bool = False):
+    """``y = (±a/b)·x + y`` (``isalpha``) or ``y = x + (±a/b)·y``
+    (reference ``linalg.py:291-316``).  A numpy ``y`` is updated in
+    place and returned, as in the JAX package; a tensor ``y`` is left
+    as it is and the result comes back new.  The work runs on the
+    device of the first tensor among the operands, else on the default
+    device."""
+    dev = next((t.device for t in (y, x, a, b)
+                if isinstance(t, torch.Tensor)), None)
+    if dev is None:
+        dev = resolve_device(None)
+    yt, xt, at, bt = (as_tensor(v, dev) for v in (y, x, a, b))
+    coef = at / bt
+    if negate:
+        coef = -coef
+    result = coef * xt + yt if isalpha else xt + coef * yt
+    if isinstance(y, np.ndarray):
+        np.copyto(y, to_numpy(result).astype(y.dtype, copy=False))
+        return y
+    return result
+
+
 def _get_atol_rtol(b_norm, tol=None, atol=0.0, rtol=1e-5):
     """scipy-compatible tolerance resolution (reference ``linalg.py:454-462``)."""
     rtol = float(tol) if tol is not None else rtol
@@ -194,69 +256,13 @@ def _safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
                        num / torch.where(zero, torch.ones_like(den), den))
 
 
-def cg(A, b, x0=None, tol=None, maxiter=None, M=None,
-       callback: Optional[Callable] = None, atol=0.0, rtol=1e-5,
-       conv_test_iters: int = 25, device=None):
-    """Conjugate Gradient solve of ``A x = b`` (scipy-shaped signature,
-    reference ``linalg.py:465-535``).  Returns ``(x, iters)``.
-
-    Runs on the device of ``A`` (a ``csr_array`` or dense tensor), else
-    of ``b`` when it is a tensor, else on ``device``.  The solve is done
-    in ``result_type(A, b)``.  ``callback(x)`` sees every iterate."""
-    A_op = make_linear_operator(A)
-    dev = getattr(A_op, "device", None)
-    if dev is None:
-        dev = _solve_device(b, device)
-    b = as_tensor(b, dev)
-    if b.dim() == 2 and b.shape[1] == 1:
-        b = b.reshape(-1)
-    if b.dim() != 1 or len(A_op.shape) != 2 or A_op.shape[0] != A_op.shape[1]:
-        raise ValueError("cg needs a square operator and a vector b")
-    if A_op.dtype is not None:
-        b = b.to(find_common_type(A_op.dtype, b.dtype))
-
-    bnrm2 = float(torch.linalg.vector_norm(b))
-    atol, _ = _get_atol_rtol(bnrm2, tol, atol, rtol)
-    n = b.shape[0]
-    if maxiter is None:
-        maxiter = n * 10
-    maxiter = int(maxiter)
-    conv_test_iters = int(conv_test_iters)
-
-    M_op = (IdentityOperator(A_op.shape, dtype=A_op.dtype) if M is None
-            else make_linear_operator(M))
-    x = (torch.zeros(n, dtype=b.dtype, device=dev) if x0 is None
-         else as_tensor(x0, dev, dtype=b.dtype).reshape(-1).clone())
-    real_dt = b.real.dtype if b.is_complex() else b.dtype
-    # The threshold is squared in the working precision, as the JAX
-    # loop does, so both stop at the same iteration.
-    atol2 = torch.tensor(atol, dtype=real_dt, device=dev) ** 2
-
-    r = b - A_op.matvec(x)
-    p = torch.zeros_like(b)
-    rho_old = torch.ones((), dtype=b.dtype, device=dev)
-    iters = 0
-    while iters < maxiter:
-        z = M_op.matvec(r)
-        rho = torch.vdot(r, z)
-        if iters == 0:
-            beta = torch.zeros_like(rho)
-        else:
-            beta = _safe_div(rho, rho_old)
-        p = z + beta * p
-        q = A_op.matvec(p)
-        alpha = _safe_div(rho, torch.vdot(p, q))
-        x = x + alpha * p
-        r = r - alpha * q
-        rho_old = rho
-        iters += 1
-        if callback is not None:
-            callback(x)
-        if iters % conv_test_iters == 0 or iters == maxiter - 1:
-            rnorm2 = torch.vdot(r, r).real
-            if bool((rnorm2 < atol2).item()):
-                break
-    return x, iters
+def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.vdot``: conjugates ``a``, promotes mixed dtypes (an
+    operator may hand back another dtype than the iterate's)."""
+    if a.dtype != b.dtype:
+        dt = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(dt), b.to(dt)
+    return torch.vdot(a, b)
 
 
 def _solve_device(b, device) -> torch.device:
@@ -267,5 +273,381 @@ def _solve_device(b, device) -> torch.device:
     return resolve_device(None)
 
 
+def _setup(A, b, M, device, name: str, square: bool = True):
+    """The shared start of a solve: the operator, ``b`` as a 1-D tensor
+    on the operator's device (else ``b``'s, else ``device``) promoted to
+    ``result_type(A, b)`` (autograd history kept), ``‖b‖`` before the
+    promotion (as the JAX package takes it), ``M`` (the identity when
+    None) and the device."""
+    A_op = make_linear_operator(A)
+    dev = getattr(A_op, "device", None)
+    if dev is None:
+        dev = _solve_device(b, device)
+    b = as_tensor(b, dev)
+    if b.dim() == 2 and b.shape[1] == 1:
+        b = b.reshape(-1)
+    if (b.dim() != 1 or len(A_op.shape) != 2
+            or (square and A_op.shape[0] != A_op.shape[1])
+            or b.shape[0] != A_op.shape[0]):
+        raise ValueError(f"{name} needs a {'square ' if square else ''}"
+                         f"operator and a vector b of its rows, got "
+                         f"{A_op.shape} and {tuple(b.shape)}")
+    bnrm2 = float(torch.linalg.vector_norm(b.detach()))
+    if A_op.dtype is not None:
+        b = b.to(find_common_type(A_op.dtype, b.dtype))
+    M_op = (IdentityOperator(A_op.shape, dtype=A_op.dtype) if M is None
+            else make_linear_operator(M))
+    return A_op, b, bnrm2, M_op, dev
+
+
+def _x0(x0, b: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
+    """The start vector: ``x0`` as a new 1-D tensor in ``b``'s dtype and
+    on its device, else zeros of length ``n`` (default ``b``'s)."""
+    if x0 is None:
+        return torch.zeros(b.shape[0] if n is None else n, dtype=b.dtype,
+                           device=b.device)
+    return as_tensor(x0, b.device, dtype=b.dtype).reshape(-1).clone()
+
+
+def _no_refine(solver: str, refine) -> None:
+    if refine is not None:
+        raise NotImplementedError(
+            f"{solver}: refine= is not ported yet: its inner solves run "
+            "over csr_array.compress storage (ROADMAP queue 1 item 6); "
+            "solve without refine=")
+
+
+def _cg_loop(A_mv: Callable, M_mv: Callable, b: torch.Tensor,
+             x: torch.Tensor, atol, maxiter: int, conv_test_iters: int,
+             callback: Optional[Callable] = None):
+    """Preconditioned CG (the body of the JAX package's ``_cg_builders``,
+    ``:430-469``).  ``atol`` is a float or a 0-d tensor on the device;
+    the threshold is squared in the working precision, as the JAX loop
+    does, so both stop at the same iteration."""
+    real_dt = b.dtype.to_real()
+    atol2 = torch.as_tensor(atol, dtype=real_dt, device=b.device) ** 2
+    r = b - A_mv(x)
+    p = torch.zeros_like(b)
+    rho_old = torch.ones((), dtype=b.dtype, device=b.device)
+    iters = 0
+    while iters < maxiter:
+        z = M_mv(r)
+        rho = _vdot(r, z)
+        if iters == 0:
+            beta = torch.zeros_like(rho)
+        else:
+            beta = _safe_div(rho, rho_old)
+        p = z + beta * p
+        q = A_mv(p)
+        alpha = _safe_div(rho, _vdot(p, q))
+        x = x + alpha * p
+        r = r - alpha * q
+        rho_old = rho
+        iters += 1
+        if callback is not None:
+            callback(x)
+        if iters % conv_test_iters == 0 or iters == maxiter - 1:
+            rnorm2 = _vdot(r, r).real
+            if bool((rnorm2 < atol2).item()):
+                break
+    return x, iters
+
+
+def cg(A, b, x0=None, tol=None, maxiter=None, M=None,
+       callback: Optional[Callable] = None, atol=0.0, rtol=1e-5,
+       conv_test_iters: int = 25, refine=None, device=None):
+    """Conjugate Gradient solve of ``A x = b`` (scipy-shaped signature,
+    reference ``linalg.py:465-535``).  Returns ``(x, iters)``.
+
+    Runs on the device of ``A`` (a ``csr_array`` or dense tensor), else
+    of ``b`` when it is a tensor, else on ``device``.  The solve is done
+    in ``result_type(A, b)``.  ``callback(x)`` sees every iterate.
+    ``refine=`` raises until ``csr_array.compress`` is ported."""
+    _no_refine("cg", refine)
+    A_op, b, bnrm2, M_op, _ = _setup(A, b, M, device, "cg")
+    atol, _ = _get_atol_rtol(bnrm2, tol, atol, rtol)
+    if maxiter is None:
+        maxiter = b.shape[0] * 10
+    return _cg_loop(A_op.matvec, M_op.matvec, b, _x0(x0, b), atol,
+                    int(maxiter), int(conv_test_iters), callback)
+
+
+def _host_fetch(t: torch.Tensor) -> List[float]:
+    """The values of ``t`` on the host: the one device→host transfer
+    ``gmres`` makes, once a restart cycle (``[beta, resid]``) and once
+    at each suspected convergence (the true residual's norm)."""
+    return t.reshape(-1).tolist()
+
+
+def _gmres_cycle(A_mv: Callable, M_mv: Callable, x: torch.Tensor,
+                 b: torch.Tensor, restart: int):
+    """One restart cycle with no host sync (reference ``linalg.py:706-804``):
+    modified Gram-Schmidt Arnoldi, each new Hessenberg column rotated by
+    the accumulated Givens rotations as it is made, back-substitution
+    on the (restart, restart) triangle (a zero pivot gives ``y_i = 0``,
+    ``lstsq``'s minimum-norm answer after a happy breakdown), then
+    ``x + M(y V)``.  Every scalar stays a 0-d tensor on the device.
+    Returns ``(x_new, stats)``, ``stats = [beta, resid]``: the residual
+    norm at the cycle's start and the least-squares residual at its end."""
+    from .krylov_extra import _givens
+
+    dtype = b.dtype
+    rdt = dtype.to_real()
+    dev = b.device
+    n = b.shape[0]
+    r = b - A_mv(x)
+    beta = torch.linalg.vector_norm(r).to(rdt)
+    V = torch.zeros((restart + 1, n), dtype=dtype, device=dev)
+    V[0] = torch.where(beta > 0, r / beta.to(dtype), r)
+    R = torch.zeros((restart, restart), dtype=dtype, device=dev)
+    g = torch.zeros((restart + 1,), dtype=dtype, device=dev)
+    g[0] = beta
+    cs = torch.zeros((restart,), dtype=dtype, device=dev)
+    sn = torch.zeros((restart,), dtype=dtype, device=dev)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    for j in range(restart):
+        w = A_mv(M_mv(V[j]))
+        h = torch.zeros((restart + 1,), dtype=dtype, device=dev)
+        for i in range(j + 1):
+            hij = _vdot(V[i], w)
+            w = w - hij * V[i]
+            h[i] = hij
+        hnorm = torch.linalg.vector_norm(w)
+        h[j + 1] = hnorm
+        V[j + 1] = torch.where(hnorm > 1e-30, w / hnorm.to(dtype), w)
+        for i in range(j):
+            new_i = cs[i] * h[i] + sn[i] * h[i + 1]
+            h[i + 1] = -sn[i].conj() * h[i] + cs[i].conj() * h[i + 1]
+            h[i] = new_i
+        c, s = _givens(h[j], h[j + 1])
+        cs[j] = c
+        sn[j] = s
+        h[j] = c * h[j] + s * h[j + 1]
+        h[j + 1] = zero
+        g[j + 1] = -s.conj() * g[j]
+        g[j] = c * g[j]
+        R[:, j] = h[:restart]
+    y = torch.zeros((restart,), dtype=dtype, device=dev)
+    for i in range(restart - 1, -1, -1):
+        num = g[i] - torch.dot(R[i], y)
+        d = R[i, i]
+        pivot = d == 0
+        y[i] = torch.where(pivot, torch.zeros_like(num),
+                           num / torch.where(pivot, torch.ones_like(d), d))
+    x_new = x + M_mv(y @ V[:restart])
+    resid = g[restart].abs().to(rdt)
+    return x_new, torch.stack([beta, resid])
+
+
+def gmres(A, b, x0=None, tol=None, restart=None, maxiter=None, M=None,
+          callback=None, restrt=None, atol=0.0, callback_type=None,
+          rtol=1e-5, refine=None, device=None):
+    """Restarted GMRES (scipy/cupy-shaped signature, reference
+    ``linalg.py:807-951``).  Returns ``(x, iters)``; ``iters`` grows by
+    ``restart`` a cycle, as the JAX loop counts.
+
+    A cycle (``_gmres_cycle``) makes no host sync; the outer loop fetches
+    ``[beta, resid]`` once a cycle: ``beta < atol`` keeps ``x`` and
+    stops, and ``resid < atol`` is confirmed by one fetch of the true
+    residual's norm.  ``callback(x)`` sees the iterate after every
+    cycle, or ``callback_type="pr_norm"`` its relative residual norm.
+    ``refine=`` raises until ``csr_array.compress`` is ported."""
+    _no_refine("gmres", refine)
+    if restrt is not None:
+        if restart:
+            raise ValueError("gmres: give restart or restrt, not both")
+        restart = restrt
+    A_op, b, bnrm2, M_op, _ = _setup(A, b, M, device, "gmres")
+    n = b.shape[0]
+    atol, _ = _get_atol_rtol(bnrm2, tol, atol, rtol)
+    if maxiter is None:
+        maxiter = n * 10
+    restart = min(int(20 if restart is None else restart), n)
+    x = _x0(x0, b)
+    iters = 0
+    while iters < maxiter:
+        x_new, stats = _gmres_cycle(A_op.matvec, M_op.matvec, x, b, restart)
+        beta_f, resid_f = _host_fetch(stats)
+        if beta_f < atol:
+            break                  # converged at the cycle's start: keep x
+        x = x_new
+        iters += restart
+        if callback is not None:
+            if callback_type == "pr_norm":
+                callback(_host_fetch(torch.linalg.vector_norm(
+                    b - A_op.matvec(x)))[0] / bnrm2)
+            else:
+                callback(x)
+        # The Givens estimate equals the true residual's norm only in
+        # exact arithmetic: confirm on the real residual, so that drift
+        # in the Gram-Schmidt basis cannot fake convergence.
+        if resid_f < atol and _host_fetch(torch.linalg.vector_norm(
+                b - A_op.matvec(x)))[0] < atol:
+            break
+    return x, iters
+
+
+def _bicgstab_step(A_mv: Callable, M_mv: Callable, state, first: bool):
+    """One BiCGSTAB iteration on ``(x, r, rtilde, p, v, rho, alpha,
+    omega)`` (reference ``_bicgstab_body``, ``linalg.py:963-994``)."""
+    x, r, rtilde, p, v, rho_prev, alpha, omega = state
+    rho = _vdot(rtilde, r)
+    beta = _safe_div(rho, rho_prev) * _safe_div(alpha, omega)
+    p = r if first else r + beta * (p - omega * v)
+    phat = M_mv(p)
+    v = A_mv(phat)
+    alpha = _safe_div(rho, _vdot(rtilde, v))
+    s = r - alpha * v
+    shat = M_mv(s)
+    t = A_mv(shat)
+    omega = _safe_div(_vdot(t, s), _vdot(t, t))
+    x = x + alpha * phat + omega * shat
+    r = s - omega * t
+    return (x, r, rtilde, p, v, rho, alpha, omega)
+
+
+def bicgstab(A, b, x0=None, tol=None, maxiter=None, M=None, callback=None,
+             atol=0.0, rtol=1e-5, conv_test_iters: int = 25, device=None):
+    """BiCGSTAB solve of ``A x = b`` (scipy-shaped signature, reference
+    ``linalg.py:1035-1089``).  Returns ``(x, iters)``.
+
+    Converged when ``|r|² < atol²`` at ``iters % conv_test_iters == 0``
+    or ``iters == maxiter - 1``; with a ``callback`` (it sees every
+    iterate) the test runs every iteration, as the JAX package's
+    callback path does."""
+    A_op, b, bnrm2, M_op, _ = _setup(A, b, M, device, "bicgstab")
+    atol, _ = _get_atol_rtol(bnrm2, tol, atol, rtol)
+    maxiter = int(b.shape[0] * 10 if maxiter is None else maxiter)
+    conv = 1 if callback is not None else int(conv_test_iters)
+    x = _x0(x0, b)
+    atol2 = torch.tensor(atol, dtype=b.dtype.to_real(),
+                         device=b.device) ** 2
+    r = b - A_op.matvec(x)
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    state = (x, r, r, torch.zeros_like(b), torch.zeros_like(b), one, one,
+             one)
+    iters = 0
+    while iters < maxiter:
+        state = _bicgstab_step(A_op.matvec, M_op.matvec, state, iters == 0)
+        iters += 1
+        if callback is not None:
+            callback(state[0])
+        if iters % conv == 0 or iters == maxiter - 1:
+            r = state[1]
+            if bool((_vdot(r, r).real < atol2).item()):
+                break
+    return state[0], iters
+
+
+def norm(A, ord=None, axis=None):
+    """Sparse matrix and vector norms (``scipy.sparse.linalg.norm``,
+    reference ``linalg.py:1092-1165``).
+
+    Matrix norms (``axis=None``) come back as floats: Frobenius
+    (default, ``'fro'``), 1 / -1 (max / min absolute column sum), inf /
+    -inf (max / min absolute row sum), and 2, which scipy computes on
+    the host (it needs an SVD).  ``axis=0``/``1`` give per-column /
+    per-row vector norms as a tensor on the matrix's device: ord
+    None/2 (Euclidean), 1, inf, -inf (implicit zeros count) and 0 (the
+    count of nonzero values, in the values' inexact dtype)."""
+    if not is_sparse_matrix(A):
+        raise TypeError("input is not a sparse matrix")
+    A = A.tocsr() if A.format != "csr" else A
+    if A.shape[0] == 0 or A.shape[1] == 0:
+        raise ValueError("zero-size array to reduction operation")
+    if A.nnz and not A.has_canonical_format:
+        A.sum_duplicates()
+
+    def absA():
+        return A._with_data(A.data.abs())
+
+    if axis is None:
+        if ord in (None, "fro", "f"):
+            return float(torch.sqrt(torch.sum(A.data.abs() ** 2)))
+        if ord == 1:
+            return float(torch.max(absA().sum(axis=0)))
+        if ord == -1:
+            return float(torch.min(absA().sum(axis=0)))
+        if ord == math.inf:
+            return float(torch.max(absA().sum(axis=1)))
+        if ord == -math.inf:
+            return float(torch.min(absA().sum(axis=1)))
+        if ord == 2:
+            import scipy.sparse.linalg as _ssl
+
+            return float(_ssl.norm(A.toscipy(), ord=2))
+        raise ValueError(f"Invalid norm order {ord!r} for matrices")
+
+    if axis not in (0, 1, -1, -2):
+        raise ValueError(f"invalid axis {axis}")
+    axis = axis % 2
+    if ord in (None, 2):
+        sq = A._with_data(A.data * A.data.conj())
+        return torch.sqrt(sq.sum(axis=axis).real)
+    if ord == 1:
+        return absA().sum(axis=axis)
+    if ord == math.inf:
+        return absA().max(axis=axis)
+    if ord == -math.inf:
+        # A row or column with fewer stored entries than its length has
+        # an implicit zero, so its minimum is 0.
+        counts = A.getnnz(axis=axis)
+        m = absA().min(axis=axis)
+        return torch.where(counts < A.shape[axis],
+                           torch.clamp_max(m, 0.0), m)
+    if ord == 0:
+        nz = A._with_data((A.data != 0).to(
+            torch.promote_types(A.dtype, torch.float32)))
+        return nz.sum(axis=axis)
+    raise ValueError(f"Invalid norm order {ord!r} for vectors")
+
+
+def _unported(name: str):
+    def unported(*args, **kwargs):
+        raise NotImplementedError(
+            f"legate_sparse_tpu_torch.linalg.{name} is not ported yet "
+            "(ROADMAP queue 1 item 5: eigen.py); it does not fall back "
+            "to scipy on the host")
+
+    unported.__name__ = unported.__qualname__ = name
+    return unported
+
+
+eigs = _unported("eigs")
+eigsh = _unported("eigsh")
+lobpcg = _unported("lobpcg")
+svds = _unported("svds")
+
+from .expm import expm_multiply  # noqa: E402
+from .krylov_extra import (differentiable_solve, lsmr, lsqr,  # noqa: E402
+                           minres)
+from .precond import block_jacobi, jacobi  # noqa: E402
+
+
+def __getattr__(name):
+    """``scipy.sparse.linalg``'s names that have no port of their own
+    (``spsolve``, ``splu``, ``expm``, ``tfqmr``, ...): scipy on the
+    host, with this package's arrays and tensors converted at the
+    boundary (reference ``linalg.py:1175-1194``)."""
+    import scipy.sparse.linalg as _ssl
+
+    from .coverage import scipy_fallback
+
+    try:
+        if name.startswith("_"):       # scipy's module internals stay its own
+            raise AttributeError(name)
+        value = getattr(_ssl, name)
+    except AttributeError:
+        raise AttributeError(
+            "module 'legate_sparse_tpu_torch.linalg' has no attribute "
+            f"{name!r}") from None
+    if callable(value) and not isinstance(value, type):
+        value = scipy_fallback(value, f"linalg.{name}")
+    globals()[name] = value        # one wrapper, a stable identity
+    return value
+
+
 __all__ = ["LinearOperator", "IdentityOperator", "make_linear_operator",
-           "cg"]
+           "bicgstab", "block_jacobi", "cg", "cg_axpby",
+           "differentiable_solve", "expm_multiply", "gmres", "jacobi",
+           "lsmr", "lsqr", "minres", "norm"]

@@ -39,9 +39,16 @@ def test_import_loads_no_jax():
         "import legate_sparse_tpu_torch.apps.pde\n"
         "import legate_sparse_tpu_torch.base\n"
         "import legate_sparse_tpu_torch.coo\n"
+        "import legate_sparse_tpu_torch.coverage\n"
         "import legate_sparse_tpu_torch.csc\n"
+        "import legate_sparse_tpu_torch.expm\n"
         "import legate_sparse_tpu_torch.gallery\n"
         "import legate_sparse_tpu_torch.interop\n"
+        "import legate_sparse_tpu_torch.io\n"
+        "import legate_sparse_tpu_torch.krylov_extra\n"
+        "import legate_sparse_tpu_torch.module\n"
+        "import legate_sparse_tpu_torch.precond\n"
+        "import legate_sparse_tpu_torch.utils_native\n"
         "import legate_sparse_tpu_torch.ops.bsr\n"
         "import legate_sparse_tpu_torch.ops.dia_kernel\n"
         "import legate_sparse_tpu_torch.ops.spgemm\n"
