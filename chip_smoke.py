@@ -111,12 +111,48 @@ Phases, each printing one JSON line:
    launches; ``norm`` against scipy; ``mmwrite``/``mmread`` (the numpy
    and the native parser) and ``save_npz``/``load_npz`` of the
    1024x1024-grid Poisson matrix, bit for bit, each read back through
-   the DIA kernel; scipy's predicates, a scipy fallback returning a
-   tensor on the card, and ``linalg.eigsh``/``csgraph`` raising.
+   the DIA kernel; scipy's predicates and a scipy fallback returning a
+   tensor on the card.
    Every kernel is held against its plain version at each shape the
    phase gives it (the DIA kernels bit for bit, among them ``dia_spmm``
    at k = 4, the 16-byte variant ``expm_multiply`` runs);
-11. for each kernel at the shapes of phases 4-7: its time (CUDA events
+11. the eigensolvers and csgraph (``main_path_spectral``) at full width,
+   with the eigen module's scipy fallback replaced by one that raises:
+   on pde_4096 (f32) ``eigsh(k=4, which='LA', tol=1e-2)`` (Lanczos, one
+   ``dia_spmv`` a step; one Lanczos and one Arnoldi try in PyTorch's
+   sync debug mode, which must report no synchronisation before the
+   try's one fetch at its end; a Lanczos try's device
+   busy share under the profiler; one step's SpMV against its
+   reorthogonalisation at 20, 40 and 80 basis rows), ``eigs(k=4,
+   which='LM', tol=1e-2)`` (Arnoldi in real arithmetic; the
+   nonsymmetric operators are held on the CPU, since convdiff's
+   spectrum at this size is pseudospectral) and ``lobpcg`` from a
+   seeded X (2^24, 4) for 20 iterations (``dia_spmm`` at k = 4 and 12;
+   X orthonormal to 1e-4, theta its Rayleigh quotients to 1e-4), each
+   pair held to the closed-form spectrum 4 - 2cos(i pi/4097) - 2cos(j
+   pi/4097): its f64 residual at most twice tol times max(|theta|, 1)
+   (not for ``lobpcg``), theta within the residual of a closed-form
+   eigenvalue and at most lambda_max plus it, ``eigs``'s imaginary
+   parts under it; ``svds(k=4, tol=1e-2)`` of the 2^20-row
+   block-clustered matrix of phase 6's kind (two ``bsr_spmv`` a step,
+   U in one ``bsr_spmm``), its f64 residuals R v - s u and R^T u - s v
+   and its values against scipy's ``svds`` (1e-2); shift-invert
+   ``eigsh(P, k=4, sigma=0)`` on a 256x128 Poisson grid (cut to size:
+   each Lanczos step is a MINRES solve, whose length grows with the
+   grid) against the closed-form smallest eigenvalues at 1e-3; on the
+   R-MAT graph of phase 9 (scale 20, ``G + G.T``, f64) against scipy
+   on the host: ``connected_components`` (count and labels exactly),
+   ``laplacian(normed=True)`` (pattern exactly, values to 1e-12, its
+   ``@ x`` on the path the dispatch picks), ``dijkstra`` from 8 seeded
+   sources (distances to 1e-12, infinities equal, every predecessor
+   edge in the graph and tight), ``minimum_spanning_tree`` (edge count,
+   weight to 1e-9) and ``floyd_warshall`` on the scale-10 graph (dense
+   1024x1024 on the card).  Each run's launches (exactly what its
+   iterations call for), host fetches, card ms and host s beside
+   scipy's host s where scipy runs the same call; every kernel held
+   against its plain version at the phase's shapes (``dia_spmm`` at
+   (2^24, 4) and (2^24, 12) bit for bit);
+12. for each kernel at the shapes of phases 4-7: its time (CUDA events
    around 10 calls in a row, median of 25 such samples after warmup),
    the least time the card could take (bytes over 3.35 TB/s,
    operations over 67 TFLOP/s f32; for the BSR kernels the bytes of the
@@ -131,10 +167,10 @@ Phases, each printing one JSON line:
    ``band_to_csr``.
 
 Launch counts come from the kernel wrappers: each is set to 0 just
-before a main-path phase (in phase 10, each run) drives its path and
-read just after; the ``kernels`` line's launches add phase 10's to
-those of phases 4-7, and its ``max_abs_err`` is the largest over the
-kernel's shapes in phases 4-7 and 10.  Any
+before a main-path phase (in phases 10 and 11, each run) drives its
+path and read just after; the ``kernels`` line's launches add phases
+10's and 11's to those of phases 4-7, and its ``max_abs_err`` is the
+largest over the kernel's shapes in phases 4-7, 10 and 11.  Any
 failed check raises, so the script exits non-zero; it exits non-zero
 without printing a result when there is no CUDA device.  The last three
 lines are the ``kernels`` JSON object, the ``nvidia-smi`` line and
@@ -1935,8 +1971,8 @@ def main() -> int:
                         for c in (True, False)}, "nvidia_smi": smi_line})
     del R, xp, yp
 
-    # 8. The namespace: scipy's predicates, a scipy fallback returning a
-    # tensor on the card, and the names not ported yet raising.
+    # 8. The namespace: scipy's predicates and a scipy fallback returning
+    # a tensor on the card.
     check(sparse.issparse(P) and sparse.isspmatrix_csr(P)
           and not sparse.issparse(P.toscipy())
           and not sparse.isspmatrix_csr(P.toscipy()),
@@ -1949,14 +1985,6 @@ def main() -> int:
           f"spsolve returned {type(xs)}")
     check(float(torch.linalg.vector_norm(small @ xs - 1.0)) < 1e-10,
           "spsolve's solution")
-    for what, fn in (("linalg.eigsh", lambda: sparse.linalg.eigsh(small,
-                                                                   k=2)),
-                     ("csgraph", lambda: sparse.csgraph)):
-        try:
-            fn()
-        except NotImplementedError:
-            continue
-        check(False, f"{what} must raise NotImplementedError")
     del P, small, xs
     torch.cuda.empty_cache()
 
@@ -1970,11 +1998,520 @@ def main() -> int:
          "grid": f"{grid}x{grid}", "rows": n, "irregular_rows": irr_rows,
          "runs": solver_runs, "launches": phase10,
          "kernel_vs_plain": kernel_vs_plain, "seconds": solver_seconds})
+    # ---- 11. the eigensolvers and csgraph on the main path -----------------
+    # Each run from reset_counts(), its card ms by CUDA events around the
+    # call (host syncs included), its host fetches through the solvers'
+    # one helper, and no scipy fallback (the eigen module's is replaced by
+    # one that raises).  S1-S3 on pde_4096 (f32), held to the closed-form
+    # spectrum lambda = 4 - 2cos(i pi/4097) - 2cos(j pi/4097): each pair's
+    # f64 residual r = |A v - theta v| (|v| = 1) at most SLACK * tol *
+    # max(|theta|, 1), theta within r of a closed-form eigenvalue and at
+    # most lambda_max + r.  S4 on the 2^20-row block-clustered matrix of
+    # phase 6's kind, S5 on a Poisson grid cut to 256x128 (its inner MINRES
+    # solves grow with the grid; 256x128 has no double eigenvalue among
+    # its smallest), G1 on the R-MAT graph of phase 9 against scipy.
+    from scipy.sparse import csgraph as scsg
+
+    from legate_sparse_tpu_torch import eigen as eigen_mod
+
+    spec_t0 = time.perf_counter()
+    grid, irr_rows, si_shape, rmat_scale, fw_scale = (4096, 1 << 20,
+                                                      (256, 128), 20, 10)
+    n = grid * grid
+    SLACK = 2.0
+    spec_runs, spec_vs_plain = {}, {}
+    phase11 = {name: 0 for name in counters}
+    fetches = []
+    real_fetch = linalg._host_fetch
+    real_fallback = eigen_mod._host_fallback
+
+    def counted_fetch(t):
+        fetches.append(t.numel())
+        return real_fetch(t)
+
+    def no_fallback(name):
+        raise RuntimeError(f"chip_smoke: eigen {name} took its scipy "
+                           f"fallback on the card's main path")
+
+    def spec_run(fn):
+        """``fn()`` from reset_counts(): (out, launches, card ms, host s,
+        the sizes of its host fetches); the launches add up in
+        ``phase11``."""
+        sync()
+        reset_counts()
+        fetches.clear()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        for k, v in counts.items():
+            phase11[k] += v
+        return out, counts, start.elapsed_time(end), secs, list(fetches)
+
+    def spec_hold(name, kernel, got, want, bitwise=True):
+        err = close(got, want, 1e-6 if bitwise else 1e-5, name)
+        same = bool(torch.equal(got, want))
+        check(same or not bitwise, f"{name}: kernel and plain version not "
+              f"bit for bit equal")
+        spec_vs_plain[name] = {"kernel": kernel, "max_abs_err": err,
+                               "bitwise": same}
+
+    def spec_hold_dia(name, M, X):
+        pk = M._get_dia_pack()
+        check(pk is not None, f"{name}: the DIA kernel must take it")
+        if X.dim() == 1:
+            spec_hold(name, "dia_spmv", dia_kernel.dia_spmv(pk, X),
+                      dia_kernel.dia_spmv_plain(pk.rdata, pk.rmask, X,
+                                                pk.offsets, pk.shape))
+        else:
+            check(dia_kernel.spmm_supported(pk, X), f"{name}: dia_spmm")
+            spec_hold(name, "dia_spmm", dia_kernel.dia_spmm(pk, X),
+                      dia_kernel.dia_spmm_plain(pk.rdata, pk.rmask, X,
+                                                pk.offsets, pk.shape))
+
+    def record(name, rec):
+        spec_runs[name] = rec
+        log({"phase": "spectral_run", "what": name, **rec})
+
+    tgen = torch.Generator(device=dev)
+    tgen.manual_seed(11)
+
+    def trandn(*shape):
+        return torch.randn(shape, generator=tgen, device=dev)
+
+    def unit_cols(V):
+        V = V.to(torch.complex128 if V.is_complex() else torch.float64)
+        return V / torch.linalg.vector_norm(V, dim=0, keepdim=True)
+
+    def apply64(M64, V):
+        """M64 @ V for a real f64 matrix and a real or complex V."""
+        if V.is_complex():
+            return torch.complex(M64 @ V.real.contiguous(),
+                                 M64 @ V.imag.contiguous())
+        return M64 @ V
+
+    # The closed-form spectrum of pde_4096: 2cos(i pi/(N+1)), sorted, and
+    # the distance from theta to the nearest 4 - c_i - c_j.
+    cos2 = np.sort(2.0 * np.cos(np.arange(1, grid + 1) * np.pi / (grid + 1)))
+    lam_max = 4.0 + 4.0 * np.cos(np.pi / (grid + 1))
+
+    def closed_form_gap(theta: float) -> float:
+        t = 4.0 - theta - cos2
+        idx = np.clip(np.searchsorted(cos2, t), 1, grid - 1)
+        return float(np.min(np.minimum(np.abs(cos2[idx] - t),
+                                       np.abs(cos2[idx - 1] - t))))
+
+    def judge_pairs(name, theta, V, A64, tol):
+        """The S1-S3 checks on (theta, V); returns the per-pair record."""
+        U = unit_cols(V)
+        R = apply64(A64, U) - U * theta.to(U.dtype)[None, :]
+        r = torch.linalg.vector_norm(R, dim=0).cpu().numpy()
+        th = theta.cpu().numpy()
+        pairs = []
+        for i in range(th.shape[0]):
+            t = float(np.real(th[i]))
+            gap = closed_form_gap(t)
+            check(bool(np.isfinite(r[i])), f"{name}: residual {i} not finite")
+            check(tol is None or r[i] <= SLACK * tol * max(abs(th[i]), 1.0),
+                  f"{name}: pair {i} residual {r[i]} > {SLACK} * {tol} * "
+                  f"max(|{th[i]}|, 1)")
+            check(gap <= r[i] + 1e-12,
+                  f"{name}: theta {t} is {gap} from the closed-form "
+                  f"spectrum, its residual {r[i]}")
+            check(abs(th[i]) <= lam_max + r[i],
+                  f"{name}: |theta| {abs(th[i])} > lambda_max {lam_max} + "
+                  f"{r[i]}")
+            pairs.append({"theta": (str(complex(th[i])) if np.iscomplexobj(th)
+                                    else t),
+                          "residual_f64": float(r[i]),
+                          "to_closed_form": gap})
+        return pairs
+
+    eigen_mod._host_fallback = no_fallback
+    linalg._host_fetch = counted_fetch
+    try:
+        A = sparse.diags([main3, p1, p1, pN, pN], offsets, shape=(n, n),
+                         format="csr", dtype=torch.float32)
+        A64 = A.astype(torch.float64)
+        xs = randx(n)
+        A @ xs
+        check(A.spmv_path == "dia-kernel", f"pde_4096 @ x took {A.spmv_path}")
+        spec_hold_dia("pde_4096 @ x", A, xs)
+        for k in (4, 12):
+            spec_hold_dia(f"pde_4096 @ X (2^24, {k})", A, trandn(n, k))
+        # First use of cuBLAS, cuSOLVER and the generator on a small
+        # operator, outside the counted runs.
+        warm = sparse.diags([main3[:4096], p1[:4095], p1[:4095]],
+                            [0, 1, -1], shape=(4096, 4096), format="csr",
+                            dtype=torch.float32)
+        linalg.eigsh(warm, k=2, which="LA", tol=1e-1)
+        linalg.eigs(warm, k=2, which="LM", tol=1e-1)
+        linalg.lobpcg(warm, trandn(4096, 2), maxiter=2)
+        del warm
+
+        # S1: eigsh, Lanczos, one dia_spmv a step.
+        (w, V), counts, ms, secs, f = spec_run(
+            lambda: linalg.eigsh(A, k=4, which="LA", tol=1e-2))
+        # A try's one fetch: alphas, betas and breakdown flags (3 m).
+        tries = [x // 3 for x in f]
+        expect("S1 eigsh", counts, dia_spmv=sum(tries))
+        check(w.device == V.device == A.device and V.shape == (n, 4),
+              "S1: results on the card")
+        record("S1 eigsh(pde_4096, k=4, LA, tol=1e-2)", {
+            "m_per_try": tries, "steps": sum(tries),
+            "launches": {k: v for k, v in counts.items() if v},
+            "host_fetches": len(f), "card_ms": ms, "host_s": secs,
+            "ms_per_step": ms / sum(tries),
+            "pairs": judge_pairs("S1", w, V, A64, 1e-2)})
+        del V
+        # One try of the recurrence under the sync debug mode (its one
+        # fetch at the end, which the design makes, outside it), and
+        # where its time goes: its device time under the profiler, then
+        # one SpMV against one step's reorthogonalisation at j = 19, 39,
+        # 79.
+        op = linalg.make_linear_operator(A)
+        v0 = xs / torch.linalg.vector_norm(xs)
+
+        def fetch_outside(t):
+            fetches.append(t.numel())
+            torch.cuda.set_sync_debug_mode("default")
+            try:
+                return real_fetch(t)
+            finally:
+                torch.cuda.set_sync_debug_mode("warn")
+
+        for what, try_, one_fetch in (
+                ("Lanczos", lambda: eigen_mod._lanczos(op.matvec, v0, None,
+                                                       m=20), 3 * 20),
+                ("Arnoldi", lambda: eigen_mod._arnoldi(op.matvec, v0, m=20),
+                 21 * 20 + 20)):
+            fetches.clear()
+            linalg._host_fetch = fetch_outside
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    try_()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                    linalg._host_fetch = counted_fetch
+            syncs = sorted({str(m.message)[:120] for m in caught
+                            if "called a synchronizing" in str(m.message)})
+            check(not syncs, f"an {what} try synchronised: {syncs}")
+            check(fetches == [one_fetch], f"an {what} try fetched {fetches}")
+        try_prof = gmg_app.profile_device(
+            lambda: eigen_mod._lanczos(op.matvec, v0, None, m=20), dev,
+            top=6)
+        Vb = trandn(80, n)
+        wb = trandn(n)
+        spmv_ms = time_ms(lambda: A @ v0, reps=5)
+
+        def reorth(j):
+            Vj = Vb[:j + 1]
+            w = wb
+            for _ in range(2):
+                w = w - Vj.T @ (Vj.conj() @ w)
+            return w
+
+        reorth_ms = {j + 1: time_ms(lambda j=j: reorth(j), reps=5)
+                     for j in (19, 39, 79)}
+        del Vb, wb
+        step_split = {
+            "spmv_ms": spmv_ms, "reorth_ms_by_rows": reorth_ms,
+            "reorth_bound_ms_by_rows": {
+                r: 4 * r * n * 4 / HBM_BYTES_PER_S * 1e3 for r in reorth_ms},
+            "try_m20_profile": try_prof}
+        spec_runs["S1 eigsh(pde_4096, k=4, LA, tol=1e-2)"].update(
+            step_split=step_split, syncs_in_a_lanczos_try=0,
+            syncs_in_an_arnoldi_try=0)
+        log({"phase": "spectral_timing", "what": "Lanczos step, 2^24 rows",
+             **step_split, "nvidia_smi": smi_line})
+        torch.cuda.empty_cache()
+
+        # S2: eigs, Arnoldi in real arithmetic on the symmetric operator.
+        (w, V), counts, ms, secs, f = spec_run(
+            lambda: linalg.eigs(A, k=4, which="LM", tol=1e-2))
+        # A try's one fetch: the (m + 1, m) Hessenberg and m flags.
+        tries = [int(round((1 + x) ** 0.5)) - 1 for x in f]
+        check(all(m * (m + 2) == x for m, x in zip(tries, f)),
+              f"S2: fetches {f} are not (m + 1) x m Hessenbergs")
+        expect("S2 eigs", counts, dia_spmv=sum(tries))
+        check(w.is_complex(), "S2: eigs eigenvalues must be complex")
+        pairs = judge_pairs("S2", w, V, A64, 1e-2)
+        for p_, wi in zip(pairs, w.cpu().numpy()):
+            check(abs(wi.imag) <= p_["residual_f64"],
+                  f"S2: imaginary part {wi.imag} over the residual")
+        record("S2 eigs(pde_4096, k=4, LM, tol=1e-2)", {
+            "m_per_try": tries, "steps": sum(tries),
+            "launches": {k: v for k, v in counts.items() if v},
+            "host_fetches": len(f), "card_ms": ms, "host_s": secs,
+            "ms_per_step": ms / sum(tries), "pairs": pairs})
+        del w, V
+        torch.cuda.empty_cache()
+
+        # S3: lobpcg, one SpMM a block.  tol=1e-15 fixes the work at 20
+        # iterations: jax's test accepts a pair once |r| < tol * 10 * n *
+        # (|A v| + theta), which at n = 2^24 and the default tol (f32 eps)
+        # is ~320, above |A|, after the first iteration.
+        X0 = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (n, 4), dtype=np.float32)).to(dev)
+        (w, X), counts, ms, secs, f = spec_run(
+            lambda: linalg.lobpcg(A, X0, maxiter=20, largest=True,
+                                  tol=1e-15))
+        iters = len(f)
+        check(iters == 20, f"S3: lobpcg ran {iters} iterations")
+        s3_prof = gmg_app.profile_device(
+            lambda: linalg.lobpcg(A, X0, maxiter=2, largest=True,
+                                  tol=1e-15), dev, top=6)
+        expect("S3 lobpcg", counts, dia_spmv=1, dia_spmm=1 + 2 * iters)
+        X64 = X.double()
+        gram_err = float((X64.T @ X64 - torch.eye(4, dtype=torch.float64,
+                                                  device=dev)).abs().max())
+        check(gram_err <= 1e-4, f"S3: X orthonormal to {gram_err}")
+        rq = (X64 * (A64 @ X64)).sum(0) / (X64 * X64).sum(0)
+        rq_err = float(((rq - w.double()).abs() / w.double().abs()).max())
+        check(rq_err <= 1e-4, f"S3: theta vs X's Rayleigh quotients "
+              f"{rq_err}")
+        # lobpcg has no residual tolerance to hold it to: its residuals
+        # are held to the closed-form spectrum.
+        record("S3 lobpcg(pde_4096, X (2^24, 4), maxiter=20)", {
+            "iters": iters, "launches": {k: v for k, v in counts.items()
+                                         if v},
+            "host_fetches": len(f), "card_ms": ms, "host_s": secs,
+            "ms_per_iter": ms / iters, "profile_2_iterations": s3_prof,
+            "orthonormality": gram_err,
+            "rayleigh_rel_err": rq_err,
+            "pairs": judge_pairs("S3", w, X, A64, None)})
+        del X0, X, X64, w, A64, xs, v0, op
+        torch.cuda.empty_cache()
+
+        # S4: svds on the 2^20-row block-clustered matrix: two SpMVs a
+        # step (R and its transpose), U in one SpMM.
+        d, i, p = block_clustered(irr_rows, 8, 2)
+        R = sparse.csr_array((d, i, p), shape=(irr_rows, irr_rows))
+        R_sp = sp.csr_array((d, i, p), shape=(irr_rows, irr_rows))
+        xr = randx(irr_rows)
+        R @ xr
+        check(R.spmv_path == "bsr", f"R @ x took {R.spmv_path}")
+        RT = R.T.conj(copy=False)
+        RT @ xr
+        rt_bsr = RT.spmv_path == "bsr"
+        x2d = xr.reshape(-1, 128)
+        for name_, M_ in (("R @ x", R), ("R^T @ x", RT))[:1 + rt_bsr]:
+            st_ = M_._get_bsr()
+            spec_hold(name_, "bsr_spmv", bsr_ops.bsr_spmv(st_, x2d),
+                      bsr_ops.bsr_spmv_plain(st_, x2d), bitwise=False)
+        Xr = trandn(irr_rows, 4)
+        st_ = R._get_bsr()
+        spec_hold("R @ X (2^20, 4)", "bsr_spmm", bsr_ops.bsr_spmm(st_, Xr),
+                  bsr_ops.bsr_spmm_plain(st_, Xr), bitwise=False)
+        del Xr, x2d, st_
+        (U, s, Vh), counts, ms, secs, f = spec_run(
+            lambda: linalg.svds(R, k=4, tol=1e-2))
+        tries = [x // 3 for x in f]
+        steps = sum(tries)
+        expect("S4 svds", counts,
+               bsr_spmv=steps * (2 if rt_bsr else 1) + (1 if rt_bsr else 0),
+               bsr_spmm=1)
+        t0 = time.perf_counter()
+        s_ref = np.sort(sp.linalg.svds(R_sp, k=4, tol=1e-2,
+                                       return_singular_vectors=False))
+        scipy_s = time.perf_counter() - t0
+        R64 = R.astype(torch.float64)
+        Vu, Uu = unit_cols(Vh.T), unit_cols(U)
+        s64 = s.double()
+        fwd = torch.linalg.vector_norm(R64 @ Vu - Uu * s64[None, :], dim=0)
+        back = torch.linalg.vector_norm(R64.T @ Uu - Vu * s64[None, :],
+                                        dim=0)
+        s_np = np.sort(s.cpu().numpy().astype(np.float64))
+        rel = np.abs(s_np - s_ref) / s_ref
+        for j_ in range(4):
+            th = float(s64[j_]) ** 2
+            check(float(back[j_]) * float(s64[j_])
+                  <= SLACK * 1e-2 * max(th, 1.0),
+                  f"S4: R^T u - s v residual {float(back[j_])} for s "
+                  f"{float(s64[j_])}")
+            check(float(fwd[j_]) <= 1e-4 * float(s64[j_]),
+                  f"S4: R v - s u residual {float(fwd[j_])}")
+        check(bool(np.all(rel <= 1e-2)), f"S4: s {s_np} vs scipy's {s_ref}")
+        record("S4 svds(R 2^20, k=4, tol=1e-2)", {
+            "m_per_try": tries, "steps": steps, "transpose_path": RT.spmv_path,
+            "launches": {k: v for k, v in counts.items() if v},
+            "host_fetches": len(f), "card_ms": ms, "host_s": secs,
+            "ms_per_step": ms / steps, "s": s_np.tolist(),
+            "s_scipy": s_ref.tolist(), "rel_to_scipy": rel.tolist(),
+            "scipy_host_s": scipy_s,
+            "residual_Rv_su": fwd.cpu().numpy().tolist(),
+            "residual_RTu_sv": back.cpu().numpy().tolist()})
+        del R, R_sp, RT, R64, U, s, Vh, Vu, Uu, xr, d, i, p
+        torch.cuda.empty_cache()
+
+        # S5: shift-invert at 0 on a Poisson grid, MINRES inside each step.
+        nx, ny = si_shape
+        ns = nx * ny
+        hole = np.ones(ns - 1, np.float32)
+        hole[np.arange(1, ny) * nx - 1] = 0.0
+        P = sparse.diags([np.full(ns, 4.0, np.float32), -hole, -hole,
+                          np.full(ns - nx, -1.0, np.float32),
+                          np.full(ns - nx, -1.0, np.float32)],
+                         [0, 1, -1, nx, -nx], shape=(ns, ns), format="csr",
+                         dtype=torch.float32)
+        spec_hold_dia(f"poisson {nx}x{ny} @ x", P, randx(ns))
+        spec_hold_dia(f"poisson {nx}x{ny} @ X (k=4)", P, trandn(ns, 4))
+        (w, V), counts, ms, secs, f = spec_run(
+            lambda: linalg.eigsh(P, k=4, sigma=0.0))
+        lam = np.sort((4.0 - 2.0 * np.cos(np.arange(1, nx + 1)[:, None]
+                                          * np.pi / (nx + 1))
+                       - 2.0 * np.cos(np.arange(1, ny + 1)[None, :]
+                                      * np.pi / (ny + 1))).ravel())[:4]
+        wn = np.sort(w.cpu().numpy().astype(np.float64))
+        si_rel = np.abs(wn - lam) / lam
+        check(bool(np.all(si_rel <= 1e-3)),
+              f"S5: {wn} vs the closed-form smallest {lam}")
+        check(counts["dia_spmv"] > 0 and counts["dia_spmm"] == 1,
+              f"S5 launched {counts}")
+        record(f"S5 eigsh(poisson {nx}x{ny}, k=4, sigma=0)", {
+            "launches": {k: v for k, v in counts.items() if v},
+            "host_fetches": len(f), "card_ms": ms, "host_s": secs,
+            "eigenvalues": wn.tolist(), "closed_form": lam.tolist(),
+            "rel_err": si_rel.tolist()})
+        del P, w, V
+        torch.cuda.empty_cache()
+    finally:
+        eigen_mod._host_fallback = real_fallback
+        linalg._host_fetch = real_fetch
+
+    # G1: csgraph on the R-MAT graph of phase 9 (scale 20, symmetrised),
+    # each against scipy on the host.
+    G = sparse.rmat(rmat_scale, nnz_per_row=8, rng=0)
+    G_sp = G.toscipy()
+    Gs = G + G.T
+    def int32_csr(M):
+        """scipy's csgraph takes int32 indices only."""
+        M = sp.csr_array(M)
+        M.sort_indices()
+        return sp.csr_array((M.data, M.indices.astype(np.int32),
+                             M.indptr.astype(np.int32)), shape=M.shape)
+
+    Gs_sp = int32_csr(G_sp + G_sp.T)
+    nG = Gs.shape[0]
+    graph_runs = {}
+
+    def graph_run(name, card_fn, host_fn):
+        out, counts, ms, secs, _ = spec_run(card_fn)
+        t0 = time.perf_counter()
+        ref = host_fn()
+        host_s = time.perf_counter() - t0
+        graph_runs[name] = {"card_ms": ms, "host_s": secs,
+                            "scipy_host_s": host_s,
+                            "launches": {k: v for k, v in counts.items()
+                                         if v}}
+        return out, ref
+
+    (ncc, labels), (ncc_ref, labels_ref) = graph_run(
+        "connected_components",
+        lambda: sparse.csgraph.connected_components(Gs, directed=False),
+        lambda: scsg.connected_components(Gs_sp, directed=False))
+    check(ncc == ncc_ref and np.array_equal(labels.cpu().numpy(), labels_ref),
+          f"connected_components: {ncc} vs scipy {ncc_ref}")
+    graph_runs["connected_components"]["components"] = ncc
+    L, L_ref = graph_run(
+        "laplacian(normed)",
+        lambda: sparse.csgraph.laplacian(Gs, normed=True),
+        lambda: scsg.laplacian(Gs_sp, normed=True))
+    L_ref = sp.csr_array(L_ref)
+    L_ref.sum_duplicates()
+    L_ref.sort_indices()
+    check(np.array_equal(L.indptr.cpu().numpy(), L_ref.indptr)
+          and np.array_equal(L.indices.cpu().numpy(), L_ref.indices),
+          "laplacian: pattern differs from scipy's")
+    lap_err = float(np.max(np.abs(L.data.cpu().numpy() - L_ref.data)))
+    check(lap_err <= 1e-12, f"laplacian values vs scipy: {lap_err}")
+    xg = randx(nG, torch.float64)
+    xgn = xg.cpu().numpy()
+    yL = L @ xg
+    lap_dot_err = within(yL, L_ref @ xgn, abs(L_ref) @ np.abs(xgn), 1e-12,
+                         "laplacian @ x")
+    graph_runs["laplacian(normed)"].update(
+        path=L.spmv_path, max_abs_err=lap_err, dot_max_abs_err=lap_dot_err)
+    src = np.sort(np.random.default_rng(2).choice(nG, 8, replace=False))
+    (dist, pred), dist_ref = graph_run(
+        "dijkstra(8 sources)",
+        lambda: sparse.csgraph.dijkstra(Gs, indices=src,
+                                        return_predecessors=True),
+        lambda: scsg.dijkstra(Gs_sp, indices=src))
+    dist_h = dist.cpu().numpy()
+    fin = np.isfinite(dist_ref)
+    check(np.array_equal(np.isfinite(dist_h), fin), "dijkstra: infinities")
+    dij_rel = float(np.max(np.abs(dist_h[fin] - dist_ref[fin])
+                           / np.maximum(np.abs(dist_ref[fin]), 1e-300)))
+    check(dij_rel <= 1e-12, f"dijkstra vs scipy: max rel {dij_rel}")
+    # Every reached non-source node's predecessor edge exists and is
+    # tight: dist[p] + w(p, j) == dist[j], the weight looked up in Gs's
+    # canonical (row, col) keys on the card.
+    keys = Gs._get_row_ids().long() * nG + Gs.indices.long()
+    has = pred != -9999
+    si_, sj_ = torch.nonzero(has, as_tuple=True)
+    pp = pred[si_, sj_].long()
+    at = torch.searchsorted(keys, pp * nG + sj_)
+    at = torch.clamp(at, max=keys.numel() - 1)
+    check(bool((keys[at] == pp * nG + sj_).all()),
+          "dijkstra: a predecessor edge is not in the graph")
+    tight = (dist[si_, pp] + Gs.data[at] - dist[si_, sj_]).abs()
+    pred_err = float((tight / dist[si_, sj_].abs().clamp_min(1e-300)).max())
+    check(pred_err <= 1e-12, f"dijkstra: predecessors not tight {pred_err}")
+    graph_runs["dijkstra(8 sources)"].update(
+        max_rel_err=dij_rel, reached=int(fin.sum()),
+        predecessors_checked=int(si_.numel()), predecessor_rel_err=pred_err)
+    del dist, pred, keys, has, si_, sj_, pp, at, tight, dist_h
+    T, T_ref = graph_run(
+        "minimum_spanning_tree",
+        lambda: sparse.csgraph.minimum_spanning_tree(Gs),
+        lambda: scsg.minimum_spanning_tree(Gs_sp))
+    t_sum, t_ref = float(T.data.sum()), float(T_ref.sum())
+    check(T.nnz == T_ref.nnz and abs(t_sum - t_ref) <= 1e-9 * t_ref,
+          f"minimum_spanning_tree: {T.nnz} edges weighing {t_sum} vs "
+          f"scipy's {T_ref.nnz}, {t_ref}")
+    graph_runs["minimum_spanning_tree"].update(edges=T.nnz, weight=t_sum,
+                                               weight_scipy=t_ref)
+    H = sparse.rmat(fw_scale, nnz_per_row=8, rng=0)
+    Hs = H + H.T
+    Hs_sp = int32_csr(Hs.toscipy())
+    D, D_ref = graph_run(
+        "floyd_warshall(rmat 10)",
+        lambda: sparse.csgraph.floyd_warshall(Hs),
+        lambda: scsg.floyd_warshall(Hs_sp))
+    Dh = D.cpu().numpy()
+    finD = np.isfinite(D_ref)
+    check(np.array_equal(np.isfinite(Dh), finD), "floyd_warshall: inf")
+    fw_rel = float(np.max(np.abs(Dh[finD] - D_ref[finD])
+                          / np.maximum(np.abs(D_ref[finD]), 1e-300)))
+    check(fw_rel <= 1e-12, f"floyd_warshall vs scipy: max rel {fw_rel}")
+    graph_runs["floyd_warshall(rmat 10)"]["max_rel_err"] = fw_rel
+    record("G1 csgraph(rmat 20)", {"nodes": nG, "nnz": Gs.nnz,
+                                   "runs": graph_runs})
+    del G, G_sp, Gs, Gs_sp, L, L_ref, xg, yL, T, T_ref, H, Hs, Hs_sp, D
+    torch.cuda.empty_cache()
+
+    spec_seconds = time.perf_counter() - spec_t0
+    check(phase11["dia_spmv"] > 0 and phase11["dia_spmm"] > 0
+          and phase11["bsr_spmv"] > 0,
+          f"the spectral phase launched {phase11}")
+    log({"phase": "main_path_spectral", "nvidia_smi": smi_line,
+         "runs": spec_runs, "launches": phase11,
+         "kernel_vs_plain": spec_vs_plain, "seconds": spec_seconds})
+
     for row in (dia_row, bsr_row, dia_spmm_row, bsr_spmm_row,
                 dia_spgemm_row):
-        row["launches"] += phase10[row["name"]]
+        row["launches"] += phase10[row["name"]] + phase11[row["name"]]
         row["max_abs_err"] = max([row["max_abs_err"]] + [
-            h["max_abs_err"] for h in kernel_vs_plain.values()
+            h["max_abs_err"] for h in (list(kernel_vs_plain.values())
+                                       + list(spec_vs_plain.values()))
             if h["kernel"] == row["name"]])
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -18,14 +18,19 @@ facade on which operators are built: the ``csr``, ``csc``, ``coo`` and
 arithmetic, comparisons, reductions, indexing and conversions, the
 gallery's constructors (``eye``, ``kron``, ``tril``, ``vstack``,
 ``bmat``, ...) and its seeded generators (``random``, ``powerlaw``,
-``rmat``); Matrix Market and npz io; and the rest of scipy.sparse's
-namespace, through scipy on the host (``coverage.clone_module``).
+``rmat``); Matrix Market and npz io; the eigensolvers ``eigs``,
+``eigsh``, ``lobpcg`` and ``svds`` (Lanczos and Arnoldi over the SpMV
+kernels, LOBPCG over the SpMM kernels); ``csgraph`` (components,
+Laplacians, shortest paths, spanning trees); and the rest of
+scipy.sparse's namespace, through scipy on the host
+(``coverage.clone_module``).
 
 Entry points run on ``cuda`` unless the caller names a device
 (``device="cpu"``, or ``runtime.set_device("cpu")``); with no CUDA
 device and no such request they raise.  The package imports neither
-``jax`` nor ``legate_sparse_tpu``.  ``csgraph`` is not ported yet and
-raises rather than handing scipy's module out.
+``jax`` nor ``legate_sparse_tpu``.  The eigensolvers (``linalg.eigs``,
+``eigsh``, ``lobpcg``, ``svds``) and ``csgraph`` are the port's own,
+on the operator's or graph's device.
 """
 
 import scipy.sparse as _scipy_sparse
@@ -40,20 +45,10 @@ from . import linalg  # noqa: F401
 # is complete (reference ``__init__.py:36``).
 _clone_module(_scipy_sparse, globals())
 
-# scipy's csgraph module object came in with the clone; the JAX
-# package replaces it with its own csgraph, which is not ported yet
-# (ROADMAP queue 1 item 5): until then ``csgraph`` raises (``__getattr__``).
+# scipy's csgraph module object came in with the clone; the port's own
+# takes its place (reference ``__init__.py:41-49``).  While the name is
+# bound, ``from . import csgraph`` would hand back scipy's module.
 globals().pop("csgraph", None)
+from . import csgraph  # noqa: E402,F401
+
 del _scipy_sparse, _clone_module
-
-_UNPORTED = {"csgraph": "csgraph.py"}
-
-
-def __getattr__(name):
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"legate_sparse_tpu_torch.{name} is not ported yet (ROADMAP "
-            f"queue 1 item 5: {_UNPORTED[name]}); it does not fall back "
-            "to scipy on the host")
-    raise AttributeError(
-        f"module 'legate_sparse_tpu_torch' has no attribute {name!r}")

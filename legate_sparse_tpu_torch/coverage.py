@@ -12,9 +12,9 @@ A fallback's sparse result comes back as this package's array of the
 same format (CSR, CSC, COO or DIA; others as CSR), and a dense one as a
 tensor, on the device of its first sparse-matrix or tensor argument,
 else on the default device.  The fallbacks are the documented host
-escape for names this package has no code of its own for; names it has
-code for but has not ported yet raise instead (``linalg.eigs`` and the
-rest of ``eigen.py``, ``csgraph``).
+escape for names this package has no code of its own for, and for the
+cases its native functions hand to scipy (``eigen.py``'s and
+``csgraph.py``'s host escapes, as in the JAX package).
 """
 
 from __future__ import annotations

@@ -8,11 +8,13 @@ for ``rmatvec``), ``IdentityOperator`` (``:229``),
 ``make_linear_operator`` (``:270``), ``cg_axpby`` (``:291``),
 ``_get_atol_rtol`` (``:319``), ``cg`` (``:588``), ``gmres``
 (``:807``, its restart cycle ``_gmres_cycle`` ``:706``), ``bicgstab``
-(``:963``), ``norm`` (``:1092``) and the scipy fallback of the module
-``__getattr__`` (``:1175``).  ``minres``, ``lsqr``, ``lsmr`` and
+(``:963``, its loop ``_bicgstab_loop`` ``:1008``), ``norm``
+(``:1092``) and the scipy fallback of the module ``__getattr__``
+(``:1175``).  ``minres``, ``lsqr``, ``lsmr`` and
 ``differentiable_solve`` live in ``krylov_extra.py``, ``jacobi`` and
-``block_jacobi`` in ``precond.py``, ``expm_multiply`` in ``expm.py``;
-all are importable from here, as in the JAX package.
+``block_jacobi`` in ``precond.py``, ``expm_multiply`` in ``expm.py``,
+``eigs``, ``eigsh``, ``lobpcg`` and ``svds`` in ``eigen.py``; all are
+importable from here, as in the JAX package.
 
 The JAX package runs each solve as one ``lax.while_loop``.  Here the
 loops are Python loops over device tensors with the same iterations:
@@ -24,11 +26,10 @@ the rotations and the back-substitution stay on the device, and the
 outer loop fetches ``[beta, resid]`` once a cycle (``_host_fetch``).
 
 Not ported yet: ``refine=`` on ``cg``/``gmres`` (it needs
-``csr_array.compress``, ROADMAP queue 1 item 6) raises, and so do
-``eigs``, ``eigsh``, ``lobpcg`` and ``svds`` (``eigen.py``, queue 1
-item 5), rather than reaching host scipy through the fallback.  The
-JAX package's engine routing, resilience hooks, spans and latency
-timers wait for queue 1 items 7 and 10.
+``csr_array.compress``, ROADMAP queue 1 item 6) raises rather than
+reaching host scipy through the fallback.  The JAX package's engine
+routing, resilience hooks, spans and latency timers wait for queue 1
+items 7 and 10.
 """
 
 from __future__ import annotations
@@ -519,20 +520,30 @@ def bicgstab(A, b, x0=None, tol=None, maxiter=None, M=None, callback=None,
     atol, _ = _get_atol_rtol(bnrm2, tol, atol, rtol)
     maxiter = int(b.shape[0] * 10 if maxiter is None else maxiter)
     conv = 1 if callback is not None else int(conv_test_iters)
-    x = _x0(x0, b)
+    return _bicgstab_loop(A_op.matvec, M_op.matvec, b, _x0(x0, b), atol,
+                          maxiter, conv, callback)
+
+
+def _bicgstab_loop(A_mv: Callable, M_mv: Callable, b: torch.Tensor,
+                   x: torch.Tensor, atol, maxiter: int, conv_test_iters: int,
+                   callback: Optional[Callable] = None):
+    """Preconditioned BiCGSTAB from ``x`` (reference ``_bicgstab_loop``,
+    ``linalg.py:1008``); converged when ``|r|² < atol²`` at ``iters %
+    conv_test_iters == 0`` or ``iters == maxiter - 1``.  Returns
+    ``(x, iters)``."""
     atol2 = torch.tensor(atol, dtype=b.dtype.to_real(),
                          device=b.device) ** 2
-    r = b - A_op.matvec(x)
+    r = b - A_mv(x)
     one = torch.ones((), dtype=b.dtype, device=b.device)
     state = (x, r, r, torch.zeros_like(b), torch.zeros_like(b), one, one,
              one)
     iters = 0
     while iters < maxiter:
-        state = _bicgstab_step(A_op.matvec, M_op.matvec, state, iters == 0)
+        state = _bicgstab_step(A_mv, M_mv, state, iters == 0)
         iters += 1
         if callback is not None:
             callback(state[0])
-        if iters % conv == 0 or iters == maxiter - 1:
+        if iters % conv_test_iters == 0 or iters == maxiter - 1:
             r = state[1]
             if bool((_vdot(r, r).real < atol2).item()):
                 break
@@ -602,22 +613,7 @@ def norm(A, ord=None, axis=None):
     raise ValueError(f"Invalid norm order {ord!r} for vectors")
 
 
-def _unported(name: str):
-    def unported(*args, **kwargs):
-        raise NotImplementedError(
-            f"legate_sparse_tpu_torch.linalg.{name} is not ported yet "
-            "(ROADMAP queue 1 item 5: eigen.py); it does not fall back "
-            "to scipy on the host")
-
-    unported.__name__ = unported.__qualname__ = name
-    return unported
-
-
-eigs = _unported("eigs")
-eigsh = _unported("eigsh")
-lobpcg = _unported("lobpcg")
-svds = _unported("svds")
-
+from .eigen import eigs, eigsh, lobpcg, svds  # noqa: E402
 from .expm import expm_multiply  # noqa: E402
 from .krylov_extra import (differentiable_solve, lsmr, lsqr,  # noqa: E402
                            minres)
@@ -649,5 +645,6 @@ def __getattr__(name):
 
 __all__ = ["LinearOperator", "IdentityOperator", "make_linear_operator",
            "bicgstab", "block_jacobi", "cg", "cg_axpby",
-           "differentiable_solve", "expm_multiply", "gmres", "jacobi",
-           "lsmr", "lsqr", "minres", "norm"]
+           "differentiable_solve", "eigs", "eigsh", "expm_multiply",
+           "gmres", "jacobi", "lobpcg", "lsmr", "lsqr", "minres", "norm",
+           "svds"]

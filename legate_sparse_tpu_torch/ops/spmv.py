@@ -5,18 +5,24 @@
 Mirrors ``legate_sparse_tpu/ops/spmv.py``: ``csr_spmv`` (``:39``),
 ``csr_spmv_rowids`` (``:58``), ``ell_within_budget`` (``:545``),
 ``ell_pack`` (``:551``), ``ell_spmv`` (``:161``), ``ell_spmm``
-(``:515``), ``csr_spmm_rowids`` (``:589``) and ``csr_spmm``
-(``:599``).  The JAX package leaves these to XLA; here they are
-ordinary tensor ops.  Padded and masked slots contribute an exact 0 (a
+(``:515``), ``csr_spmm_rowids`` (``:589``), ``csr_spmm``
+(``:599``), and the semiring products ``csgraph`` relaxes with:
+``semiring_identity`` (``:381``), ``_semiring_product`` (``:398``),
+``csr_semiring_spmv_rowids_masked`` (``:412``) and
+``csr_semiring_spmm_rowids_masked`` (``:431``).  The JAX package
+leaves these to XLA; here they are ordinary tensor ops.  Padded and
+masked slots of the plus-times products contribute an exact 0 (a
 masked product, never ``0*x``), so a non-finite x entry that no row
 stores never produces NaN.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from .convert import row_ids_from_indptr
+from .convert import row_ids_from_indptr, segment_sum
 
 
 def csr_spmv_rowids(data, indices, row_ids, x, rows: int) -> torch.Tensor:
@@ -111,3 +117,75 @@ def csr_spmm(data, indices, indptr, X, rows: int) -> torch.Tensor:
     return csr_spmm_rowids(data, indices,
                            row_ids_from_indptr(indptr, data.shape[0]),
                            X, rows)
+
+
+def semiring_identity(add: str, dtype: torch.dtype, device=None):
+    """Additive identity of a semiring add-op as a 0-d tensor: the value
+    a masked slot takes (sum: 0; min: +inf; max: -inf; booleans: or is
+    max, identity False)."""
+    if add == "sum":
+        return torch.zeros((), dtype=dtype, device=device)
+    if dtype == torch.bool:
+        return torch.tensor(add == "min", dtype=dtype, device=device)
+    if dtype.is_floating_point:
+        return torch.tensor(math.inf if add == "min" else -math.inf,
+                            dtype=dtype, device=device)
+    info = torch.iinfo(dtype)
+    return torch.tensor(info.max if add == "min" else info.min,
+                        dtype=dtype, device=device)
+
+
+def _semiring_product(mul: str, vals, gathered):
+    """The per-slot product.  ``and`` is structural (a stored entry is an
+    edge, csgraph's explicit-zero convention): the gathered frontier
+    bit, whatever the stored value."""
+    if mul == "times":
+        return vals * gathered
+    if mul == "plus":
+        return vals + gathered
+    if mul == "and":
+        return gathered != 0
+    raise ValueError(f"unknown semiring multiply {mul!r}")
+
+
+def _semiring_reduce(prod, row_ids, rows: int, add: str):
+    """Reduce the slots of each row (``row_ids`` sorted) by ``add``: a
+    segment sum for ``"sum"``, a scatter-min or -max from the identity
+    otherwise (order-free, so bit for bit on any device)."""
+    if add == "sum":
+        lengths = torch.bincount(row_ids.to(torch.int64), minlength=rows)
+        return segment_sum(prod, lengths)
+    if add not in ("min", "max"):
+        raise ValueError(f"unknown semiring add {add!r}")
+    work = prod.to(torch.uint8) if prod.dtype == torch.bool else prod
+    out = semiring_identity(add, work.dtype, work.device).expand(
+        (rows,) + tuple(work.shape[1:])).clone()
+    idx = row_ids.to(torch.int64)
+    if work.dim() == 2:
+        idx = idx[:, None].expand_as(work)
+    out.scatter_reduce_(0, idx, work, "amin" if add == "min" else "amax")
+    return out.to(torch.bool) if prod.dtype == torch.bool else out
+
+
+def csr_semiring_spmv_rowids_masked(data, indices, row_ids, valid_nnz, x,
+                                    rows: int, add: str, mul: str):
+    """Semiring SpMV over a padded nonzero suffix: slots at or past
+    ``valid_nnz`` take the add-op's identity.  ``add="sum",
+    mul="times"`` is ``csr_spmv_rowids`` summed in segment order."""
+    slot = torch.arange(data.shape[0], device=data.device)
+    prod = _semiring_product(mul, data, x[indices.to(torch.int64)])
+    prod = torch.where(slot < valid_nnz, prod,
+                       semiring_identity(add, prod.dtype, prod.device))
+    return _semiring_reduce(prod, row_ids, rows, add)
+
+
+def csr_semiring_spmm_rowids_masked(data, indices, row_ids, valid_nnz, X,
+                                    rows: int, add: str, mul: str):
+    """Semiring SpMM (k stacked operand columns, one multi-source sweep):
+    column by column ``csr_semiring_spmv_rowids_masked``."""
+    slot = torch.arange(data.shape[0], device=data.device)
+    prod = _semiring_product(mul, data[:, None],
+                             X[indices.to(torch.int64), :])
+    prod = torch.where((slot < valid_nnz)[:, None], prod,
+                       semiring_identity(add, prod.dtype, prod.device))
+    return _semiring_reduce(prod, row_ids, rows, add)

@@ -524,3 +524,57 @@ def test_sum_axis0_repeats_exactly(cuda):
     np.testing.assert_allclose(
         s1.cpu().numpy(), np.asarray(S.astype(np.float64).sum(axis=0)).ravel(),
         rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("add", ["min", "max"])
+def test_semiring_spmm_on_card_matches_cpu(cuda, add):
+    """The min-plus and max-plus SpMM csgraph relaxes with: on the card
+    bit for bit with the CPU (min and max do not depend on order), a
+    padded suffix and inf in X included."""
+    from legate_sparse_tpu_torch.ops import spmv as spmv_ops
+
+    rng = np.random.default_rng(12)
+    S = sp.random(20_000, 15_000, density=5e-4, format="csr",
+                  random_state=rng)
+    data = torch.from_numpy(rng.standard_normal(S.nnz))
+    indices = torch.from_numpy(S.indices.astype(np.int64))
+    row_ids = torch.from_numpy(np.repeat(np.arange(20_000),
+                                         np.diff(S.indptr)))
+    X = torch.from_numpy(rng.standard_normal((15_000, 8)))
+    X[torch.from_numpy(rng.integers(0, 15_000, 50)), 0] = torch.inf
+    valid = S.nnz - 11
+    want = spmv_ops.csr_semiring_spmm_rowids_masked(
+        data, indices, row_ids, valid, X, 20_000, add, "plus")
+    got = spmv_ops.csr_semiring_spmm_rowids_masked(
+        data.to(cuda), indices.to(cuda), row_ids.to(cuda), valid,
+        X.to(cuda), 20_000, add, "plus")
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_eigsh_on_card_matches_cpu(cuda):
+    """``eigsh`` on the card (its SpMVs through the DIA kernel) against
+    the same call on the CPU (the plain version): f32 eigenvalues to
+    1e-5 relative, residuals to 1e-3 of the largest."""
+    from legate_sparse_tpu_torch import linalg
+
+    n = 50_000
+    rng = np.random.default_rng(13)
+    diag = rng.uniform(1.0, 2.0, n)
+    diag[[7, 1000, 20_000, 49_000]] = [5.0, 6.0, 7.0, 8.0]
+    S = sp.diags([diag, np.full(n - 1, -0.1), np.full(n - 1, -0.1)],
+                 [0, 1, -1], format="csr", dtype=np.float32)
+    A = sparse.csr_array(S, device=cuda)
+    before = dia_kernel.dia_spmv.launches
+    w, V = linalg.eigsh(A, k=4, which="LA")
+    assert A.spmv_path == "dia-kernel"
+    assert dia_kernel.dia_spmv.launches > before
+    assert w.device.type == "cuda" and V.device.type == "cuda"
+    wc, _ = linalg.eigsh(sparse.csr_array(S, device="cpu"), k=4,
+                         which="LA")
+    np.testing.assert_allclose(w.cpu().numpy(), wc.numpy(), rtol=1e-5)
+    Vn = V.double().cpu().numpy()
+    resid = np.linalg.norm(S.astype(np.float64) @ Vn
+                           - Vn * w.double().cpu().numpy()[None, :], axis=0)
+    assert np.all(resid <= 1e-3 * 8.0)

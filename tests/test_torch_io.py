@@ -350,18 +350,34 @@ def test_toplevel_fallbacks_and_native_names():
 
 @pytest.mark.parametrize("name", ["eigs", "eigsh", "lobpcg", "svds"])
 def test_unported_eigen_names_raise(name):
+    """(Named when these raised, before ``eigen.py`` was ported.)  Each
+    name is the port's own function, not a scipy fallback, and answers
+    on the operator's device."""
+    import inspect
+
     A = tsparse.diags([1.0, -2.0, 1.0], [-1, 0, 1], shape=(16, 16),
                       format="csr", device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        getattr(tlinalg, name)(A, k=3)
-    assert not getattr(getattr(tlinalg, name), "_lst_scipy_fallback", False)
+    fn = getattr(tlinalg, name)
+    assert inspect.getmodule(fn).__name__ == "legate_sparse_tpu_torch.eigen"
+    assert not getattr(fn, "_lst_scipy_fallback", False)
+    assert getattr(tsparse.linalg, name) is fn
+    if name == "lobpcg":
+        out = fn(A, np.random.default_rng(0).standard_normal((16, 3)))
+    else:
+        out = fn(A, k=3)
+    w = out[1] if name == "svds" else out[0]
+    assert isinstance(w, torch.Tensor) and w.device.type == "cpu"
 
 
 def test_csgraph_raises_instead_of_scipys_module():
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tsparse.csgraph  # noqa: B018
-    with pytest.raises(NotImplementedError):
-        from legate_sparse_tpu_torch import csgraph  # noqa: F401
+    """(Named when ``csgraph`` raised, before ``csgraph.py`` was
+    ported.)  The name is the port's own module, not scipy's, and
+    unknown names still raise."""
+    from legate_sparse_tpu_torch import csgraph
+
+    assert tsparse.csgraph is csgraph
+    assert csgraph.__name__ == "legate_sparse_tpu_torch.csgraph"
+    assert not getattr(csgraph.dijkstra, "_lst_scipy_fallback", False)
     with pytest.raises(AttributeError):
         tsparse.definitely_not_a_name  # noqa: B018
 
