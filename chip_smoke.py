@@ -152,7 +152,32 @@ Phases, each printing one JSON line:
    scipy's host s where scipy runs the same call; every kernel held
    against its plain version at the phase's shapes (``dia_spmm`` at
    (2^24, 4) and (2^24, 12) bit for bit);
-12. for each kernel at the shapes of phases 4-7: its time (CUDA events
+12. compressed storage and the obs core (``main_path_compressed``):
+   pde_4096 and a 2^20-row block-clustered matrix in
+   ``csr_array.compress()`` storage (bf16 values, int32 indices) times
+   a bf16 x and X (k = 16) through the bf16 ``dia_spmv``/``dia_spmm``
+   (bit for bit with their plain versions) and ``bsr_spmv``/
+   ``bsr_spmm`` (1e-5), and times an f32 x and X through the plain
+   widening routes (``"dia-torch"``, ``"ell-bf16"`` or
+   ``"csr-rowids-bf16"`` as the JAX package's rules pick) with no
+   launch, against the f32 results; a 32,768-column matrix of the same
+   kind with int16 indices through both BSR kernels; ``refine="auto"``
+   on phase 10's ``cg(step f64)``, ``cg(step f32)`` and
+   ``gmres(convdiff f32)`` beside the unrefined solves, each to rtol
+   1e-5 by its f64 true residual with exact launch counts; all of it
+   with ``obs`` tracing on, its ``op.spmv``/``op.spmm`` counters held
+   to the direct SpMVs plus the solvers' (from their spans), the
+   ``lat.spmv.*`` counts to ``op.spmv``, the ``transfer.host_sync.*``
+   counters to the solvers' host fetches, the Chrome trace written and
+   read back, OpenMetrics parsed back to the same counters and
+   histogram counts, ``obs.memory``'s device MiB against
+   ``torch.cuda``'s, and the host us the instrumentation adds to a
+   ``dot``.  Then, tracing off, each bf16 kernel's timing line (ms,
+   plain ms, bound, the library's bf16 call where PyTorch has one), the
+   widening routes' ms and bytes, and the sliced ELL (and its
+   f32-accumulation variant on the bf16 copy) on phase 9's scale-20
+   R-MAT graph against csr-rowids;
+13. for each kernel at the shapes of phases 4-7: its time (CUDA events
    around 10 calls in a row, median of 25 such samples after warmup),
    the least time the card could take (bytes over 3.35 TB/s,
    operations over 67 TFLOP/s f32; for the BSR kernels the bytes of the
@@ -167,10 +192,10 @@ Phases, each printing one JSON line:
    ``band_to_csr``.
 
 Launch counts come from the kernel wrappers: each is set to 0 just
-before a main-path phase (in phases 10 and 11, each run) drives its
+before a main-path phase (in phases 10-12, each run) drives its
 path and read just after; the ``kernels`` line's launches add phases
-10's and 11's to those of phases 4-7, and its ``max_abs_err`` is the
-largest over the kernel's shapes in phases 4-7, 10 and 11.  Any
+10's, 11's and 12's to those of phases 4-7, and its ``max_abs_err`` is the
+largest over the kernel's shapes in phases 4-7 and 10-12.  Any
 failed check raises, so the script exits non-zero; it exits non-zero
 without printing a result when there is no CUDA device.  The last three
 lines are the ``kernels`` JSON object, the ``nvidia-smi`` line and
@@ -1380,8 +1405,8 @@ def main() -> int:
     for axis in (0, 1):
         s = A.sum(axis=axis).double().cpu().numpy()
         ref = np.asarray(A_sp.sum(axis=axis, dtype=np.float64)).ravel()
-        bound = np.asarray(absA.sum(axis=axis, dtype=np.float64)).ravel()
-        check(bool(np.all(np.abs(s - ref) <= 1e-6 * bound)),
+        mag = np.asarray(absA.sum(axis=axis, dtype=np.float64)).ravel()
+        check(bool(np.all(np.abs(s - ref) <= 1e-6 * mag)),
               f"A.sum(axis={axis}) vs scipy f64")
     check(float(A.max()) == float(A_sp.max()), "A.max() vs scipy")
     check(A.count_nonzero() == A_sp.count_nonzero(),
@@ -2506,12 +2531,544 @@ def main() -> int:
          "runs": spec_runs, "launches": phase11,
          "kernel_vs_plain": spec_vs_plain, "seconds": spec_seconds})
 
+    # ---- 12. compressed storage, refine= and the obs core -------------------
+    # pde_4096 and phase 6's 2^20 block-clustered kind in compressed storage
+    # (csr_array.compress: bf16 values; 2^24 and 2^20 columns keep int32
+    # indices).  C1/C2: a bf16 operand runs the bf16 kernels, each against
+    # its plain version; an f32 operand takes the plain widening routes and
+    # launches nothing.  C3: a 32,768-column matrix of the same kind takes
+    # int16 indices into the BSR kernels.  C4: refine= on phase 10's
+    # operators at rtol 1e-5 beside the unrefined solves.  C1-C4 run with
+    # tracing on, and the obs counters are held to the dots, solver SpMVs
+    # and host fetches the runs make; then the trace and OpenMetrics
+    # round-trip.  Timings come after, tracing off: the bf16 kernels and
+    # the widening routes, and C5, the sliced ELL on phase 9's R-MAT graph
+    # (flat ELL is over budget on its skewed rows) against csr-rowids.
+    from legate_sparse_tpu_torch import obs
+    from legate_sparse_tpu_torch.obs import latency as obs_lat
+    from legate_sparse_tpu_torch.settings import settings as tsettings
+
+    comp_t0 = time.perf_counter()
+    grid, irr_rows, small_rows, rmat_scale, kB = 4096, 1 << 20, 1 << 15, 20, 16
+    n = grid * grid
+    phase12 = {name: 0 for name in counters}
+    bf16_launches = {name: 0 for name in counters}
+    comp_runs, comp_vs_plain = {}, {}
+    dots = {"spmv": 0, "spmm": 0}
+
+    def dot(M, v):
+        """``M @ v``, counted: the obs check holds ``op.spmv`` and
+        ``op.spmm`` to these and the solvers' SpMVs."""
+        dots["spmv" if v.dim() == 1 else "spmm"] += 1
+        return M @ v
+
+    def comp_run(fn, bf16=False):
+        """``fn()`` from reset_counts(): (out, launches, card ms); the
+        launches add up in ``phase12`` (and ``bf16_launches``)."""
+        sync()
+        reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        counts = read_counts()
+        for k, v in counts.items():
+            phase12[k] += v
+            if bf16:
+                bf16_launches[k] += v
+        return out, counts, start.elapsed_time(end)
+
+    def expect12(name, counts, **want):
+        full = {k: want.get(k, 0) for k in counters}
+        check(counts == full, f"{name} launched {counts}, expected {full}")
+
+    def comp_hold(name, kernel, got, want, bitwise):
+        err = close(got, want, 1e-6 if bitwise else 1e-5, name)
+        same = bool(torch.equal(got, want))
+        check(same or not bitwise, f"{name}: kernel and plain version not "
+              f"bit for bit equal")
+        comp_vs_plain[name] = {"kernel": kernel, "max_abs_err": err,
+                               "bitwise": same}
+        return err
+
+    # Phase 10's operators for C4, and warm-up solves (the first use of
+    # each elementwise kernel costs tens of ms once), before the counts.
+    hole = np.ones(n - 1, np.float32)
+    hole[np.arange(1, grid) * grid - 1] = 0.0
+    far = np.full(n - grid, -1.0, np.float32)
+    ones = np.ones(n, np.float32)
+    five = [0, 1, -1, grid, -grid]
+    step = sparse.diags([5.0 * ones, -hole, -hole, far, far], five,
+                        shape=(n, n), format="csr", dtype=torch.float32)
+    convdiff = sparse.diags([5.0 * ones, -0.5 * hole, -1.5 * hole, far, far],
+                            five, shape=(n, n), format="csr",
+                            dtype=torch.float32)
+    step64, cd64 = step.astype(torch.float64), convdiff.astype(torch.float64)
+    x_true = randx(n)
+    b_step, b_cd = step @ x_true, convdiff @ x_true
+    b_step64 = step64 @ x_true.double()
+    linalg.cg(step, b_step, maxiter=2)
+    linalg.cg(step64, b_step64, maxiter=2)
+    linalg.gmres(convdiff, b_cd, restart=2, maxiter=2)
+    linalg.cg(step, b_step, maxiter=2, refine=1)
+
+    obs.reset_all()
+    obs.enable()
+
+    # C1. pde_4096 compressed.
+    A = sparse.diags([main3, p1, p1, pN, pN], offsets, shape=(n, n),
+                     format="csr", dtype=torch.float32)
+    Ab = A.compress()
+    wide = torch.int32 if n > 1 << 15 else torch.int16
+    check(Ab.dtype == torch.bfloat16 and Ab.indices.dtype == wide,
+          f"pde_4096 compressed to {Ab.dtype}, {Ab.indices.dtype}")
+    xb = randx(n, torch.bfloat16)
+    yb, counts, ms = comp_run(lambda: dot(Ab, xb), bf16=True)
+    check(Ab.spmv_path == "dia-kernel" and yb.dtype == torch.bfloat16,
+          f"Ab @ xb took {Ab.spmv_path}, {yb.dtype}")
+    expect12("Ab @ xb", counts, dia_spmv=1)
+    pkb = Ab._get_dia_pack()
+    check(pkb.rmask is None and pkb.rdata.dtype == torch.bfloat16,
+          "the compressed band is bf16 without a hole mask")
+    comp_hold("pde_4096 bf16 @ xb", "dia_spmv", yb,
+              dia_kernel.dia_spmv_plain(pkb.rdata, None, xb, pkb.offsets,
+                                        pkb.shape), True)
+    comp_runs["Ab @ xb"] = {"path": Ab.spmv_path, "card_ms": ms,
+                            "launches": {"dia_spmv": 1}}
+    x = randx(n)
+    y, counts, ms = comp_run(lambda: dot(Ab, x))
+    check(Ab.spmv_path == "dia-torch" and y.dtype == torch.float32,
+          f"Ab @ x took {Ab.spmv_path}, {y.dtype}")
+    expect12("Ab @ x (widening)", counts)
+    y32 = dot(A, x)
+    comp_runs["Ab @ x"] = {
+        "path": Ab.spmv_path, "card_ms": ms, "launches": {},
+        "max_abs_err_vs_f32": close(y, y32, 1e-6, "Ab @ x vs A @ x"),
+        "bitwise_vs_f32": bool(torch.equal(y, y32))}
+    Xb = randX(n, kB, torch.bfloat16)
+    Yb, counts, ms = comp_run(lambda: dot(Ab, Xb), bf16=True)
+    check(Ab.spmm_path == "dia-kernel" and Yb.dtype == torch.bfloat16,
+          f"Ab @ Xb took {Ab.spmm_path}")
+    expect12("Ab @ Xb", counts, dia_spmm=1)
+    comp_hold("pde_4096 bf16 @ Xb (k=16)", "dia_spmm", Yb,
+              dia_kernel.dia_spmm_plain(pkb.rdata, None, Xb, pkb.offsets,
+                                        pkb.shape), True)
+    comp_runs["Ab @ Xb"] = {"path": Ab.spmm_path, "card_ms": ms,
+                            "launches": {"dia_spmm": 1}}
+    del Yb
+    X = randX(n, kB)
+    Y, counts, ms = comp_run(lambda: dot(Ab, X))
+    check(Ab.spmm_path == "dia-torch" and Y.dtype == torch.float32,
+          f"Ab @ X took {Ab.spmm_path}")
+    expect12("Ab @ X (widening)", counts)
+    Y32 = dot(A, X)
+    comp_runs["Ab @ X"] = {
+        "path": Ab.spmm_path, "card_ms": ms, "launches": {},
+        "max_abs_err_vs_f32": close(Y, Y32, 1e-6, "Ab @ X vs A @ X"),
+        "bitwise_vs_f32": bool(torch.equal(Y, Y32))}
+    del Y, Y32
+    torch.cuda.empty_cache()
+
+    # C2. The 2^20-row block-clustered matrix compressed.
+    d, i, p = block_clustered(irr_rows, 8, 2)
+    R = sparse.csr_array((d, i, p), shape=(irr_rows, irr_rows))
+    Rb = R.compress()
+    check(Rb.indices.dtype == (torch.int32 if irr_rows > 1 << 15
+                               else torch.int16),
+          f"2^20 columns keep int32, got {Rb.indices.dtype}")
+    xrb = randx(irr_rows, torch.bfloat16)
+    yrb, counts, ms = comp_run(lambda: dot(Rb, xrb), bf16=True)
+    check(Rb.spmv_path == "bsr", f"Rb @ xb took {Rb.spmv_path}")
+    expect12("Rb @ xb", counts, bsr_spmv=1)
+    stb = Rb._get_bsr()
+    xrb2d = xrb.reshape(-1, 128)
+    comp_hold("irregular bf16 @ xb", "bsr_spmv", bsr_ops.bsr_spmv(stb, xrb2d),
+              bsr_ops.bsr_spmv_plain(stb, xrb2d), False)
+    comp_runs["Rb @ xb"] = {"path": Rb.spmv_path, "card_ms": ms,
+                            "launches": {"bsr_spmv": 1}}
+    Xrb = randX(irr_rows, kB, torch.bfloat16)
+    Yrb, counts, ms = comp_run(lambda: dot(Rb, Xrb), bf16=True)
+    check(Rb.spmm_path == "bsr", f"Rb @ Xb took {Rb.spmm_path}")
+    expect12("Rb @ Xb", counts, bsr_spmm=1)
+    comp_hold("irregular bf16 @ Xb (k=16)", "bsr_spmm",
+              bsr_ops.bsr_spmm(stb, Xrb), bsr_ops.bsr_spmm_plain(stb, Xrb),
+              False)
+    comp_runs["Rb @ Xb"] = {"path": Rb.spmm_path, "card_ms": ms,
+                            "launches": {"bsr_spmm": 1}}
+    del Yrb
+    xr = randx(irr_rows)
+    width = int((R.indptr[1:] - R.indptr[:-1]).max())
+    want_path = ("ell-bf16" if spmv_ops.ell_within_budget(
+        irr_rows, width, R.nnz, tsettings.ell_max_expand)
+        else "csr-rowids-bf16")
+    yr, counts, ms = comp_run(lambda: dot(Rb, xr))
+    check(Rb.spmv_path == want_path, f"Rb @ x took {Rb.spmv_path}, the "
+          f"JAX package's rules pick {want_path}")
+    expect12("Rb @ x (widening)", counts)
+    Rr = Rb.astype_storage(values="float32")    # the rounded values, f32
+    yr32 = dot(Rr, xr)
+    check(Rr.spmv_path == "bsr", f"Rr @ x took {Rr.spmv_path}")
+    comp_runs["Rb @ x"] = {
+        "path": Rb.spmv_path, "card_ms": ms, "launches": {},
+        "row_width": width,
+        "max_abs_err_vs_f32": close(yr, yr32, 1e-5, "Rb @ x vs f32")}
+
+    # C3. int16 indices into the BSR kernels: 32,768 columns.
+    d16, i16, p16 = block_clustered(small_rows, 8, 2)
+    R16 = sparse.csr_array((d16, i16, p16),
+                           shape=(small_rows, small_rows)).compress()
+    check(R16.indices.dtype == torch.int16, "32,768 columns take int16")
+    x16 = randx(small_rows, torch.bfloat16)
+    X16 = randX(small_rows, kB, torch.bfloat16)
+    y16, counts, ms = comp_run(lambda: dot(R16, x16), bf16=True)
+    check(R16.spmv_path == "bsr", f"R16 @ xb took {R16.spmv_path}")
+    expect12("R16 @ xb", counts, bsr_spmv=1)
+    st16 = R16._get_bsr()
+    check(st16.indices.dtype == torch.int16, "the BSR structure reads int16")
+    comp_hold("int16 bf16 @ xb", "bsr_spmv",
+              bsr_ops.bsr_spmv(st16, x16.reshape(-1, 128)),
+              bsr_ops.bsr_spmv_plain(st16, x16.reshape(-1, 128)), False)
+    Y16, counts2, ms2 = comp_run(lambda: dot(R16, X16), bf16=True)
+    check(R16.spmm_path == "bsr", f"R16 @ Xb took {R16.spmm_path}")
+    expect12("R16 @ Xb", counts2, bsr_spmm=1)
+    comp_hold("int16 bf16 @ Xb (k=16)", "bsr_spmm", bsr_ops.bsr_spmm(st16, X16),
+              bsr_ops.bsr_spmm_plain(st16, X16), False)
+    # The int16 instantiations read what the int32 ones read, in the same
+    # order: the same bits.
+    st32 = R16.astype_storage(indices="int32")._get_bsr()
+    check(torch.equal(bsr_ops.bsr_spmv(st16, x16.reshape(-1, 128)),
+                      bsr_ops.bsr_spmv(st32, x16.reshape(-1, 128)))
+          and torch.equal(bsr_ops.bsr_spmm(st16, X16),
+                          bsr_ops.bsr_spmm(st32, X16)),
+          "int16 and int32 BSR kernels differ")
+    comp_runs["R16 @ xb, @ Xb"] = {"rows": small_rows, "nnz": R16.nnz,
+                                   "index_dtype": "int16",
+                                   "card_ms": [ms, ms2]}
+    del y16, Y16, d16, i16, p16, st32
+
+    # C4. refine= on phase 10's operators, beside the unrefined solves.
+    rtol = 1e-5
+    solver_spmvs = 0
+    fetches = []
+    real_fetch = linalg._host_fetch
+
+    def counted_fetch(t):
+        fetches.append(t.numel())
+        return real_fetch(t)
+
+    def solve(name, fn, A64, b, kernel_spmvs, res_limit):
+        """One solve from reset_counts() with tracing on: its SpMVs,
+        fetches and launches from the spans and counters it leaves."""
+        nonlocal solver_spmvs
+        n_rec = len(obs.records())
+        snap0 = obs.counters.snapshot("transfer.host_sync.")
+        fetches.clear()
+        linalg._host_fetch = counted_fetch
+        try:
+            (x_, it), counts, ms = comp_run(fn)
+        finally:
+            linalg._host_fetch = real_fetch
+        recs = obs.records()[n_rec:]
+        snap1 = obs.counters.snapshot("transfer.host_sync.")
+        delta = {k.rsplit(".", 1)[1]: v - snap0.get(k, 0)
+                 for k, v in snap1.items() if v != snap0.get(k, 0)}
+        cg_mv = sum(r["attrs"]["iters"] + 1 for r in recs
+                    if r["name"] == "cg")
+        cycles = sum(1 for r in recs if r["name"] == "gmres.cycle")
+        restart_ = next((r["attrs"]["restart"] for r in recs
+                         if r["name"] == "gmres.cycle"), 0)
+        gm_mv = (cycles * (restart_ + 1)
+                 + delta.get("gmres_conv", 0) - cycles)
+        refine_cycles = delta.get("cg_refine", 0) + delta.get(
+            "gmres_refine", 0)
+        spmvs = cg_mv + gm_mv + refine_cycles
+        solver_spmvs += spmvs
+        check(sum(delta.values()) == len(fetches),
+              f"{name}: transfer.host_sync.* {delta} against "
+              f"{len(fetches)} fetches")
+        want = kernel_spmvs(cg_mv, gm_mv, refine_cycles)
+        expect12(name, counts, dia_spmv=want)
+        res = rel_norm(dot(A64, x_.double()), b)
+        err = rel_norm(x_, x_true)
+        check(bool(torch.isfinite(x_).all()), f"{name}: x not finite")
+        check(res <= res_limit, f"{name}: true relative residual {res} > "
+              f"{res_limit}")
+        check(err <= 1e-3, f"{name}: relative error to x_true {err}")
+        comp_runs[name] = {"iters": int(it), "refine_cycles": refine_cycles,
+                           "host_sync": delta, "host_fetches": len(fetches),
+                           "spmvs": spmvs, "rel_residual_f64": res,
+                           "rel_error_to_x_true": err, "card_ms": ms,
+                           "launches": {k: v for k, v in counts.items()
+                                        if v}}
+
+    def rel_norm(v, ref) -> float:
+        return float(torch.linalg.vector_norm(v.double() - ref.double())
+                     / torch.linalg.vector_norm(ref.double()))
+
+    # The f64 system: inner f32 solves through the f32 DIA kernel; the
+    # outer f64 residuals and the unrefined f64 solve through dia-torch.
+    solve("cg(step f64, refine)", lambda: linalg.cg(
+        step64, b_step64, rtol=rtol, refine="auto"), step64, b_step64,
+        lambda cg_mv, gm_mv, rc: cg_mv, 1.05 * rtol)
+    solve("cg(step f64)", lambda: linalg.cg(step64, b_step64, rtol=rtol),
+          step64, b_step64, lambda cg_mv, gm_mv, rc: 0, 2 * rtol)
+    # The f32 systems: inner bf16 solves take the widening routes; the
+    # outer f32 residuals the f32 DIA kernel.
+    solve("cg(step f32, refine)", lambda: linalg.cg(
+        step, b_step, rtol=rtol, refine="auto"), step64, b_step,
+        lambda cg_mv, gm_mv, rc: rc, 1.05 * rtol)
+    solve("cg(step f32)", lambda: linalg.cg(step, b_step, rtol=rtol),
+          step64, b_step, lambda cg_mv, gm_mv, rc: cg_mv, 2 * rtol)
+    solve("gmres(convdiff f32, refine)", lambda: linalg.gmres(
+        convdiff, b_cd, rtol=rtol, restart=20, refine="auto"), cd64, b_cd,
+        lambda cg_mv, gm_mv, rc: rc, 1.05 * rtol)
+    solve("gmres(convdiff f32)", lambda: linalg.gmres(
+        convdiff, b_cd, rtol=rtol, restart=20), cd64, b_cd,
+        lambda cg_mv, gm_mv, rc: gm_mv, 2 * rtol)
+    for name in ("cg(step f64, refine)", "cg(step f32, refine)",
+                 "gmres(convdiff f32, refine)"):
+        check(comp_runs[name]["refine_cycles"] >= 1,
+              f"{name}: no refinement cycle")
+        check(comp_runs[name]["host_sync"][
+            name.split("(")[0] + "_refine"] == comp_runs[name][
+                "refine_cycles"], f"{name}: one refine fetch a cycle")
+
+    # C6. The obs core: the counters against the calls C1-C4 made, the
+    # histograms, the trace, OpenMetrics and the memory sample.
+    csnap = obs.counters.snapshot()
+    op_spmv, op_spmm = csnap.get("op.spmv", 0), csnap.get("op.spmm", 0)
+    check(op_spmv == dots["spmv"] + solver_spmvs,
+          f"op.spmv {op_spmv} against {dots['spmv']} direct SpMVs and "
+          f"{solver_spmvs} in the solvers")
+    check(op_spmm == dots["spmm"], f"op.spmm {op_spmm} against "
+          f"{dots['spmm']}")
+    hists = obs_lat.snapshot("lat.")
+    lat_spmv = sum(h.count for k, h in hists.items()
+                   if k.startswith("lat.spmv."))
+    check(lat_spmv == op_spmv, f"lat.spmv.* {lat_spmv} against op.spmv "
+          f"{op_spmv}")
+    recs = obs.records()
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "phase12.trace.json")
+        n_events = obs.write_chrome_trace(path)
+        with open(path) as f:
+            doc = json.load(f)
+    names = {e["name"] for e in doc["traceEvents"]}
+    check(n_events == len(doc["traceEvents"]) == len(recs),
+          f"chrome trace: {n_events} events for {len(recs)} records")
+    check({"spmv", "cg", "cg.refine", "gmres.cycle", "gmres.refine",
+           "kernel.dia_spmv"} <= names, f"chrome trace names {sorted(names)}")
+    check(doc["otherData"]["counters"]["op.spmv"] == op_spmv,
+          "chrome trace counters")
+    om_counters, om_hists = obs.export.parse_openmetrics(
+        obs.snapshot_openmetrics())
+    csnap = obs.counters.snapshot()
+    check(om_counters == csnap, "OpenMetrics counters round trip")
+    check({k: h["count"] for k, h in om_hists.items()}
+          == {k: h.count for k, h in obs_lat.snapshot().items()},
+          "OpenMetrics histogram counts round trip")
+    mem = obs.memory.snapshot()
+    alloc_mb = round(torch.cuda.memory_allocated() / 2**20, 2)
+    peak_mb = round(torch.cuda.max_memory_allocated() / 2**20, 2)
+    check(mem.get("device_mb") == alloc_mb
+          and mem.get("device_peak_mb") == peak_mb,
+          f"memory.snapshot {mem} against {alloc_mb}, {peak_mb} MiB")
+    obs.disable()
+
+    def obs_cost_us(traced: bool, reps: int = 20000) -> float:
+        """Host us that the dot's instrumentation adds a call: the
+        counter handle, the timer and the span, with nothing inside."""
+        obs.enable() if traced else obs.disable()
+        name = "lat.spmv." + obs_lat.shape_bucket(n)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            obs.counters.handle("op.spmv").inc()
+            with obs_lat.timer(name), obs.span("spmv") as sp_:
+                if sp_ is not None:
+                    sp_.set(path="dia-kernel", rows=n)
+        obs.disable()
+        return (time.perf_counter() - t0) / reps * 1e6
+
+    obs_check = {"op_spmv": op_spmv, "direct_spmv": dots["spmv"],
+                 "solver_spmv": solver_spmvs, "op_spmm": op_spmm,
+                 "lat_spmv_count": lat_spmv, "records": len(recs),
+                 "trace_events": n_events,
+                 "openmetrics_counters": len(om_counters),
+                 "openmetrics_histograms": len(om_hists), "memory": mem,
+                 "host_us_per_dot_off": obs_cost_us(False),
+                 "host_us_per_dot_traced": obs_cost_us(True)}
+    obs.reset_all()
+    del step, convdiff, step64, cd64, x_true, b_step, b_cd, b_step64
+    torch.cuda.empty_cache()
+
+    # Timings (tracing off): each bf16 kernel at its phase-12 shape beside
+    # its plain version, its bound and the library's call where PyTorch
+    # has one for bf16 on this card.
+    def library_ms(fn):
+        """(ms, None) of one torch.sparse call, or (None, the reason)
+        where PyTorch offers no such call for bf16 here: a yardstick the
+        port never calls, so its absence fails nothing."""
+        try:
+            fn()
+            sync()
+        except (RuntimeError, NotImplementedError) as e:
+            return None, str(e).splitlines()[0][:200]
+        return time_ms(fn), None
+
+    bf16_rows = []
+
+    def bf16_row(name, source, replaces, kernel_fn, plain_fn, lib_fn,
+                 nbytes, nops, shape, plain_reps=REPS):
+        lib, lib_err = library_ms(lib_fn)
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "dtype": "bfloat16",
+               "launches": bf16_launches[name],
+               "max_abs_err": max(h["max_abs_err"]
+                                  for h in comp_vs_plain.values()
+                                  if h["kernel"] == name),
+               "ms": time_ms(kernel_fn),
+               "plain_ms": time_ms(plain_fn, reps=plain_reps),
+               **bound(nbytes, nops), "library_ms": lib,
+               "shape": {**shape, "bytes": nbytes}}
+        if lib_err:
+            row["library_error"] = lib_err
+        bf16_rows.append(row)
+        log({"phase": "timing_bf16", **row, "nvidia_smi": smi_line})
+
+    nd = len(pkb.offsets)
+    A_lib_b = torch.sparse_csr_tensor(A.indptr, A.indices.to(torch.int64),
+                                      Ab.data, size=A.shape,
+                                      check_invariants=False)
+    nb_spmv = nd * n * 2 + 2 * n + 2 * n
+    check(nb_spmv == Ab.spmv_traffic_bytes(xb, path="dia-kernel")
+          == 234_881_024, f"bf16 dia_spmv bytes {nb_spmv}")
+    bf16_row("dia_spmv", "legate_sparse_tpu_torch/csrc/dia_spmv.cu",
+             "legate_sparse_tpu/ops/pallas_dia.py:312",
+             lambda: dia_kernel.dia_spmv(pkb, xb),
+             lambda: dia_kernel.dia_spmv_plain(pkb.rdata, None, xb,
+                                               pkb.offsets, pkb.shape),
+             lambda: A_lib_b @ xb, nb_spmv, 2 * nd * n,
+             {"rows": n, "diags": nd, "masked": False,
+              "variant": ("16-byte" if dia_kernel.spmv_vector_ok(pkb)
+                          else "scalar")})
+    nb_spmm = nd * n * 2 + 2 * 2 * n * kB
+    bf16_row("dia_spmm", "legate_sparse_tpu_torch/csrc/dia_spmm.cu",
+             "legate_sparse_tpu/ops/pallas_dia.py:417",
+             lambda: dia_kernel.dia_spmm(pkb, Xb),
+             lambda: dia_kernel.dia_spmm_plain(pkb.rdata, None, Xb,
+                                               pkb.offsets, pkb.shape),
+             lambda: A_lib_b @ Xb, nb_spmm, 2 * nd * n * kB,
+             {"rows": n, "diags": nd, "k": kB, "masked": False,
+              "variant": ("16-byte" if dia_kernel.spmm_vector_ok(pkb, Xb)
+                          else "scalar")})
+    widening = {
+        "Ab @ x (dia-torch)": {"ms": time_ms(lambda: Ab @ x),
+                               "bytes": Ab.spmv_traffic_bytes(
+                                   x, path="dia-torch")},
+        "Ab @ X (dia-torch, k=16)": {"ms": time_ms(lambda: Ab @ X, reps=5),
+                                     "bytes": Ab.spmv_traffic_bytes(
+                                         X, path="dia-torch")},
+        "Rb @ x (" + want_path + ")": {
+            "ms": time_ms(lambda: Rb @ xr),
+            "bytes": Rb.spmv_traffic_bytes(xr, path=want_path)},
+    }
+    for w in widening.values():
+        w.update(bound(w["bytes"], 0))
+    check(widening["Ab @ x (dia-torch)"]["bytes"] == 301_989_888,
+          "the widening DIA route's bytes")
+    del A_lib_b, Xb, X
+    torch.cuda.empty_cache()
+    R_lib_b = torch.sparse_csr_tensor(Rb.indptr, Rb.indices.to(torch.int64),
+                                      Rb.data, size=Rb.shape,
+                                      check_invariants=False)
+    csr_b = (Rb.nnz * (2 + Rb.indices.element_size())
+             + Rb.indptr.numel() * 8 + stb.nblocks * 4 + (stb.nbr + 1) * 8)
+    bf16_row("bsr_spmv", "legate_sparse_tpu_torch/csrc/bsr_spmv.cu",
+             "legate_sparse_tpu/ops/bsr.py:143",
+             lambda: bsr_ops.bsr_spmv(stb, xrb2d),
+             lambda: bsr_ops.bsr_spmv_plain(stb, xrb2d),
+             lambda: R_lib_b @ xrb, csr_b + 2 * irr_rows + 4 * irr_rows,
+             2 * Rb.nnz, {"rows": irr_rows, "blocks": stb.nblocks,
+                          "nnz": Rb.nnz}, plain_reps=5)
+    bf16_row("bsr_spmm", "legate_sparse_tpu_torch/csrc/bsr_spmm.cu",
+             "legate_sparse_tpu/ops/bsr.py:198",
+             lambda: bsr_ops.bsr_spmm(stb, Xrb),
+             lambda: bsr_ops.bsr_spmm_plain(stb, Xrb),
+             lambda: R_lib_b @ Xrb,
+             csr_b + 2 * irr_rows * kB + 4 * irr_rows * kB,
+             2 * Rb.nnz * kB, {"rows": irr_rows, "blocks": stb.nblocks,
+                               "k": kB, "nnz": Rb.nnz}, plain_reps=5)
+    del R_lib_b, A, Ab, pkb, xb, x, y, y32, yb, R, Rb, Rr, stb, xrb, xrb2d
+    del Xrb, xr, yr, yr32, yrb, R16, st16, x16, X16, d, i, p
+    torch.cuda.empty_cache()
+
+    # C5. The sliced ELL on the R-MAT graph of phase 9 (f64), and its
+    # f32-accumulation variant on the graph's bf16 copy, against
+    # csr-rowids on the same inputs.
+    G = sparse.rmat(rmat_scale, nnz_per_row=8, rng=0)
+    g_rows = G.shape[0]
+    check(G._get_ell() is None, "flat ELL must be over budget on R-MAT")
+    t0 = time.perf_counter()
+    bins = G._get_sliced_ell()
+    sync()
+    pack_s = time.perf_counter() - t0
+    xg = randx(g_rows).double()
+    g_rid = G._get_row_ids()
+    ys = spmv_ops.sliced_ell_spmv(bins, xg, g_rows)
+    yg = spmv_ops.csr_spmv_rowids(G.data, G.indices, g_rid, xg, g_rows)
+    sliced_err = close(ys, yg, 1e-12, "sliced ELL vs csr-rowids (f64)")
+    Gb = G.compress()
+    bins_b = Gb._get_sliced_ell()
+    xg32 = xg.float()
+    ysb = spmv_ops.sliced_ell_spmv_f32acc(bins_b, xg32, g_rows)
+    ygb = spmv_ops.csr_spmv_rowids_f32acc(Gb.data, Gb.indices, g_rid, xg32,
+                                          g_rows)
+    sliced_b_err = close(ysb, ygb, 1e-5,
+                         "sliced ELL f32acc vs csr-rowids f32acc (bf16)")
+    sliced = {
+        "nodes": g_rows, "nnz": G.nnz, "bins": [int(b[0].shape[1])
+                                                for b in bins],
+        "bin_rows": [int(b[0].shape[0]) for b in bins], "pack_s": pack_s,
+        "padded_slots": sum(b[0].numel() for b in bins),
+        "f64": {"ms": time_ms(lambda: spmv_ops.sliced_ell_spmv(
+                    bins, xg, g_rows), reps=5),
+                "csr_rowids_ms": time_ms(lambda: spmv_ops.csr_spmv_rowids(
+                    G.data, G.indices, g_rid, xg, g_rows), reps=5),
+                "bytes": G.spmv_traffic_bytes(xg, path="sliced-ell"),
+                "max_abs_err": sliced_err},
+        "bf16_f32acc": {
+            "ms": time_ms(lambda: spmv_ops.sliced_ell_spmv_f32acc(
+                bins_b, xg32, g_rows), reps=5),
+            "csr_rowids_ms": time_ms(
+                lambda: spmv_ops.csr_spmv_rowids_f32acc(
+                    Gb.data, Gb.indices, g_rid, xg32, g_rows), reps=5),
+            "bytes": Gb.spmv_traffic_bytes(xg32, path="sliced-ell"),
+            "max_abs_err": sliced_b_err}}
+    for part in (sliced["f64"], sliced["bf16_f32acc"]):
+        part.update(bound(part["bytes"], 0))
+    del G, Gb, bins, bins_b, xg, xg32, ys, yg, ysb, ygb, g_rid
+    torch.cuda.empty_cache()
+
+    comp_seconds = time.perf_counter() - comp_t0
+    check(all(bf16_launches[k] > 0 for k in ("dia_spmv", "dia_spmm",
+                                             "bsr_spmv", "bsr_spmm")),
+          f"phase 12 bf16 launches {bf16_launches}")
+    log({"phase": "main_path_compressed", "nvidia_smi": smi_line,
+         "runs": comp_runs, "launches": phase12,
+         "bf16_launches": bf16_launches, "kernel_vs_plain": comp_vs_plain,
+         "widening_timing": widening, "sliced_ell": sliced,
+         "obs": obs_check, "seconds": comp_seconds})
+
     for row in (dia_row, bsr_row, dia_spmm_row, bsr_spmm_row,
                 dia_spgemm_row):
-        row["launches"] += phase10[row["name"]] + phase11[row["name"]]
+        row["launches"] += (phase10[row["name"]] + phase11[row["name"]]
+                            + phase12[row["name"]])
         row["max_abs_err"] = max([row["max_abs_err"]] + [
             h["max_abs_err"] for h in (list(kernel_vs_plain.values())
-                                       + list(spec_vs_plain.values()))
+                                       + list(spec_vs_plain.values())
+                                       + list(comp_vs_plain.values()))
             if h["kernel"] == row["name"]])
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -103,17 +103,23 @@ def scipy_fallback(func, name: str):
     """``func`` (a scipy function) adapted to this package: sparse
     arrays and tensors convert to scipy and numpy on the way in, and
     results convert back on the way out (``_from_scipy``).  A
-    documented escape to the host: the operands cross it both ways."""
+    documented escape to the host: the operands cross it both ways.
+    Each call counts ``scipy_fallback.<name>`` and, while tracing is
+    on, records a ``scipy_fallback`` span (reference
+    ``coverage.py:94-99``)."""
     scope = f"legate_sparse_tpu_torch.{name}"
 
     @functools.wraps(func)
     def wrapper(*args: Any, **kwargs: Any) -> Any:
+        from . import obs as _obs
         from .runtime import resolve_device
 
+        _obs.inc("scipy_fallback." + name)
         device = _input_device(list(args) + list(kwargs.values()))
         args = tuple(_to_scipy(a) for a in args)
         kwargs = {k: _to_scipy(v) for k, v in kwargs.items()}
-        with torch.profiler.record_function(scope):
+        with torch.profiler.record_function(scope), \
+                _obs.span("scipy_fallback", func=name):
             result = func(*args, **kwargs)
         return _from_scipy(result, device if device is not None
                            else resolve_device(None))

@@ -25,6 +25,9 @@ label                     SpMV (``spmv_path``) and SpMM (``spmm_path``)
                           (or anywhere under ``bsr_force``); SpMM k <= 512
 ``"ell"``                 padded rows within ``ell_max_expand``
 ``"csr-rowids"``          gather + segment sum, cached row ids
+``"ell-bf16"``,           compressed storage against an operand of
+``"csr-rowids-bf16"``     another dtype: f32 products and sums (SpMV;
+                          SpMM ``"csr-rowids-bf16"`` only)
 ``"csr"``                 the operand's dtype promoted the matrix
 ========================  ==============================================
 
@@ -32,8 +35,13 @@ A sparse operand (``csr_array``, ``dia_array``, scipy) takes SpGEMM,
 ``spgemm_csr_csr_csr``, labelled in ``spgemm_path``: ``"dia-kernel"``
 (both operands exact bands, f32/bf16: ``csrc/dia_spgemm.cu``),
 ``"dia-torch"`` (exact bands, other dtypes) or ``"esc"``
-(``ops/spgemm.py``).  The JAX package's engine/autotune/resilience
-routes and low-precision widening are not part of the port yet.
+(``ops/spgemm.py``).  Compressed storage (``compress``: bf16 values,
+int16 indices) against an operand of another dtype takes the JAX
+package's widening routes: ``"dia-torch"`` (f32 products),
+``"ell-bf16"`` and ``"csr-rowids-bf16"`` (f32 accumulation); BSR and
+the DIA kernels stand down there.  The JAX package's
+engine/autotune/resilience routes are not part of the port yet.
+Every product counts ``op.*`` and times ``lat.*`` (``obs``).
 
 In-place mutators (``sum_duplicates``, ``eliminate_zeros``,
 ``sort_indices``, ``setdiag``, ``resize``, the ``data`` setter) rebind
@@ -58,6 +66,9 @@ from .ops import dia_kernel as _dia_kernel
 from .ops import dia_ops as _dia_ops
 from .ops import spgemm as _spgemm_ops
 from .ops import spmv as _spmv_ops
+from .obs import counters as _obs_counters
+from .obs import latency as _lat
+from .obs import trace as _trace
 from .runtime import default_float
 from .settings import settings
 from .types import (SparseEfficiencyWarning, check_nnz, coord_dtype_for,
@@ -66,6 +77,14 @@ from .utils import (as_tensor, cast_to_common_type, device_of, fill_out,
                     find_common_type, is_sparse_matrix,
                     require_supported_dtype, result_type, to_host, to_inexact,
                     to_numpy, true_divide_type)
+
+
+def _row_dtype(index_dtype: torch.dtype) -> torch.dtype:
+    """Dtype for row ids beside column indices of ``index_dtype``: the
+    same, but at least int32, since compressed storage's int16 column
+    indices say nothing of the row count (the JAX package casts row ids
+    to int16 too, and wraps them past 32,767 rows)."""
+    return torch.promote_types(index_dtype, torch.int32)
 
 
 def _is_scipy_sparse(obj) -> bool:
@@ -150,6 +169,13 @@ class csr_array(CompressedBase):
             if shape is None:
                 shape = (int(row_in.max()) + 1, int(col_in.max()) + 1)
             shape = tuple(int(s) for s in shape)
+            # The JAX package's pow2-bucketed COO-build counter
+            # (``csr.py:158``): repeated same-bucket rebuilds show a
+            # workload paying for full CSR reconstruction.
+            _obs_counters.inc(
+                "build.csr.coo."
+                f"{1 << max(shape[0] - 1, 0).bit_length()}x"
+                f"{1 << max(shape[1] - 1, 0).bit_length()}")
             cdt = coord_dtype_for(max(shape))
             data, indices, indptr = _convert.coo_to_csr(
                 row_in.to(cdt), col_in.to(cdt), data_in, shape[0])
@@ -200,6 +226,7 @@ class csr_array(CompressedBase):
         self._dia_offsets = None
         self._dia_pack = None
         self._bsr = None
+        self._sliced_ell = None
         # Labels of the paths the last SpMV, SpMM and SpGEMM (with this
         # matrix on the left) took.
         self.spmv_path: Optional[str] = None
@@ -313,15 +340,75 @@ class csr_array(CompressedBase):
         out.sum_duplicates()
         return out
 
+    # ---------------- storage compression ----------------
+    def compress(self, values="bfloat16", indices="auto",
+                 copy: bool = False) -> "csr_array":
+        """Narrow the storage (reference ``csr.py:389-450``): values to
+        ``values`` (default bf16; None keeps them; any supported dtype,
+        so ``astype_storage`` can widen back) and column indices to
+        ``indices``: ``"auto"`` (int16 when the column extent fits it,
+        else kept), None (kept) or a signed integer dtype, which raises
+        when the column extent overflows it.
+
+        ``.dtype`` reports the storage dtype, while ``dot`` keeps f32
+        semantics: compressed values against an operand of another
+        dtype whose result type is f32 take the f32-accumulation paths
+        (``"ell-bf16"``, ``"csr-rowids-bf16"``, the DIA shifted adds
+        with f32 products) without a widened copy of the matrix.  The
+        structure caches that do not depend on the index dtype are
+        shared (``_with_data``); the value packs rebuild lazily.
+
+        Declared IEEE trade, as in the JAX package: bf16 storage drops
+        the DIA hole mask (the band is zero-filled), so a non-finite x
+        entry at a band hole gives NaN where f32 storage masks it."""
+        data = self._data
+        if values is not None:
+            vdt = to_torch_dtype(values)
+            require_supported_dtype(vdt)
+            if vdt != data.dtype:
+                data = data.to(vdt)
+        idx = self._indices
+        if indices is not None:
+            if isinstance(indices, str) and indices == "auto":
+                idt = (torch.int16
+                       if self.shape[1] - 1 <= torch.iinfo(torch.int16).max
+                       else None)
+            else:
+                idt = to_torch_dtype(indices)
+                if idt not in (torch.int8, torch.int16, torch.int32,
+                               torch.int64):
+                    raise ValueError(
+                        f"index storage must be a signed integer dtype, "
+                        f"got {idt}")
+                if self.shape[1] - 1 > torch.iinfo(idt).max:
+                    raise ValueError(
+                        f"column extent {self.shape[1]} overflows index "
+                        f"dtype {idt}")
+            if idt is not None and idt != idx.dtype:
+                idx = idx.to(idt)
+            elif copy:
+                idx = idx.clone()
+        out = self._with_data(data, copy=copy and data is self._data)
+        out._indices = idx
+        return out
+
+    def astype_storage(self, values=None, indices=None,
+                       copy: bool = False) -> "csr_array":
+        """``compress`` with keep-by-default arguments: changes how the
+        bytes are stored, where ``astype`` changes the logical dtype."""
+        return self.compress(values=values, indices=indices, copy=copy)
+
     def _invalidate_caches(self, structure_changed: bool) -> None:
         """Drop the caches an in-place mutation made stale (reference
         ``csr.py:1654-1671``).  With ``structure_changed`` False only the
         value-derived ones go (the band and its kernel pack, the ELL
-        pack, the BSR structure, which refers to the old tensors)."""
+        and sliced-ELL packs, the BSR structure, which refers to the old
+        tensors)."""
         self._ell = None
         self._dia = None
         self._dia_pack = None
         self._bsr = None
+        self._sliced_ell = None
         if structure_changed:
             self._row_ids = None
             self._ell_width = None
@@ -350,9 +437,10 @@ class csr_array(CompressedBase):
 
     def _coo_parts(self):
         """(row, col, data) coordinate view (row ids in the indices'
-        dtype); the public ``tocoo`` returns a ``coo_array``."""
-        return (self._get_row_ids().to(self._indices.dtype), self._indices,
-                self._data)
+        dtype, at least int32: ``_row_dtype``); the public ``tocoo``
+        returns a ``coo_array``."""
+        return (self._get_row_ids().to(_row_dtype(self._indices.dtype)),
+                self._indices, self._data)
 
     def tocoo(self, copy: bool = False):
         from .coo import coo_array
@@ -1128,13 +1216,47 @@ class csr_array(CompressedBase):
         self._dia_pack = packed if packed is not None else False
         return packed
 
+    def _get_sliced_ell(self):
+        """Cached row-binned ELL pack (``ops/spmv.py::sliced_ell_pack``),
+        or None for an empty matrix (reference ``csr.py:702-722``).
+        Unlike flat ELL it has no padding budget: power-of-two row bins
+        keep padding under 2x nnz whatever the skew.  ``dot`` does not
+        take it (the JAX package reaches it through its autotuner); its
+        SpMV is ``ops/spmv.py::sliced_ell_spmv`` (``_f32acc`` on
+        compressed storage)."""
+        if self._sliced_ell is not None:
+            return self._sliced_ell if self._sliced_ell is not False else None
+        rows = self.shape[0]
+        if rows == 0 or self.nnz == 0 or rows > torch.iinfo(torch.int32).max:
+            self._sliced_ell = False
+            return None
+        bins = _spmv_ops.sliced_ell_pack(self._data, self._indices,
+                                         self._indptr, rows)
+        self._sliced_ell = bins if bins is not None else False
+        return bins
+
     # ---------------- matmul ----------------
+    def _lowp(self, other_dtype: torch.dtype) -> bool:
+        """The JAX package's widening rule (``csr.py:1349-1358``): bf16
+        or f16 storage against an operand of another dtype whose result
+        type is f32 keeps the compressed operand and takes the
+        f32-accumulation paths, instead of casting the matrix up."""
+        return (self.dtype in (torch.bfloat16, torch.float16)
+                and other_dtype != self.dtype
+                and torch.promote_types(self.dtype, other_dtype)
+                == torch.float32)
+
     def dot(self, other, out=None):
         """``A @ other`` (reference ``csr.py:1321-1579``): SpGEMM for a
         sparse operand (``csr_array``, ``dia_array``, scipy), SpMV for
         x of shape (cols,) or (cols, 1), SpMM for X of shape (cols, k).
         numpy inputs and tensors on another device move to the matrix's
-        device."""
+        device.
+
+        Each SpMV and SpMM counts ``op.spmv``/``op.spmm``, records its
+        host dispatch time in ``lat.spmv.<bucket>``/``lat.spmm.<bucket>``
+        and, while tracing is on, a ``spmv``/``spmm`` span with its path,
+        rows, nnz, bytes (``spmv_traffic_bytes``) and flops."""
         require_supported_dtype(self.dtype)
         if _is_scipy_sparse(other):
             other = csr_array(other, device=self.device)
@@ -1161,86 +1283,182 @@ class csr_array(CompressedBase):
         if x.dim() != 1 or x.shape[0] != self.shape[1]:
             raise ValueError(f"dimension mismatch: {self.shape} @ "
                              f"{tuple(x.shape)}")
-        A, x = cast_to_common_type(self, x)
-        src = self if A is self else None
-        dia = src._get_dia() if src is not None else None
-        bsr = (src._get_bsr() if src is not None and dia is None else None)
-        ell = (src._get_ell()
-               if src is not None and dia is None and bsr is None else None)
         rows = self.shape[0]
-        if dia is not None:
-            packed = src._get_dia_pack()
-            if packed is not None:
-                y = _dia_kernel.dia_spmv(packed, x.contiguous())
-                path = "dia-kernel"
-            else:
-                y = _dia_ops.dia_spmv_nopad(dia[0], dia[2], x, dia[1],
-                                            self.shape)
-                path = "dia-torch"
-        elif bsr is not None:
-            y = bsr.matvec(x)
-            path = "bsr"
-        elif ell is not None:
-            y = _spmv_ops.ell_spmv(ell[0], ell[1], ell[2], x)
-            path = "ell"
-        elif src is not None:
-            y = _spmv_ops.csr_spmv_rowids(A.data, A.indices,
-                                          src._get_row_ids(), x, rows)
-            path = "csr-rowids"
+        _obs_counters.handle("op.spmv").inc()
+        lowp = self._lowp(x.dtype)
+        if lowp:
+            A, src = self, self
         else:
-            y = _spmv_ops.csr_spmv(A.data, A.indices, A.indptr, x, rows)
-            path = "csr"
+            A, x = cast_to_common_type(self, x)
+            src = self if A is self else None
+        with _lat.timer("lat.spmv." + _lat.shape_bucket(rows)), \
+                _trace.span("spmv") as sp:
+            y, path = self._spmv(A, src, x, lowp)
+            if sp is not None:
+                sp.set(path=path, rows=rows, nnz=self.nnz,
+                       bytes=A.spmv_traffic_bytes(x, path=path),
+                       flops=2 * self.nnz)
         self.spmv_path = path
         if squeeze:
             y = y[:, None]
         return fill_out(y, out)
 
+    def _spmv(self, A, src, x, lowp: bool):
+        """``(y, path)`` of ``A @ x`` in the JAX package's order (DIA →
+        BSR → ELL → csr-rowids → csr).  Under ``lowp`` the band takes
+        the plain shifted adds (products promoted to f32), BSR stands
+        down, and ELL and csr-rowids take their f32-accumulation
+        variants."""
+        rows = self.shape[0]
+        dia = src._get_dia() if src is not None else None
+        bsr = (src._get_bsr()
+               if src is not None and not lowp and dia is None else None)
+        ell = (src._get_ell()
+               if src is not None and dia is None and bsr is None else None)
+        if dia is not None:
+            packed = src._get_dia_pack() if not lowp else None
+            if packed is not None:
+                return _dia_kernel.dia_spmv(packed, x.contiguous()), \
+                    "dia-kernel"
+            return _dia_ops.dia_spmv_nopad(dia[0], dia[2], x, dia[1],
+                                           self.shape), "dia-torch"
+        if bsr is not None:
+            return bsr.matvec(x), "bsr"
+        if ell is not None and lowp:
+            return _spmv_ops.ell_spmv_f32acc(ell[0], ell[1], ell[2],
+                                             x), "ell-bf16"
+        if ell is not None:
+            return _spmv_ops.ell_spmv(ell[0], ell[1], ell[2], x), "ell"
+        if src is not None and lowp:
+            return _spmv_ops.csr_spmv_rowids_f32acc(
+                A.data, A.indices, src._get_row_ids(), x,
+                rows), "csr-rowids-bf16"
+        if src is not None:
+            return _spmv_ops.csr_spmv_rowids(
+                A.data, A.indices, src._get_row_ids(), x,
+                rows), "csr-rowids"
+        return _spmv_ops.csr_spmv(A.data, A.indices, A.indptr, x,
+                                  rows), "csr"
+
     def _matmat(self, X: torch.Tensor) -> torch.Tensor:
         """SpMM ``A @ X`` for dense X (cols, k), in the SpMV branch's
-        order DIA → BSR (k <= 512) → ELL → csr-rowids → csr; the label
-        goes to ``spmm_path``."""
+        order DIA → BSR (k <= 512) → ELL → csr-rowids → csr; under the
+        widening rule DIA's plain shifted adds, else
+        ``"csr-rowids-bf16"``.  The label goes to ``spmm_path``."""
         from .ops.bsr import SPMM_MAX_K as _BSR_MAX_K
 
         if X.shape[0] != self.shape[1]:
             raise ValueError(f"dimension mismatch: {self.shape} @ "
                              f"{tuple(X.shape)}")
-        A, X = cast_to_common_type(self, X)
-        src = self if A is self else None
-        k = X.shape[1]
-        dia = src._get_dia() if src is not None else None
-        bsr = (src._get_bsr()
-               if src is not None and dia is None and 0 < k <= _BSR_MAX_K
-               else None)
-        ell = (src._get_ell()
-               if src is not None and dia is None and bsr is None else None)
         rows = self.shape[0]
-        if dia is not None:
-            # The cheap k gate first: no kernel pack for an X the kernel
-            # cannot take.
-            packed = (src._get_dia_pack()
-                      if 0 < k <= _dia_kernel.SPMM_MAX_K else None)
-            if _dia_kernel.spmm_supported(packed, X):
-                Y = _dia_kernel.dia_spmm(packed, X.contiguous())
-                path = "dia-kernel"
-            else:
-                Y = _dia_ops.dia_spmm_masked(dia[0], dia[2], X, dia[1],
-                                             self.shape)
-                path = "dia-torch"
-        elif bsr is not None:
-            Y = bsr.matmat(X)
-            path = "bsr"
-        elif ell is not None:
-            Y = _spmv_ops.ell_spmm(ell[0], ell[1], ell[2], X)
-            path = "ell"
-        elif src is not None:
-            Y = _spmv_ops.csr_spmm_rowids(A.data, A.indices,
-                                          src._get_row_ids(), X, rows)
-            path = "csr-rowids"
+        _obs_counters.handle("op.spmm").inc()
+        lowp = self._lowp(X.dtype)
+        if lowp:
+            A, src = self, self
         else:
-            Y = _spmv_ops.csr_spmm(A.data, A.indices, A.indptr, X, rows)
-            path = "csr"
+            A, X = cast_to_common_type(self, X)
+            src = self if A is self else None
+        k = X.shape[1]
+        with _lat.timer("lat.spmm." + _lat.shape_bucket(rows)), \
+                _trace.span("spmm") as sp:
+            dia = src._get_dia() if src is not None else None
+            bsr = (src._get_bsr()
+                   if src is not None and not lowp and dia is None
+                   and 0 < k <= _BSR_MAX_K else None)
+            ell = (src._get_ell()
+                   if src is not None and not lowp and dia is None
+                   and bsr is None else None)
+            if dia is not None:
+                # The cheap k gate first: no kernel pack for an X the
+                # kernel cannot take.
+                packed = (src._get_dia_pack()
+                          if 0 < k <= _dia_kernel.SPMM_MAX_K and not lowp
+                          else None)
+                if _dia_kernel.spmm_supported(packed, X):
+                    Y = _dia_kernel.dia_spmm(packed, X.contiguous())
+                    path = "dia-kernel"
+                else:
+                    Y = _dia_ops.dia_spmm_masked(dia[0], dia[2], X, dia[1],
+                                                 self.shape)
+                    path = "dia-torch"
+            elif bsr is not None:
+                Y = bsr.matmat(X)
+                path = "bsr"
+            elif ell is not None:
+                Y = _spmv_ops.ell_spmm(ell[0], ell[1], ell[2], X)
+                path = "ell"
+            elif src is not None and lowp:
+                Y = _spmv_ops.csr_spmm_rowids_f32acc(
+                    A.data, A.indices, src._get_row_ids(), X, rows)
+                path = "csr-rowids-bf16"
+            elif src is not None:
+                Y = _spmv_ops.csr_spmm_rowids(A.data, A.indices,
+                                              src._get_row_ids(), X, rows)
+                path = "csr-rowids"
+            else:
+                Y = _spmv_ops.csr_spmm(A.data, A.indices, A.indptr, X, rows)
+                path = "csr"
+            if sp is not None:
+                sp.set(path=path, rows=rows, k=int(k), nnz=self.nnz,
+                       flops=2 * self.nnz * int(k),
+                       bytes=A.spmv_traffic_bytes(X, path=path))
         self.spmm_path = path
         return Y
+
+    def spmv_traffic_bytes(self, x, path: Optional[str] = None) -> int:
+        """Bytes one ``A @ x`` (or ``A @ X``) must move through the path
+        ``path`` (a dispatch label; None: the path the built structure
+        caches say the dispatch would take), each input read once and
+        each output written once (reference ``csr.py:1582-1652``).  It
+        reads the caches only, so call it after the product; without
+        them it prices the CSR gather.
+
+        The models follow the JAX package's, with two port-specific
+        ones: ``"dia-kernel"`` reads the band and its int8 hole mask as
+        ``"dia-torch"`` does, and ``"bsr"`` prices what the port's BSR
+        kernels read, the stored nonzeros and the block list
+        (``bcol``, ``bptr``), where the JAX package prices its
+        densified blocks.  The ``-bf16`` variants stream what their
+        families do, at the storage's itemsizes."""
+        n = self.shape[0]
+        if path is not None and path.endswith("-bf16"):
+            path = path[: -len("-bf16")]
+        x_bytes = x.numel() * x.element_size()
+        out_bytes = n * torch.promote_types(self.dtype,
+                                            x.dtype).itemsize
+        if x.dim() == 2:
+            out_bytes *= int(x.shape[1])
+        val_b = self._data.element_size()
+        idx_b = self._indices.element_size()
+        dia = self._dia if self._dia is not False else None
+        if path is not None and not path.startswith("dia"):
+            dia = None
+        if path == "bsr" and self._bsr not in (None, False):
+            st = self._bsr
+            return int(self.nnz * (val_b + idx_b)
+                       + sum(t.numel() * t.element_size()
+                             for t in (self._indptr, st.bcol, st.bptr))
+                       + x_bytes + out_bytes)
+        if dia is not None:
+            dia_data, _offsets, mask = dia
+            mask_bytes = mask.numel() if mask is not None else 0
+            return int(dia_data.numel() * dia_data.element_size()
+                       + mask_bytes + x_bytes + out_bytes)
+        if path == "sliced-ell" and self._sliced_ell not in (None, False):
+            total = x_bytes + out_bytes
+            for part in self._sliced_ell:
+                total += sum(t.numel() * t.element_size() for t in part)
+            return int(total)
+        ell = self._ell if self._ell is not False else None
+        if path is not None and path != "ell":
+            ell = None
+        if ell is not None:
+            return int(sum(t.numel() * t.element_size() for t in ell)
+                       + x_bytes + out_bytes)
+        rid_bytes = (self._row_ids.numel() * self._row_ids.element_size()
+                     if self._row_ids is not None else self.nnz * 4)
+        return int(self.nnz * (val_b + idx_b) + rid_bytes + x_bytes
+                   + out_bytes)
 
     def __rmatmul__(self, other):
         raise NotImplementedError("dense @ csr is not yet supported")
@@ -1345,10 +1563,23 @@ def spgemm_csr_csr_csr(A: csr_array, B: csr_array) -> csr_array:
     the Minkowski-sum band: the banded kernel for f32/bf16
     (``"dia-kernel"``), the kernel's plain version otherwise
     (``"dia-torch"``), then ``band_to_csr``, with C's DIA cache warm.
-    Everything else runs expand-sort-compress (``"esc"``)."""
+    Everything else runs expand-sort-compress (``"esc"``).  Counts
+    ``op.spgemm``, times ``lat.spgemm.<bucket>`` and, while tracing is
+    on, records a ``spgemm`` span (path, output nnz, bytes, flops)."""
     if A.shape[1] != B.shape[0]:
         raise ValueError(f"dimension mismatch in spgemm: {A.shape} @ "
                          f"{B.shape}")
+    m, k = A.shape
+    n = B.shape[1]
+    _obs_counters.handle("op.spgemm").inc()
+    with _lat.timer("lat.spgemm." + _lat.shape_bucket(m)), \
+            _trace.span("spgemm", m=m, k=k, n=n, nnz_a=A.nnz,
+                        nnz_b=B.nnz) as sp:
+        C = _spgemm(A, B, sp)
+    return C
+
+
+def _spgemm(A: csr_array, B: csr_array, sp) -> csr_array:
     m, k = A.shape
     n = B.shape[1]
     dia_a = A._get_dia()
@@ -1381,8 +1612,18 @@ def spgemm_csr_csr_csr(A: csr_array, B: csr_array) -> csr_array:
             C._dia_offsets = offs_c
             C._dia = (Cd, offs_c, None)
             A.spgemm_path = path
+            if sp is not None:
+                sp.set(path=path, nnz=nnz_c,
+                       bytes=(dia_a[0].numel() + dia_b[0].numel()
+                              + Cd.numel()) * Cd.element_size(),
+                       flops=2 * len(dia_a[1]) * len(dia_b[1]) * n)
             return C
-    data, indices, indptr, _ = _spgemm_ops.spgemm_csr_csr_csr_impl(
+    data, indices, indptr, chunks = _spgemm_ops.spgemm_csr_csr_csr_impl(
         A.data, A.indices, A.indptr, B.data, B.indices, B.indptr, m, k, n)
     A.spgemm_path = "esc"
-    return csr_array._from_parts(data, indices, indptr, (m, n))
+    C = csr_array._from_parts(data, indices, indptr, (m, n))
+    if sp is not None:
+        sp.set(path="esc", nnz=C.nnz, chunks=chunks,
+               bytes=(A.nnz + B.nnz + C.nnz)
+               * (C.data.element_size() + C.indices.element_size()))
+    return C

@@ -40,7 +40,8 @@
 // by one lane and summed in a fixed order (blocks in bcol order, columns
 // ascending): deterministic, no atomics.  Y is written in f32; the
 // wrapper casts it to the matrix dtype.  Templated on the value type
-// (f32, bf16) and the column index type (int32, int64).
+// (f32, bf16) and the column index type (int16 for compressed storage,
+// int32, int64).
 //
 // Known limits: little else is in flight while a CTA waits for a group of
 // X chunks (ptxas gives some instances about 123 registers, so two CTAs
@@ -228,25 +229,37 @@ static int bsr_spmm_launch(const void* data, const void* indices,
   return (int)cudaGetLastError();
 }
 
-// bf16: values and X are bf16 (else f32); idx64: indices are int64 (else
-// int32).  Returns the cudaError of the launch.
-extern "C" int bsr_spmm(int bf16, int idx64, const void* data,
+template <typename T>
+static int bsr_spmm_index(int idx_bytes, const void* data, const void* indices,
+                          const void* indptr, const void* bcol,
+                          const void* bptr, const void* X, void* Y,
+                          int64_t rows, int64_t nbr, int64_t k, void* stream) {
+  switch (idx_bytes) {
+    case 2:
+      return bsr_spmm_launch<T, int16_t>(data, indices, indptr, bcol, bptr, X,
+                                         Y, rows, nbr, k, stream);
+    case 4:
+      return bsr_spmm_launch<T, int32_t>(data, indices, indptr, bcol, bptr, X,
+                                         Y, rows, nbr, k, stream);
+    case 8:
+      return bsr_spmm_launch<T, int64_t>(data, indices, indptr, bcol, bptr, X,
+                                         Y, rows, nbr, k, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// bf16: values and X are bf16 (else f32); idx_bytes: the column index
+// width, 2 (int16, compressed storage), 4 (int32) or 8 (int64).  Returns
+// the cudaError of the launch.
+extern "C" int bsr_spmm(int bf16, int idx_bytes, const void* data,
                         const void* indices, const void* indptr,
                         const void* bcol, const void* bptr, const void* X,
                         void* Y, int64_t rows, int64_t nbr, int64_t k,
                         void* stream) {
-  if (bf16) {
-    return idx64 ? bsr_spmm_launch<__nv_bfloat16, int64_t>(
-                       data, indices, indptr, bcol, bptr, X, Y, rows, nbr, k,
-                       stream)
-                 : bsr_spmm_launch<__nv_bfloat16, int32_t>(
-                       data, indices, indptr, bcol, bptr, X, Y, rows, nbr, k,
-                       stream);
-  }
-  return idx64 ? bsr_spmm_launch<float, int64_t>(data, indices, indptr, bcol,
-                                                 bptr, X, Y, rows, nbr, k,
-                                                 stream)
-               : bsr_spmm_launch<float, int32_t>(data, indices, indptr, bcol,
-                                                 bptr, X, Y, rows, nbr, k,
-                                                 stream);
+  return bf16 ? bsr_spmm_index<__nv_bfloat16>(idx_bytes, data, indices,
+                                              indptr, bcol, bptr, X, Y, rows,
+                                              nbr, k, stream)
+              : bsr_spmm_index<float>(idx_bytes, data, indices, indptr, bcol,
+                                      bptr, X, Y, rows, nbr, k, stream);
 }

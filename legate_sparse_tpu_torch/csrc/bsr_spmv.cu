@@ -43,7 +43,7 @@
 // One thread per output row and a fixed order: deterministic, no atomics.
 // y is written in f32; the wrapper casts it to the matrix dtype.
 // Templated on the value type (f32, bf16) and the column index type
-// (int32, int64).
+// (int16 for compressed storage, int32, int64).
 //
 // Known limits: a block-row with one much longer row holds its CTA until
 // that thread is done (splitting long rows across a warp is later work);
@@ -120,7 +120,13 @@ __global__ void __launch_bounds__(BSR_B)
   // Stage entries [t0, t0 + n) of the block-row in the tile.
   auto load_tile = [&](int64_t t0, int n) {
     for (int j = r; j < n; j += BSR_B) {
-      __pipeline_memcpy_async(&sidx[BSR_SKEW(j)], &indices[t0 + j], sizeof(I));
+      // cp.async copies 4, 8 or 16 bytes: a 2-byte index (int16) or
+      // value (bf16) is loaded and stored by the thread.
+      if constexpr (sizeof(I) >= 4)
+        __pipeline_memcpy_async(&sidx[BSR_SKEW(j)], &indices[t0 + j],
+                                sizeof(I));
+      else
+        sidx[BSR_SKEW(j)] = indices[t0 + j];
       if (sizeof(T) == 4)
         __pipeline_memcpy_async(&sval[BSR_SKEW(j)], &data[t0 + j], 4);
       else
@@ -226,22 +232,36 @@ static int bsr_spmv_launch(const void* data, const void* indices,
   return (int)cudaGetLastError();
 }
 
-// bf16: values and x are bf16 (else f32); idx64: indices are int64 (else
-// int32).  Returns the cudaError of the launch.
-extern "C" int bsr_spmv(int bf16, int idx64, const void* data,
+template <typename T>
+static int bsr_spmv_index(int idx_bytes, const void* data, const void* indices,
+                          const void* indptr, const void* bcol,
+                          const void* bptr, const void* x, void* y,
+                          int64_t rows, int64_t nbr, void* stream) {
+  switch (idx_bytes) {
+    case 2:
+      return bsr_spmv_launch<T, int16_t>(data, indices, indptr, bcol, bptr, x,
+                                         y, rows, nbr, stream);
+    case 4:
+      return bsr_spmv_launch<T, int32_t>(data, indices, indptr, bcol, bptr, x,
+                                         y, rows, nbr, stream);
+    case 8:
+      return bsr_spmv_launch<T, int64_t>(data, indices, indptr, bcol, bptr, x,
+                                         y, rows, nbr, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// bf16: values and x are bf16 (else f32); idx_bytes: the column index
+// width, 2 (int16, compressed storage), 4 (int32) or 8 (int64).  Returns
+// the cudaError of the launch.
+extern "C" int bsr_spmv(int bf16, int idx_bytes, const void* data,
                         const void* indices, const void* indptr,
                         const void* bcol, const void* bptr, const void* x,
                         void* y, int64_t rows, int64_t nbr, void* stream) {
-  if (bf16) {
-    return idx64 ? bsr_spmv_launch<__nv_bfloat16, int64_t>(
-                       data, indices, indptr, bcol, bptr, x, y, rows, nbr,
-                       stream)
-                 : bsr_spmv_launch<__nv_bfloat16, int32_t>(
-                       data, indices, indptr, bcol, bptr, x, y, rows, nbr,
-                       stream);
-  }
-  return idx64 ? bsr_spmv_launch<float, int64_t>(data, indices, indptr, bcol,
-                                                 bptr, x, y, rows, nbr, stream)
-               : bsr_spmv_launch<float, int32_t>(data, indices, indptr, bcol,
-                                                 bptr, x, y, rows, nbr, stream);
+  return bf16 ? bsr_spmv_index<__nv_bfloat16>(idx_bytes, data, indices,
+                                              indptr, bcol, bptr, x, y, rows,
+                                              nbr, stream)
+              : bsr_spmv_index<float>(idx_bytes, data, indices, indptr, bcol,
+                                      bptr, x, y, rows, nbr, stream);
 }

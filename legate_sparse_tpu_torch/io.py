@@ -133,8 +133,9 @@ def save_npz(file, matrix, compressed: bool = True) -> None:
 def load_npz(file, device=None) -> csr_array:
     """A scipy ``save_npz`` container as a ``csr_array`` on ``device``
     (default: the default device).  A CSR container is read directly
-    (bf16 values from their raw patterns, bit for bit); other formats
-    are decoded by scipy and converted."""
+    (bf16 values from their raw patterns, bit for bit; indices narrower
+    than the coordinate dtype, as compressed storage saves them, keep
+    their width); other formats are decoded by scipy and converted."""
     dev = resolve_device(device)
     with np.load(file) as f:
         fmt = f["format"].item()
@@ -148,9 +149,18 @@ def load_npz(file, device=None) -> csr_array:
                     raise ValueError(f"unknown data_dtype {marker!r}")
                 data = torch.from_numpy(
                     data.view(np.int16).copy()).view(torch.bfloat16)
-            return csr_array((data, f["indices"], f["indptr"]),
-                             shape=tuple(int(s) for s in f["shape"]),
-                             device=dev)
+            out = csr_array((data, f["indices"], f["indptr"]),
+                            shape=tuple(int(s) for s in f["shape"]),
+                            device=dev)
+            idx_dt = f["indices"].dtype
+            if (idx_dt.kind == "i"
+                    and idx_dt.itemsize < out.indices.element_size()):
+                # The triple constructor widens indices to the coordinate
+                # dtype; restore the container's compressed width
+                # (``csr_array.compress``), so storage round-trips
+                # exactly (reference ``io.py:189-195``).
+                out = out.astype_storage(indices=idx_dt)
+            return out
     if hasattr(file, "seek"):
         file.seek(0)
     import scipy.sparse as _ss

@@ -25,11 +25,22 @@ A GMRES restart cycle makes no host sync at all: the Givens scalars,
 the rotations and the back-substitution stay on the device, and the
 outer loop fetches ``[beta, resid]`` once a cycle (``_host_fetch``).
 
-Not ported yet: ``refine=`` on ``cg``/``gmres`` (it needs
-``csr_array.compress``, ROADMAP queue 1 item 6) raises rather than
-reaching host scipy through the fallback.  The JAX package's engine
-routing, resilience hooks, spans and latency timers wait for queue 1
-items 7 and 10.
+``refine=`` on ``cg``/``gmres`` is mixed-precision iterative
+refinement (``_refined_solve``): inner solves over the matrix's
+compressed storage one precision rung down (``csr_array.compress``),
+full-precision residual corrections between them, one host fetch a
+cycle.
+
+Observability, under the JAX package's names (``obs``): ``op.cg``,
+``op.gmres`` and ``op.bicgstab`` per call; ``lat.cg.solve.<bucket>``,
+``lat.gmres.cycle.<bucket>`` and ``lat.bicgstab.solve.<bucket>``
+histograms of host time; spans ``cg``, ``gmres.cycle``, ``bicgstab``
+and ``<solver>.refine`` while tracing is on; and
+``transfer.host_sync.{cg_conv,gmres_conv,<solver>_refine}`` at each
+fetch.  The JAX package's one-shot CG loop never fetches, so it counts
+no ``cg_conv`` (its chunked resilience loop does); the port's CG
+fetches at every convergence test and counts each.  The JAX package's
+engine routing and resilience hooks wait for queue 1 item 10.
 """
 
 from __future__ import annotations
@@ -42,6 +53,9 @@ import numpy as np
 import torch
 
 from .csr import csr_array
+from .obs import counters as _obs_counters
+from .obs import latency as _lat
+from .obs import trace as _trace
 from .runtime import resolve_device
 from .utils import (as_tensor, fill_out, find_common_type,
                     is_sparse_matrix, to_numpy)
@@ -310,12 +324,87 @@ def _x0(x0, b: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
     return as_tensor(x0, b.device, dtype=b.dtype).reshape(-1).clone()
 
 
-def _no_refine(solver: str, refine) -> None:
-    if refine is not None:
-        raise NotImplementedError(
-            f"{solver}: refine= is not ported yet: its inner solves run "
-            "over csr_array.compress storage (ROADMAP queue 1 item 6); "
-            "solve without refine=")
+# ---------------- mixed-precision iterative refinement ----------------
+
+_REFINE_AUTO_CYCLES = 12   # "auto": the outer correction cycle budget
+_REFINE_INNER_RTOL = 1e-2  # an inner solve's residual reduction target
+
+
+def _refine_inner_operator(A) -> csr_array:
+    """The inner operator of ``refine=`` (reference ``linalg.py:336-360``):
+    the matrix one precision rung down, f64 values to f32 and f32 values
+    to bf16, with int16 column indices where the width fits
+    (``csr_array.compress``).  Raises for an operand refinement cannot
+    serve: a dense or callable operator, or storage that is already
+    low-precision."""
+    if is_sparse_matrix(A) and not isinstance(A, csr_array):
+        A = A.tocsr()
+    if not isinstance(A, csr_array):
+        raise ValueError(
+            "refine= needs a sparse-matrix operand (the inner solve runs "
+            f"over compressed csr_array storage); got {type(A).__name__}")
+    if A.dtype == torch.float64:
+        return A.compress(values="float32")
+    if A.dtype == torch.float32:
+        return A.compress()
+    raise ValueError(
+        f"refine= serves float32/float64 systems (got {A.dtype}: storage "
+        "is already low-precision — solve it directly)")
+
+
+def _refine_cycles(refine) -> int:
+    if refine == "auto":
+        return _REFINE_AUTO_CYCLES
+    cycles = int(refine)
+    if cycles <= 0:
+        raise ValueError(f"refine= must be 'auto' or a positive cycle "
+                         f"count, got {refine!r}")
+    return cycles
+
+
+def _refined_solve(solver: str, inner_solve: Callable, A_op, A_in,
+                   b: torch.Tensor, x: torch.Tensor, atol: float,
+                   maxiter: int, cycles: int):
+    """The iterative-refinement loop behind ``cg``/``gmres``
+    ``refine=`` (reference ``linalg.py:372-424``): the residual
+    ``r = b - A x`` in full precision against the caller's matrix, an
+    inner solve for the correction over the compressed operator
+    ``A_in`` in f32 vectors to ``_REFINE_INNER_RTOL`` of ``|r|`` (the
+    grade narrow storage can deliver), then ``x += d`` in full
+    precision.  Convergence is judged on the true residual, so the
+    refined solve meets the ``atol`` the unrefined solve would.
+
+    One host fetch a cycle (``_host_fetch`` of ``|r|``), counted as
+    ``transfer.host_sync.<solver>_refine``.  Returns ``(x, total inner
+    iterations)``."""
+    inner_dt = torch.float32 if b.dtype == torch.float64 else b.dtype
+    total = 0
+    rn = None
+    with _trace.span(solver + ".refine", n=int(b.shape[0]), cycles=cycles,
+                     inner_dtype=str(A_in.dtype).replace("torch.", "")
+                     ) as sp:
+        for _ in range(cycles):
+            r = b - A_op.matvec(x)
+            rn = _host_fetch(torch.linalg.vector_norm(r))[0]
+            _obs_counters.inc(f"transfer.host_sync.{solver}_refine")
+            if rn < atol or total >= maxiter:
+                break
+            d, it = inner_solve(A_in, r.to(inner_dt),
+                                max(atol, _REFINE_INNER_RTOL * rn),
+                                maxiter - total)
+            total += max(int(it), 1)
+            x = x + d.to(b.dtype)
+        if sp is not None:
+            sp.set(iters=total, resid=rn)
+    return x, total
+
+
+def _refine_args_ok(solver: str, M, callback) -> None:
+    if M is not None or callback is not None:
+        raise ValueError(
+            f"{solver}: refine= composes with neither M= nor callback= — "
+            "inner solves run over the compressed operator without the "
+            "outer preconditioner/observer")
 
 
 def _cg_loop(A_mv: Callable, M_mv: Callable, b: torch.Tensor,
@@ -349,7 +438,9 @@ def _cg_loop(A_mv: Callable, M_mv: Callable, b: torch.Tensor,
             callback(x)
         if iters % conv_test_iters == 0 or iters == maxiter - 1:
             rnorm2 = _vdot(r, r).real
-            if bool((rnorm2 < atol2).item()):
+            converged = _host_fetch(rnorm2 < atol2)[0]
+            _obs_counters.handle("transfer.host_sync.cg_conv").inc()
+            if converged:
                 break
     return x, iters
 
@@ -363,20 +454,54 @@ def cg(A, b, x0=None, tol=None, maxiter=None, M=None,
     Runs on the device of ``A`` (a ``csr_array`` or dense tensor), else
     of ``b`` when it is a tensor, else on ``device``.  The solve is done
     in ``result_type(A, b)``.  ``callback(x)`` sees every iterate.
-    ``refine=`` raises until ``csr_array.compress`` is ported."""
-    _no_refine("cg", refine)
+
+    ``refine="auto"`` (or a positive cycle count) runs mixed-precision
+    iterative refinement (``_refined_solve``): inner CG solves over
+    ``A.compress()`` (bf16 values under an f32 system, f32 under f64,
+    int16 indices where they fit), full-precision corrections between
+    them, to the same ``atol`` the unrefined solve meets."""
     A_op, b, bnrm2, M_op, _ = _setup(A, b, M, device, "cg")
     atol, _ = _get_atol_rtol(bnrm2, tol, atol, rtol)
+    n = b.shape[0]
     if maxiter is None:
-        maxiter = b.shape[0] * 10
-    return _cg_loop(A_op.matvec, M_op.matvec, b, _x0(x0, b), atol,
-                    int(maxiter), int(conv_test_iters), callback)
+        maxiter = n * 10
+    x = _x0(x0, b)
+    if refine is not None:
+        _refine_args_ok("cg", M, callback)
+        _obs_counters.handle("op.cg").inc()
+
+        def inner(A_in, r, inner_atol, budget):
+            return cg(A_in, r, atol=inner_atol, rtol=0.0, maxiter=budget,
+                      conv_test_iters=conv_test_iters)
+
+        return _refined_solve("cg", inner, A_op, _refine_inner_operator(A),
+                              b, x, atol, int(maxiter),
+                              _refine_cycles(refine))
+    _obs_counters.handle("op.cg").inc()
+    if callback is not None:
+        return _cg_loop(A_op.matvec, M_op.matvec, b, x, atol, int(maxiter),
+                        int(conv_test_iters), callback)
+    with _lat.timer("lat.cg.solve." + _lat.shape_bucket(n)), \
+            _trace.span("cg", n=n, maxiter=int(maxiter)) as sp:
+        x, iters = _cg_loop(A_op.matvec, M_op.matvec, b, x, atol,
+                            int(maxiter), int(conv_test_iters))
+        if sp is not None:
+            sp.set(iters=iters)
+            src = getattr(A_op, "A", None)
+            if isinstance(src, csr_array):
+                sp.set(nnz=src.nnz * iters,
+                       bytes=src.spmv_traffic_bytes(b) * iters,
+                       flops=2 * src.nnz * iters)
+    return x, iters
 
 
 def _host_fetch(t: torch.Tensor) -> List[float]:
-    """The values of ``t`` on the host: the one device→host transfer
-    ``gmres`` makes, once a restart cycle (``[beta, resid]``) and once
-    at each suspected convergence (the true residual's norm)."""
+    """The values of ``t`` on the host: the device→host transfers of
+    the solvers — ``gmres`` once a restart cycle (``[beta, resid]``) and
+    once at each suspected convergence (the true residual's norm),
+    ``cg`` at each convergence test, ``refine=`` once a cycle; the
+    eigensolvers once a try.  Each caller counts its own
+    ``transfer.host_sync.*``."""
     return t.reshape(-1).tolist()
 
 
@@ -452,8 +577,8 @@ def gmres(A, b, x0=None, tol=None, restart=None, maxiter=None, M=None,
     stops, and ``resid < atol`` is confirmed by one fetch of the true
     residual's norm.  ``callback(x)`` sees the iterate after every
     cycle, or ``callback_type="pr_norm"`` its relative residual norm.
-    ``refine=`` raises until ``csr_array.compress`` is ported."""
-    _no_refine("gmres", refine)
+    ``refine=`` runs mixed-precision iterative refinement with inner
+    restarted GMRES solves over the compressed operator, as ``cg``'s."""
     if restrt is not None:
         if restart:
             raise ValueError("gmres: give restart or restrt, not both")
@@ -465,10 +590,29 @@ def gmres(A, b, x0=None, tol=None, restart=None, maxiter=None, M=None,
         maxiter = n * 10
     restart = min(int(20 if restart is None else restart), n)
     x = _x0(x0, b)
+    if refine is not None:
+        _refine_args_ok("gmres", M, callback)
+        _obs_counters.handle("op.gmres").inc()
+
+        def inner(A_in, r, inner_atol, budget):
+            return gmres(A_in, r, atol=inner_atol, rtol=0.0,
+                         restart=restart, maxiter=budget)
+
+        return _refined_solve("gmres", inner, A_op,
+                              _refine_inner_operator(A), b, x, atol,
+                              int(maxiter), _refine_cycles(refine))
+    _obs_counters.handle("op.gmres").inc()
+    conv = _obs_counters.handle("transfer.host_sync.gmres_conv")
+    lat_name = "lat.gmres.cycle." + _lat.shape_bucket(n)
     iters = 0
     while iters < maxiter:
-        x_new, stats = _gmres_cycle(A_op.matvec, M_op.matvec, x, b, restart)
-        beta_f, resid_f = _host_fetch(stats)
+        with _lat.timer(lat_name), \
+                _trace.span("gmres.cycle", restart=restart,
+                            iters_done=iters):
+            x_new, stats = _gmres_cycle(A_op.matvec, M_op.matvec, x, b,
+                                        restart)
+            beta_f, resid_f = _host_fetch(stats)
+            conv.inc()
         if beta_f < atol:
             break                  # converged at the cycle's start: keep x
         x = x_new
@@ -482,9 +626,11 @@ def gmres(A, b, x0=None, tol=None, restart=None, maxiter=None, M=None,
         # The Givens estimate equals the true residual's norm only in
         # exact arithmetic: confirm on the real residual, so that drift
         # in the Gram-Schmidt basis cannot fake convergence.
-        if resid_f < atol and _host_fetch(torch.linalg.vector_norm(
-                b - A_op.matvec(x)))[0] < atol:
-            break
+        if resid_f < atol:
+            conv.inc()
+            if _host_fetch(torch.linalg.vector_norm(
+                    b - A_op.matvec(x)))[0] < atol:
+                break
     return x, iters
 
 
@@ -518,10 +664,20 @@ def bicgstab(A, b, x0=None, tol=None, maxiter=None, M=None, callback=None,
     callback path does."""
     A_op, b, bnrm2, M_op, _ = _setup(A, b, M, device, "bicgstab")
     atol, _ = _get_atol_rtol(bnrm2, tol, atol, rtol)
-    maxiter = int(b.shape[0] * 10 if maxiter is None else maxiter)
+    n = b.shape[0]
+    maxiter = int(n * 10 if maxiter is None else maxiter)
     conv = 1 if callback is not None else int(conv_test_iters)
-    return _bicgstab_loop(A_op.matvec, M_op.matvec, b, _x0(x0, b), atol,
-                          maxiter, conv, callback)
+    _obs_counters.handle("op.bicgstab").inc()
+    if callback is not None:
+        return _bicgstab_loop(A_op.matvec, M_op.matvec, b, _x0(x0, b), atol,
+                              maxiter, conv, callback)
+    with _lat.timer("lat.bicgstab.solve." + _lat.shape_bucket(n)), \
+            _trace.span("bicgstab", n=n, maxiter=maxiter) as sp:
+        x, iters = _bicgstab_loop(A_op.matvec, M_op.matvec, b, _x0(x0, b),
+                                  atol, maxiter, conv)
+        if sp is not None:
+            sp.set(iters=iters)
+    return x, iters
 
 
 def _bicgstab_loop(A_mv: Callable, M_mv: Callable, b: torch.Tensor,

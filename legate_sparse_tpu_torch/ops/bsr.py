@@ -34,6 +34,7 @@ import ctypes
 
 import torch
 
+from ..obs import trace as _trace
 from . import _build
 from .convert import row_ids_from_indptr, segment_sum
 
@@ -43,7 +44,9 @@ MAX_BLOCKS = 1 << 16
 # Widest dense X the SpMM path takes (the JAX package's cap, ``:194``).
 SPMM_MAX_K = 512
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-INDEX_DTYPES = (torch.int32, torch.int64)
+# Column index dtypes the kernels are instantiated for: int16 is
+# compressed storage's (``csr_array.compress``).
+INDEX_DTYPES = (torch.int16, torch.int32, torch.int64)
 
 
 class BsrStructure:
@@ -191,8 +194,8 @@ def _check(st: BsrStructure, x2d, name: str) -> None:
             or st.indptr.dtype != torch.int64
             or st.brow.dtype != torch.int32 or st.bcol.dtype != torch.int32
             or st.bptr.dtype != torch.int64):
-        raise TypeError(f"{name}: indices must be int32/int64, indptr and "
-                        "bptr int64, brow/bcol int32")
+        raise TypeError(f"{name}: indices must be int16/int32/int64, "
+                        "indptr and bptr int64, brow/bcol int32")
     if (tuple(st.indptr.shape) != (st.rows + 1,)
             or tuple(st.bcol.shape) != (st.nblocks,)
             or tuple(st.bptr.shape) != (st.nbr + 1,)):
@@ -217,7 +220,7 @@ def _launch_args(st: BsrStructure, x, name: str):
     if st.nbr > 0x7FFFFFFF:
         raise ValueError(f"{name}: {st.nbr} block-rows exceed the grid")
     return (int(st.data.dtype == torch.bfloat16),
-            int(st.indices.dtype == torch.int64), st.data.data_ptr(),
+            st.indices.element_size(), st.data.data_ptr(),
             st.indices.data_ptr(), st.indptr.data_ptr(), st.bcol.data_ptr(),
             st.bptr.data_ptr(), x.data_ptr())
 
@@ -226,8 +229,8 @@ def _lib(name: str) -> ctypes.CDLL:
     lib = _build.load(name)
     fn = getattr(lib, name)
     if fn.argtypes is None:
-        # (bf16, idx64, data, indices, indptr, bcol, bptr, x, y, rows,
-        #  nbr[, k], stream)
+        # (bf16, index bytes, data, indices, indptr, bcol, bptr, x, y,
+        #  rows, nbr[, k], stream)
         fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
                        + [ctypes.c_int64] * (3 if name == "bsr_spmm" else 2)
                        + [ctypes.c_void_p])
@@ -235,6 +238,7 @@ def _lib(name: str) -> ctypes.CDLL:
     return lib
 
 
+@_trace.traced("kernel.bsr_spmv")
 def bsr_spmv(st: BsrStructure, x2d) -> torch.Tensor:
     """(nbr, B) f32 ``y2d = A @ x`` over the present blocks, for x2d
     (nbc, B): the CUDA kernel for CUDA tensors, the plain version for
@@ -258,6 +262,7 @@ def bsr_spmv(st: BsrStructure, x2d) -> torch.Tensor:
 bsr_spmv.launches = 0
 
 
+@_trace.traced("kernel.bsr_spmm")
 def bsr_spmm(st: BsrStructure, X) -> torch.Tensor:
     """(nbr * B, k) f32 ``Y = A @ X`` over the present blocks, for X
     (nbc * B, k) row-major: the CUDA kernel for CUDA tensors, the plain

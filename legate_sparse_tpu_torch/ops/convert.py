@@ -14,6 +14,14 @@ import torch
 from ..types import coord_dtype_for, nnz_dtype
 
 
+def gather_index(idx: torch.Tensor) -> torch.Tensor:
+    """``idx`` in a dtype torch can index with: compressed storage's
+    int16 column indices (``csr_array.compress``) widen to int32, which
+    a gather takes as it takes int64; int32 and int64 pass through
+    without a copy."""
+    return idx.to(torch.int32) if idx.dtype == torch.int16 else idx
+
+
 def row_ids_from_indptr(indptr: torch.Tensor, nnz: int) -> torch.Tensor:
     """Per-nonzero row ids of a CSR indptr (same dtype as ``indptr``)."""
     rows = indptr.shape[0] - 1
@@ -107,10 +115,14 @@ def coo_to_csr(rows_idx, cols_idx, values, rows: int):
 
 def csr_transpose(data, indices, indptr, rows: int, cols: int):
     """CSR of the transpose (``:126``): expand the row ids, sort stably
-    by column, rebuild indptr."""
+    by column, rebuild indptr.  The new indices take the old ones'
+    dtype, but at least int32 (int16 column indices say nothing of the
+    row count)."""
     row_ids = row_ids_from_indptr(indptr, data.shape[0])
     order = torch.argsort(indices, stable=True)
-    return (data[order], row_ids[order].to(indices.dtype),
+    return (data[order],
+            row_ids[order].to(torch.promote_types(indices.dtype,
+                                                  torch.int32)),
             indptr_from_row_ids(indices[order], cols))
 
 

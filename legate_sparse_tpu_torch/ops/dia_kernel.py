@@ -41,6 +41,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..obs import trace as _trace
 from ..settings import settings
 from . import _build
 
@@ -179,6 +180,7 @@ def _check(packed: PackedBand, x: torch.Tensor,
                              f"{x.device}")
 
 
+@_trace.traced("kernel.dia_spmv")
 def dia_spmv(packed: PackedBand, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x over a ``PackedBand``: the CUDA kernel for a CUDA ``x``,
     the plain version for a CPU ``x``."""
@@ -273,6 +275,7 @@ def _spmm_lib() -> ctypes.CDLL:
     return lib
 
 
+@_trace.traced("kernel.dia_spmm")
 def dia_spmm(packed: PackedBand, X: torch.Tensor) -> torch.Tensor:
     """Y = A @ X (rows, k) over a ``PackedBand``: the CUDA kernel for a
     CUDA ``X``, the plain version for a CPU ``X``."""
@@ -463,6 +466,7 @@ def _spgemm_lib() -> ctypes.CDLL:
     return lib
 
 
+@_trace.traced("kernel.dia_spgemm")
 def dia_spgemm(a_data, b_data, offs_a: Tuple[int, ...],
                offs_b: Tuple[int, ...], offs_c: Tuple[int, ...],
                shape_a: Tuple[int, int],

@@ -32,13 +32,16 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..obs import counters as _obs_counters
 from ..types import coord_dtype_for, nnz_dtype
 from .convert import indptr_from_row_ids, row_ids_from_indptr, segment_sum
 
 
 def spgemm_num_products(a_indices, b_indptr) -> int:
-    """T, the number of expanded products (a host sync)."""
+    """T, the number of expanded products (a host sync, counted as
+    ``transfer.host_sync.spgemm_T``)."""
     counts = (b_indptr[1:] - b_indptr[:-1])[a_indices.to(torch.int64)]
+    _obs_counters.inc("transfer.host_sync.spgemm_T")
     return int(counts.sum())
 
 
@@ -84,9 +87,13 @@ def _sort_compress(rows, cols, vals, n: int):
 
 def coalesce_coo(rows, cols, vals, m: int, n: int):
     """Sort and merge duplicate coordinates: the CSR triple
-    ``(data, indices, indptr)`` of an (m, n) matrix."""
+    ``(data, indices, indptr)`` of an (m, n) matrix.  Shared by SpGEMM,
+    sparse ``+``/``-`` and ``sum_duplicates``; its host sync (nnz of the
+    result) counts as ``transfer.host_sync.spgemm_nnz``, as in the JAX
+    package."""
     if rows.shape[0] == 0:
         return _empty(vals.dtype, m, n, vals.device)
+    _obs_counters.inc("transfer.host_sync.spgemm_nnz")
     r, c, v = _sort_compress(rows, cols, vals, n)
     return v, c.to(coord_dtype_for(max(m, n))), indptr_from_row_ids(r, m)
 

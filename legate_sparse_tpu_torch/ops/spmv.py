@@ -6,14 +6,21 @@ Mirrors ``legate_sparse_tpu/ops/spmv.py``: ``csr_spmv`` (``:39``),
 ``csr_spmv_rowids`` (``:58``), ``ell_within_budget`` (``:545``),
 ``ell_pack`` (``:551``), ``ell_spmv`` (``:161``), ``ell_spmm``
 (``:515``), ``csr_spmm_rowids`` (``:589``), ``csr_spmm``
-(``:599``), and the semiring products ``csgraph`` relaxes with:
+(``:599``), the row-binned ELL ``sliced_ell_pack`` (``:180``) and
+``sliced_ell_spmv`` (``:230``), the f32-accumulation variants of
+compressed storage ``csr_spmv_rowids_f32acc`` (``:270``),
+``csr_spmv_rowids_masked_f32acc`` (``:283``),
+``csr_spmm_rowids_f32acc`` (``:305``), ``ell_spmv_f32acc`` (``:318``)
+and ``sliced_ell_spmv_f32acc`` (``:335``), and the semiring products
+``csgraph`` relaxes with:
 ``semiring_identity`` (``:381``), ``_semiring_product`` (``:398``),
 ``csr_semiring_spmv_rowids_masked`` (``:412``) and
 ``csr_semiring_spmm_rowids_masked`` (``:431``).  The JAX package
 leaves these to XLA; here they are ordinary tensor ops.  Padded and
 masked slots of the plus-times products contribute an exact 0 (a
 masked product, never ``0*x``), so a non-finite x entry that no row
-stores never produces NaN.
+stores never produces NaN.  Column indices may be compressed storage's
+int16; every gather widens them (``convert.gather_index``).
 """
 
 from __future__ import annotations
@@ -22,13 +29,15 @@ import math
 
 import torch
 
-from .convert import row_ids_from_indptr, segment_sum
+import numpy as np
+
+from .convert import gather_index, row_ids_from_indptr, segment_sum
 
 
 def csr_spmv_rowids(data, indices, row_ids, x, rows: int) -> torch.Tensor:
     """y[i] = Σ data[j]·x[indices[j]] over the nonzeros j of row i, with
     per-nonzero row ids precomputed."""
-    prod = data * x[indices]
+    prod = data * x[gather_index(indices)]
     y = torch.zeros((rows,), dtype=prod.dtype, device=prod.device)
     return y.index_add_(0, row_ids, prod)
 
@@ -74,7 +83,7 @@ def ell_spmv(ell_data, ell_cols, ell_counts, x) -> torch.Tensor:
     W = ell_data.shape[1]
     slot = torch.arange(W, dtype=ell_counts.dtype, device=ell_counts.device)
     valid = slot[None, :] < ell_counts[:, None]
-    prod = ell_data * x[ell_cols]
+    prod = ell_data * x[gather_index(ell_cols)]
     prod = torch.where(valid, prod, torch.zeros((), dtype=prod.dtype,
                                                 device=prod.device))
     return prod.sum(dim=1)
@@ -117,6 +126,151 @@ def csr_spmm(data, indices, indptr, X, rows: int) -> torch.Tensor:
     return csr_spmm_rowids(data, indices,
                            row_ids_from_indptr(indptr, data.shape[0]),
                            X, rows)
+
+
+def sliced_ell_pack(data, indices, indptr, rows: int):
+    """Row-binned ("sliced") ELL: rows grouped by the next power of two
+    of their length, one (rows_bin, W_bin) ELL block per bin, so padding
+    stays under 2x nnz whatever the skew (flat ELL pads every row to
+    the longest and goes over its budget on one heavy row).
+
+    A tuple of ``(ell_data, ell_cols, ell_counts, row_idx)`` bins in
+    ascending W (``row_idx``, int32, maps a bin row back to its row;
+    rows with no entry are in no bin), or None for an empty matrix.
+    Padded slots repeat the row's last column with value 0, as in
+    ``ell_pack``.  Bin membership is computed on the host from indptr
+    (one transfer of rows + 1 values, as the JAX package does); the
+    block gathers run on the matrix's device."""
+    nnz = int(indices.shape[0])
+    if nnz == 0 or rows == 0:
+        return None
+    dev = data.device
+    indptr_h = indptr.cpu().numpy()
+    counts = (indptr_h[1:] - indptr_h[:-1]).astype(np.int64)
+    nzr = counts > 0
+    widths = np.ones_like(counts)
+    widths[nzr] = 2 ** np.ceil(np.log2(counts[nzr])).astype(np.int64)
+    bins = []
+    for W in np.unique(widths[nzr]):
+        sel = np.nonzero(nzr & (widths == W))[0]
+        W = int(W)
+        row_idx = torch.from_numpy(sel.astype(np.int32)).to(dev)
+        cnt = torch.from_numpy(counts[sel].astype(np.int32)).to(dev)
+        ridx = row_idx.to(torch.int64)
+        row_start = indptr[ridx]
+        row_last = torch.clamp(indptr[ridx + 1] - 1, 0, nnz - 1)
+        slot = torch.arange(W, dtype=torch.int32, device=dev)
+        src = torch.minimum(row_start[:, None] + slot[None, :],
+                            row_last[:, None])
+        valid = slot[None, :] < cnt[:, None]
+        ell_data = torch.where(valid, data[src],
+                               torch.zeros((), dtype=data.dtype, device=dev))
+        bins.append((ell_data, indices[src], cnt, row_idx))
+    return tuple(bins)
+
+
+def _sliced_ell_spmv(bins, x, rows: int, f32acc: bool) -> torch.Tensor:
+    out_dtype = torch.promote_types(bins[0][0].dtype, x.dtype)
+    y = torch.zeros((rows,), dtype=out_dtype, device=x.device)
+    for ell_data, ell_cols, cnt, row_idx in bins:
+        W = ell_data.shape[1]
+        slot = torch.arange(W, dtype=cnt.dtype, device=cnt.device)
+        valid = slot[None, :] < cnt[:, None]
+        xg = x[gather_index(ell_cols)]
+        prod = (ell_data.float() * xg.float() if f32acc
+                else ell_data * xg)
+        prod = torch.where(valid, prod, torch.zeros((), dtype=prod.dtype,
+                                                    device=prod.device))
+        y[row_idx.to(torch.int64)] = _row_sum(prod).to(out_dtype)
+    return y
+
+
+def sliced_ell_spmv(bins, x, rows: int) -> torch.Tensor:
+    """SpMV over a ``sliced_ell_pack``: one masked ELL row reduction a
+    bin, written back to the rows of the bin; rows in no bin stay 0.
+    The result is ``result_type(A, x)``."""
+    return _sliced_ell_spmv(bins, x, rows, f32acc=False)
+
+
+# ---- Low-precision storage, f32 accumulation --------------------------
+#
+# Compressed storage (``csr_array.compress``: bf16 values, int16 column
+# indices) against an operand of another dtype.  Each variant widens the
+# gathered product to f32 before the reduction, then narrows the result
+# to ``result_type(data, x)``: bf16 in, bf16 out; an f32 x gives f32 out
+# with no widened copy of the matrix.  Padded slots mask the product,
+# never the operand.  Sums over nonzeros run in their stored order
+# (``convert.segment_sum``), so the result does not change from call to
+# call on the card.
+
+
+def _row_sum(prod: torch.Tensor) -> torch.Tensor:
+    """Sum of each row of a (rows, W) block through ``segment_sum``: in
+    slot order on the CPU, as XLA reduces an ELL row there (a tensor
+    ``sum`` takes another order), and one segmented reduction on the
+    card."""
+    rows, W = prod.shape
+    lengths = torch.full((rows,), W, dtype=torch.int64, device=prod.device)
+    return segment_sum(prod.reshape(-1), lengths)
+
+
+def _row_lengths(row_ids, rows: int) -> torch.Tensor:
+    return torch.bincount(row_ids.to(torch.int64), minlength=rows)
+
+
+def csr_spmv_rowids_f32acc(data, indices, row_ids, x,
+                           rows: int) -> torch.Tensor:
+    """y = A @ x with products and sums in f32, ``result_type(data, x)``
+    out."""
+    out_dtype = torch.promote_types(data.dtype, x.dtype)
+    prod = data.float() * x[gather_index(indices)].float()
+    return segment_sum(prod, _row_lengths(row_ids, rows)).to(out_dtype)
+
+
+def csr_spmv_rowids_masked_f32acc(data, indices, row_ids, valid_nnz, x,
+                                  rows: int) -> torch.Tensor:
+    """``csr_spmv_rowids_f32acc`` over a zero-padded nonzero suffix: the
+    slots at or past ``valid_nnz`` contribute an exact 0 (the product is
+    masked, not multiplied by 0).  ``row_ids`` are sorted; a padded slot
+    may carry the out-of-range id ``rows``, whose sum is dropped, as the
+    JAX package's ``segment_sum`` drops it."""
+    out_dtype = torch.promote_types(data.dtype, x.dtype)
+    slot = torch.arange(data.shape[0], device=data.device)
+    prod = torch.where(slot < valid_nnz,
+                       data.float() * x[gather_index(indices)].float(),
+                       torch.zeros((), dtype=torch.float32,
+                                   device=data.device))
+    y = segment_sum(prod, _row_lengths(row_ids, rows + 1))
+    return y[:rows].to(out_dtype)
+
+
+def csr_spmm_rowids_f32acc(data, indices, row_ids, X,
+                           rows: int) -> torch.Tensor:
+    """Y = A @ X (X dense, (cols, k)) with products and sums in f32,
+    ``result_type(data, X)`` out."""
+    out_dtype = torch.promote_types(data.dtype, X.dtype)
+    prod = data.float()[:, None] * X[gather_index(indices), :].float()
+    return segment_sum(prod, _row_lengths(row_ids, rows)).to(out_dtype)
+
+
+def ell_spmv_f32acc(ell_data, ell_cols, ell_counts, x) -> torch.Tensor:
+    """SpMV over an ELL pack: masked f32 products, an f32 row sum,
+    ``result_type(ell_data, x)`` out."""
+    out_dtype = torch.promote_types(ell_data.dtype, x.dtype)
+    W = ell_data.shape[1]
+    slot = torch.arange(W, dtype=ell_counts.dtype, device=ell_counts.device)
+    valid = slot[None, :] < ell_counts[:, None]
+    prod = torch.where(valid,
+                       ell_data.float() * x[gather_index(ell_cols)].float(),
+                       torch.zeros((), dtype=torch.float32,
+                                   device=ell_data.device))
+    return _row_sum(prod).to(out_dtype)
+
+
+def sliced_ell_spmv_f32acc(bins, x, rows: int) -> torch.Tensor:
+    """``sliced_ell_spmv`` with f32 products and row sums,
+    ``result_type(A, x)`` out."""
+    return _sliced_ell_spmv(bins, x, rows, f32acc=True)
 
 
 def semiring_identity(add: str, dtype: torch.dtype, device=None):

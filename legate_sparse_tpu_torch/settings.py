@@ -26,6 +26,11 @@ read once at import and can be overridden by assignment.
     runs in chunks, so peak memory is O(chunk + nnz(C)) instead of
     O(T).  The JAX package's ``LEGATE_SPARSE_FAST_SPGEMM`` (one pass,
     whatever T) has no counterpart: a chunk of at least T is one pass.
+``obs`` (``LEGATE_SPARSE_TPU_OBS``, off)
+    Span tracing (``legate_sparse_tpu_torch.obs``): a property that
+    reads and sets ``obs.trace``'s switch, so ``settings.obs = True``
+    and the environment variable are the same switch, as in the JAX
+    package.  Counters and latency histograms are on either way.
 """
 
 from __future__ import annotations
@@ -54,6 +59,21 @@ class Settings:
                                          False)
         self.spgemm_chunk_products: int = int(
             os.environ.get("LEGATE_SPARSE_SPGEMM_CHUNK", 1 << 24))
+
+    @property
+    def obs(self) -> bool:
+        from .obs import trace
+
+        return trace.enabled()
+
+    @obs.setter
+    def obs(self, value: bool) -> None:
+        from .obs import trace
+
+        if value:
+            trace.enable()
+        else:
+            trace.disable()
 
 
 settings = Settings()

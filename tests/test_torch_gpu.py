@@ -24,7 +24,13 @@ SpMM kernels walk the stored nonzeros and sum in another order than
 the plain versions' batched dense product, so rtol = atol = 1e-5,
 with the NaN/inf pattern equal exactly where x holds inf or NaN
 (``nonfinite_case``).  The BSR cases are shared with the CPU tests
-(``test_torch_bsr.py``, ``test_torch_spmm.py``).
+(``test_torch_bsr.py``, ``test_torch_spmm.py``); the BSR kernels take
+int16 column indices (compressed storage) as they take int32 and int64,
+and the int16 SpMM agrees with the int32 one bit for bit.
+Compressed storage (``csr_array.compress``) against a bf16 operand runs
+the bf16 kernels; against an f32 operand it takes the plain widening
+routes and launches no kernel.  Spans and latency timers make no device
+synchronisation (``torch.profiler`` counts none).
 """
 
 import numpy as np
@@ -277,7 +283,8 @@ def _bsr_cases(rng):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["random", "nonfinite", "many-blocks"])
-@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("index_dtype", [torch.int16, torch.int32,
+                                         torch.int64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bsr_kernel_matches_plain(cuda, dtype, index_dtype, case):
     rng = np.random.default_rng(5)
@@ -578,3 +585,161 @@ def test_eigsh_on_card_matches_cpu(cuda):
     resid = np.linalg.norm(S.astype(np.float64) @ Vn
                            - Vn * w.double().cpu().numpy()[None, :], axis=0)
     assert np.all(resid <= 1e-3 * 8.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["random", "nonfinite", "many-blocks"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 16, 40])
+def test_bsr_spmm_int16_indices_match_int32(cuda, dtype, k, case):
+    """The int16 instantiation reads the same entries in the same order
+    as the int32 one (held against the plain version above), so the two
+    agree bit for bit, NaN and inf included."""
+    rng = np.random.default_rng(7)
+    S, x = _bsr_cases(rng)[case]
+    st16 = _bsr_structure(S, dtype, cuda, torch.int16)
+    st32 = _bsr_structure(S, dtype, cuda, torch.int32)
+    assert st16.indices.dtype == torch.int16
+    X = rng.standard_normal((st16.nbc * 128, k)).astype(np.float32)
+    if x is not None:
+        X[: x.shape[0], k // 2] = x
+    X = torch.from_numpy(X).to(cuda, dtype)
+    before = bsr_ops.bsr_spmm.launches
+    Y16 = bsr_ops.bsr_spmm(st16, X)
+    assert bsr_ops.bsr_spmm.launches == before + 1
+    Y32 = bsr_ops.bsr_spmm(st32, X)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(Y16.cpu().numpy(), Y32.cpu().numpy())
+
+
+def _launches():
+    return (dia_kernel.dia_spmv.launches, dia_kernel.dia_spmm.launches,
+            bsr_ops.bsr_spmv.launches, bsr_ops.bsr_spmm.launches)
+
+
+@pytest.mark.gpu
+def test_compressed_bf16_operands_run_the_bf16_kernels(cuda):
+    """Compressed storage against a bf16 operand: the DIA kernels bit
+    for bit with their plain versions, the BSR kernels (int16 indices)
+    at 1e-5 of theirs."""
+    rng = np.random.default_rng(20)
+    n = 40_000
+    C = _cuda_band(n, [-200, -1, 0, 1, 200], rng, torch.float32,
+                   cuda).compress()
+    assert C.dtype == torch.bfloat16 and C._get_dia()[2] is None
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    X = torch.from_numpy(rng.standard_normal((n, 16)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    before = _launches()
+    y, Y = C @ x, C @ X
+    assert C.spmv_path == C.spmm_path == "dia-kernel"
+    assert _launches() == (before[0] + 1, before[1] + 1) + before[2:]
+    pk = C._get_dia_pack()
+    assert torch.equal(y, dia_kernel.dia_spmv_plain(
+        pk.rdata, pk.rmask, x, pk.offsets, pk.shape))
+    assert torch.equal(Y, dia_kernel.dia_spmm_plain(
+        pk.rdata, pk.rmask, X, pk.offsets, pk.shape))
+    R = sp.random(2048, 2048, density=0.01, format="csr", random_state=rng,
+                  dtype=np.float32)
+    Rc = sparse.csr_array(R, device=cuda).compress()
+    assert Rc.indices.dtype == torch.int16
+    xr = torch.from_numpy(rng.standard_normal(2048).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    Xr = torch.from_numpy(rng.standard_normal((2048, 16)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    before = _launches()
+    yr, Yr = Rc @ xr, Rc @ Xr
+    assert Rc.spmv_path == Rc.spmm_path == "bsr"
+    assert _launches() == before[:2] + (before[2] + 1, before[3] + 1)
+    st = Rc._get_bsr()
+    yp = bsr_ops.bsr_spmv_plain(st, xr.reshape(-1, 128))
+    Yp = bsr_ops.bsr_spmm_plain(st, Xr)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(yr.float().cpu().numpy(),
+                               yp.reshape(-1)[:2048].cpu().numpy(),
+                               rtol=1e-2, atol=1e-2)
+    np.testing.assert_allclose(Yr.float().cpu().numpy(),
+                               Yp[:2048].cpu().numpy(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.gpu
+def test_lowp_routes_launch_no_kernel(cuda):
+    """Compressed storage against an f32 operand: the plain widening
+    routes, no kernel launch, f32 out.  The Poisson values (4, -1) are
+    exact in bf16, so the band's result equals the f32 matrix's up to
+    summation order; the irregular matrix's against its rounded values
+    in f32."""
+    n = 64 * 64
+    A = sparse.diags([np.full(n, 4.0), -np.ones(n - 1), -np.ones(n - 1),
+                      -np.ones(n - 64), -np.ones(n - 64)],
+                     [0, 1, -1, 64, -64], shape=(n, n), format="csr",
+                     dtype=torch.float32, device=cuda)
+    C = A.compress()
+    x = torch.linspace(-1.0, 1.0, n, device=cuda)
+    X = torch.stack([x, 2 * x], dim=1)
+    before = _launches()
+    y, Y = C @ x, C @ X
+    assert _launches() == before
+    assert C.spmv_path == C.spmm_path == "dia-torch"
+    assert y.dtype == Y.dtype == torch.float32
+    torch.testing.assert_close(y, A @ x, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(Y, A @ X, rtol=1e-6, atol=1e-6)
+    rng = np.random.default_rng(21)
+    R = sp.random(2048, 2048, density=0.01, format="csr", random_state=rng,
+                  dtype=np.float32)
+    Rc = sparse.csr_array(R, device=cuda).compress()
+    W = Rc.astype_storage(values="float32", indices="int32")
+    assert W._get_bsr() is not None     # the f32 copy takes BSR
+    xr = torch.from_numpy(rng.standard_normal(2048).astype(np.float32)).to(
+        cuda)
+    before = _launches()
+    yr = Rc @ xr
+    Yr = Rc @ torch.stack([xr, -xr], dim=1)
+    assert _launches() == before
+    assert Rc.spmv_path in ("ell-bf16", "csr-rowids-bf16")
+    assert Rc.spmm_path == "csr-rowids-bf16"
+    ref = sp.csr_matrix((W.data.double().cpu().numpy(),
+                         W.indices.cpu().numpy(), W.indptr.cpu().numpy()),
+                        shape=W.shape) @ xr.double().cpu().numpy()
+    np.testing.assert_allclose(yr.cpu().numpy(), ref, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(Yr[:, 1].cpu().numpy(), -ref, rtol=1e-4,
+                               atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_spans_and_timers_add_no_device_sync(cuda):
+    """Ten ``A @ x`` with tracing on (a span, a latency timer, the
+    kernel span) make no synchronising call: the profiler's trace holds
+    the same synchronisations as with tracing off, which are the
+    profiler's own (one ``cudaDeviceSynchronize`` as it stops), fewer
+    than the calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from legate_sparse_tpu_torch import obs
+
+    A = _cuda_band(200_000, [-1, 0, 1], np.random.default_rng(22),
+                   torch.float32, cuda)
+    x = torch.ones(200_000, device=cuda)
+
+    def syncs(traced: bool) -> dict:
+        obs.trace.enable() if traced else obs.trace.disable()
+        try:
+            A @ x
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    A @ x
+            torch.cuda.synchronize()
+        finally:
+            obs.trace.disable()
+        return {e.key: e.count for e in prof.key_averages()
+                if "synchronize" in e.key.lower()}
+
+    untraced, traced = syncs(False), syncs(True)
+    assert traced == untraced
+    assert sum(traced.values()) <= 1
+    spans = [r for r in obs.records() if r["name"] == "spmv"]
+    assert len(spans) >= 10 and spans[-1]["attrs"]["path"] == "dia-kernel"
+    obs.reset_all()

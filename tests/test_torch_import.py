@@ -50,6 +50,10 @@ def test_import_loads_no_jax():
         "import legate_sparse_tpu_torch.io\n"
         "import legate_sparse_tpu_torch.krylov_extra\n"
         "import legate_sparse_tpu_torch.module\n"
+        "import legate_sparse_tpu_torch.obs\n"
+        "import legate_sparse_tpu_torch.obs.comm\n"
+        "import legate_sparse_tpu_torch.obs.export\n"
+        "import legate_sparse_tpu_torch.obs.memory\n"
         "import legate_sparse_tpu_torch.precond\n"
         "import legate_sparse_tpu_torch.utils_native\n"
         "import legate_sparse_tpu_torch.ops.bsr\n"
