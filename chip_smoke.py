@@ -189,13 +189,36 @@ Phases, each printing one JSON line:
    its device time per call under ``torch.profiler`` over the same 10
    calls (the trace must hold no copy and fewer synchronisations than
    calls), and the aliased ``A @ A`` whole and split into the kernel and
-   ``band_to_csr``.
+   ``band_to_csr``;
+14. the distribution layer (``main_path_distributed``,
+   ``phase14_rank``) on one NCCL rank started by
+   ``parallel.launch.run_ranks`` (a ``FileStore`` rendezvous in a
+   temporary directory, no network): pde_4096 sharded by ``shard_csr``
+   (a halo of 4096, so the DIA kernels run on a (2^24, 2^24 + 8192)
+   window with offsets shifted by +4096 and a merged int8 mask) and
+   built by ``dist_poisson2d``: ``dist_spmv`` bit for bit with the
+   single-device ``A @ x`` and the kernel with its plain version on the
+   window, within 2e-6 of scipy's f64; ``dist_spmm`` with X (2^24, 16)
+   bit for bit likewise; ``dist_cg`` for 500 iterations beside
+   single-device ``cg`` (ms/iter by CUDA events, the iterates bit for
+   bit); ``dist_eigsh(k=4, which='LA', tol=1e-2)`` at phase 11's
+   residual bound; ``dist_cg`` and ``dist_minres`` on phase 10's
+   ``step``, ``dist_gmres`` (restart 20) and ``dist_bicgstab`` on its
+   ``convdiff``, each to rtol 1e-5 by its f64 true residual; a 2^20-row
+   block-clustered matrix of phase 6's kind with
+   ``force_all_gather=True`` through ``bsr_spmv`` (1e-5 of the
+   single-device result and of its plain version) and as a 2-d block
+   on the 1x1 grid (plain); every run's launches exactly what it calls
+   for, the ``comm.*`` counters empty as their formulas predict at one
+   rank, and the timings of the distributed SpMV and SpMM beside the
+   kernels on the window (ms, host ms a call, a profile of 10 calls).
 
 Launch counts come from the kernel wrappers: each is set to 0 just
-before a main-path phase (in phases 10-12, each run) drives its
-path and read just after; the ``kernels`` line's launches add phases
-10's, 11's and 12's to those of phases 4-7, and its ``max_abs_err`` is the
-largest over the kernel's shapes in phases 4-7 and 10-12.  Any
+before a main-path phase (in phases 10-12 and 14, each run) drives
+its path and read just after; the ``kernels`` line's launches add
+phases 10's, 11's, 12's and 14's to those of phases 4-7, and its
+``max_abs_err`` is the largest over the kernel's shapes in phases 4-7,
+10-12 and 14.  Any
 failed check raises, so the script exits non-zero; it exits non-zero
 without printing a result when there is no CUDA device.  The last three
 lines are the ``kernels`` JSON object, the ``nvidia-smi`` line and
@@ -224,6 +247,459 @@ def log(obj) -> None:
 def check(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: check failed: {msg}")
+
+
+def sync() -> None:
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def time_ms(fn, reps: int = REPS) -> float:
+    """Median over ``reps`` samples of the time per call of ``INNER``
+    calls in a row: the card runs them back to back, so the host's
+    cost of each launch stays out of a kernel's time."""
+    import numpy as np
+    import torch
+
+    for _ in range(3):
+        fn()
+    sync()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(INNER):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / INNER)
+    return float(np.median(times))
+
+
+def profile_calls(fn, name: str = "") -> dict:
+    """``INNER`` calls of ``fn`` in a row under ``torch.profiler``: the
+    device time per call of the kernels whose name holds ``name`` (every
+    kernel and copy for ``""``; None when the trace holds no device
+    time), each with its count and ms a call, the count of every copy
+    and synchronisation in the trace, and the host's costliest ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(INNER):
+            fn()
+        end = torch.cuda.Event()
+        end.record()
+        end.synchronize()
+    rows = prof.key_averages()
+
+    def device_us(e):
+        return float(getattr(e, "device_time_total",
+                             getattr(e, "cuda_time_total", 0.0)))
+
+    kern = [e for e in rows if name in e.key and device_us(e) > 0
+            and not e.key.startswith(("aten::", "cuda", "nccl:", "c10d::"))]
+    host = sorted(rows, key=lambda e: -e.self_cpu_time_total)[:8]
+    return {"kernel_device_ms_per_call": (
+                sum(device_us(e) for e in kern) / 1e3 / INNER
+                if kern else None),
+            "kernels": {e.key[:80]: [e.count, device_us(e) / 1e3 / INNER]
+                        for e in kern},
+            "copies": {e.key: e.count for e in rows
+                       if "memcpy" in e.key.lower()},
+            "synchronizations": {e.key: e.count for e in rows
+                                 if "synchronize" in e.key.lower()},
+            "host_self_ms_per_call": {
+                e.key[:60]: e.self_cpu_time_total / 1e3 / INNER
+                for e in host}}
+
+
+def max_abs(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def close(y, ref, rtol: float, what: str) -> float:
+    """``max |y - ref|`` after checking it within ``rtol`` of ``ref``'s
+    largest magnitude (1 at least), and the two finite alike."""
+    import torch
+
+    sync()
+    check(bool(torch.isfinite(y).all()) == bool(torch.isfinite(ref).all()),
+          f"{what}: finiteness differs")
+    err = max_abs(y, ref)
+    scale = float(ref.float().abs().max()) if ref.numel() else 0.0
+    check(err <= rtol * max(scale, 1.0), f"{what}: max |Δ| {err} > "
+          f"{rtol} * {scale}")
+    return err
+
+
+def kernel_counters() -> dict:
+    """Each kernel's wrapper by name; ``wrapper.launches`` counts the
+    launches of its kernel."""
+    from legate_sparse_tpu_torch.ops import bsr as bsr_ops
+    from legate_sparse_tpu_torch.ops import dia_kernel
+
+    return {"dia_spmv": dia_kernel.dia_spmv, "bsr_spmv": bsr_ops.bsr_spmv,
+            "dia_spmm": dia_kernel.dia_spmm, "bsr_spmm": bsr_ops.bsr_spmm,
+            "dia_spgemm": dia_kernel.dia_spgemm}
+
+
+def reset_counts() -> None:
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def block_clustered_arrays(rng, rows, blocks_per_row, per_block):
+    """Canonical CSR arrays: per block-row, ``blocks_per_row`` distinct
+    block-columns; per row, ``per_block`` distinct columns in each of
+    them; values and columns drawn from ``rng``."""
+    import numpy as np
+
+    nbr = rows // 128
+    bcols = np.stack([np.sort(rng.choice(nbr, blocks_per_row,
+                                         replace=False))
+                      for _ in range(nbr)])              # (nbr, k)
+    row_bcols = np.repeat(bcols, 128, axis=0)            # (rows, k)
+    picks = [rng.integers(0, 128, (rows, blocks_per_row))]
+    for _ in range(per_block - 1):
+        picks.append((picks[-1] + 1 + rng.integers(
+            0, 128 // per_block, (rows, blocks_per_row))) % 128)
+    cols = (row_bcols[:, :, None] * 128
+            + np.stack(picks, axis=2)).reshape(rows, -1)
+    cols = np.sort(cols, axis=1)
+    check(bool((np.diff(cols, axis=1) > 0).all()), "columns distinct")
+    nnz = cols.size
+    indptr = np.arange(rows + 1, dtype=np.int64) * cols.shape[1]
+    data = rng.standard_normal(nnz).astype(np.float32)
+    return data, cols.reshape(-1).astype(np.int32), indptr
+
+
+def phase14_rank(rank, world, grid=4096, rows=1 << 20):
+    """Phase 14 (``main_path_distributed``) on one NCCL rank: the
+    distribution layer at full width (pde_4096 and its phase-10 kin on a
+    ``grid`` x ``grid`` grid, a ``rows``-row block-clustered matrix), its
+    kernels at their distributed call sites.  Returns the phase's
+    record; any failed check raises."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    import torch.distributed
+
+    import legate_sparse_tpu_torch as sparse
+    from legate_sparse_tpu_torch import linalg, obs
+    from legate_sparse_tpu_torch import parallel as P
+    from legate_sparse_tpu_torch.ops import bsr as bsr_ops
+    from legate_sparse_tpu_torch.ops import dia_kernel
+    from legate_sparse_tpu_torch.parallel import dist_csr as D
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(14)
+    launches = {name: 0 for name in kernel_counters()}
+    runs, vs_plain, timing = {}, {}, {}
+
+    def run(name, fn, **want):
+        """``fn()`` with the counts set to 0 just before it; its launches
+        must be ``want`` exactly (a callable of the result for counts
+        the result decides) and add up in ``launches``."""
+        sync()
+        reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        for k, v in counts.items():
+            launches[k] += v
+        full = {k: (v(out) if callable(v) else v) for k, v in want.items()}
+        full = {k: full.get(k, 0) for k in counts}
+        check(counts == full, f"{name} launched {counts}, its run calls for "
+              f"{full}")
+        runs[name] = {"launches": {k: v for k, v in counts.items() if v},
+                      "card_ms": start.elapsed_time(end), "host_s": secs}
+        return out
+
+    def hold(name, kernel, got, want, bitwise):
+        err = close(got, want, 1e-6 if bitwise else 1e-5, name)
+        check(torch.equal(got, want) or not bitwise,
+              f"{name}: kernel and plain version not bit for bit equal")
+        vs_plain[name] = {"kernel": kernel, "max_abs_err": err,
+                          "bitwise": bool(torch.equal(got, want))}
+
+    def host_ms(fn, calls: int = 200) -> float:
+        """Host ms a call of ``fn`` takes to enqueue its work (no sync
+        inside the window; the card runs behind)."""
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        sync()
+        return (t1 - t0) * 1e3 / calls
+
+    def rel(v, ref) -> float:
+        return float(torch.linalg.vector_norm(v.double() - ref.double())
+                     / torch.linalg.vector_norm(ref.double()))
+
+    mesh = P.make_row_mesh()
+    group = mesh.get_group("rows")
+    dev = D.mesh_device(mesh)
+    n = grid * grid
+    main3 = np.full(n, 4.0, np.float32)
+    p1 = np.full(n - 1, -1.0, np.float32)
+    p1[np.arange(1, grid) * grid - 1] = 0.0
+    pN = np.full(n - grid, -1.0, np.float32)
+    offsets = [0, 1, -1, grid, -grid]
+    A = sparse.diags([main3, p1, p1, pN, pN], offsets, shape=(n, n),
+                     format="csr", dtype=torch.float32)
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    y1 = A @ x
+    check(A.spmv_path == "dia-kernel", f"pde_4096 @ x took {A.spmv_path}")
+    sync()
+    t0 = time.perf_counter()
+    dA = P.shard_csr(A, mesh)
+    sync()
+    builds = {"shard_csr_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    dP = P.dist_poisson2d(grid, mesh=mesh, dtype=np.float32)
+    sync()
+    builds["dist_poisson2d_s"] = time.perf_counter() - t0
+    for name, dM in (("shard_csr", dA), ("dist_poisson2d", dP)):
+        pk = dM.dia_pack
+        check(dM.halo == grid and pk is not None
+              and pk.shape == (n, n + 2 * grid) and pk.rmask is not None
+              and pk.offsets == tuple(sorted(o + grid for o in offsets)),
+              f"{name}: the DIA kernel's window, halo {dM.halo}")
+
+    # dist_spmv on the window through dia_spmv: bit for bit with the
+    # single-device A @ x and with its plain version on the window.
+    xs = D.shard_vector(x, mesh, dA.rows_padded)
+    xw = D._extend_x(x, dA.halo, group)
+    for name, dM in (("shard_csr", dA), ("dist_poisson2d", dP)):
+        y = run(f"dist_spmv({name})", lambda: P.dist_spmv(dM, xs),
+                dia_spmv=1)
+        check(dM.spmv_path == "dia-kernel", f"{name}: {dM.spmv_path}")
+        check(torch.equal(y.to_local(), y1),
+              f"dist_spmv({name}) vs the single-device A @ x")
+        pk = dM.dia_pack
+        hold(f"dist_spmv({name}) window", "dia_spmv",
+             dia_kernel.dia_spmv(pk, xw),
+             dia_kernel.dia_spmv_plain(pk.rdata, pk.rmask, xw, pk.offsets,
+                                       pk.shape), True)
+    A_sp = sp.diags([d.astype(np.float64) for d in (main3, p1, p1, pN, pN)],
+                    offsets, shape=(n, n), format="csr")
+    xn = x.double().cpu().numpy()
+    diff = np.abs(y.to_local().double().cpu().numpy() - A_sp @ xn)
+    check(bool(np.all(diff <= 2e-6 * (abs(A_sp) @ np.abs(xn)) + 1e-30)),
+          f"dist_spmv vs scipy f64: max |Δ| {diff.max()}")
+    vs_scipy = float(diff.max())
+    del A_sp, xn, diff
+
+    # dist_spmm, X (2^24, 16), through dia_spmm on the window.
+    X = torch.from_numpy(rng.standard_normal((n, 16)).astype(
+        np.float32)).to(dev)
+    Y1 = A @ X
+    Xs = P.shard_dense(X, mesh, dA.rows_padded)
+    Y = run("dist_spmm(shard_csr, k=16)", lambda: P.dist_spmm(dA, Xs),
+            dia_spmm=1)
+    check(torch.equal(Y.to_local(), Y1), "dist_spmm vs the single-device "
+          "A @ X")
+    Xw = D._extend_x(X, dA.halo, group)
+    pk = dA.dia_pack
+    hold("dist_spmm window (k=16)", "dia_spmm", dia_kernel.dia_spmm(pk, Xw),
+         dia_kernel.dia_spmm_plain(pk.rdata, pk.rmask, Xw, pk.offsets,
+                                   pk.shape), True)
+    timing["dist_spmm_ms"] = time_ms(lambda: P.dist_spmm(dA, X))
+    timing["dia_spmm_window_ms"] = time_ms(lambda: dia_kernel.dia_spmm(pk, Xw))
+    timing["single_device_spmm_ms"] = time_ms(lambda: A @ X)
+    del X, Y1, Xs, Y, Xw
+    torch.cuda.empty_cache()
+
+    # dist_cg for 500 iterations beside the single-device cg, both timed
+    # by CUDA events here, and their iterates bit for bit.
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    P.dist_cg(dA, ones, rtol=0.0, maxiter=2)
+    linalg.cg(A, ones, rtol=0.0, maxiter=2)
+    xd, it = run("dist_cg(pde_4096, 500 iterations)",
+                 lambda: P.dist_cg(dA, ones, rtol=0.0, maxiter=500),
+                 dia_spmv=501)
+    check(it == 500, f"dist_cg ran {it} iterations")
+    xc, _ = run("cg(pde_4096, 500 iterations)",
+                lambda: linalg.cg(A, ones, rtol=0.0, maxiter=500),
+                dia_spmv=501)
+    check(torch.equal(xd.to_local(), xc), "dist_cg's iterate vs cg's")
+    timing["dist_cg_ms_per_iter"] = (
+        runs["dist_cg(pde_4096, 500 iterations)"]["card_ms"] / 500)
+    timing["cg_ms_per_iter"] = (
+        runs["cg(pde_4096, 500 iterations)"]["card_ms"] / 500)
+    del xd, xc, ones
+
+    # dist_eigsh at phase 11's tolerance; one dia_spmv a Lanczos step
+    # (a try's one fetch holds 3 m values).
+    fetches = []
+    real_fetch = linalg._host_fetch
+
+    def counted_fetch(t):
+        fetches.append(t.numel())
+        return real_fetch(t)
+
+    linalg._host_fetch = counted_fetch
+    try:
+        w, V = run("dist_eigsh(pde_4096, k=4, LA, tol=1e-2)",
+                   lambda: P.dist_eigsh(dA, k=4, which="LA", tol=1e-2),
+                   dia_spmv=lambda out: sum(f // 3 for f in fetches))
+        steps = sum(f // 3 for f in fetches)
+        A64 = A.astype(torch.float64)
+        U = V.to_local().double()
+        U = U / torch.linalg.vector_norm(U, dim=0, keepdim=True)
+        r = torch.linalg.vector_norm(A64 @ U - U * w.double()[None, :],
+                                     dim=0).cpu().numpy()
+        th = w.double().cpu().numpy()
+        check(bool(np.all(r <= 2.0 * 1e-2 * np.maximum(np.abs(th), 1.0))),
+              f"dist_eigsh residuals {r} for {th}")
+        runs["dist_eigsh(pde_4096, k=4, LA, tol=1e-2)"].update(
+            steps=steps, theta=th.tolist(), residual_f64=r.tolist())
+        del U, V, A64
+
+        # The phase-10 operators, each solved from b = M @ x_true to rtol
+        # 1e-5, held to its f64 true residual (twice the rtol at most)
+        # and to x_true (1e-3).
+        hole = np.ones(n - 1, np.float32)
+        hole[np.arange(1, grid) * grid - 1] = 0.0
+        far = np.full(n - grid, -1.0, np.float32)
+        five = np.ones(n, np.float32)
+        step = sparse.diags([5.0 * five, -hole, -hole, far, far], offsets,
+                            shape=(n, n), format="csr", dtype=torch.float32)
+        convdiff = sparse.diags([5.0 * five, -0.5 * hole, -1.5 * hole, far,
+                                 far], offsets, shape=(n, n), format="csr",
+                                dtype=torch.float32)
+        x_true = torch.from_numpy(rng.standard_normal(n).astype(
+            np.float32)).to(dev)
+
+        def judge(name, M, b, xsol):
+            M64 = M.astype(torch.float64)
+            xl = xsol.to_local()
+            res = rel(M64 @ xl.double(), b)
+            err = rel(xl, x_true)
+            check(res <= 2e-5, f"{name}: true relative residual {res}")
+            check(err <= 1e-3, f"{name}: error to x_true {err}")
+            runs[name].update(rel_residual_f64=res, rel_error_to_x_true=err)
+
+        b_step, b_cd = step @ x_true, convdiff @ x_true
+        dS, dC = P.shard_csr(step, mesh), P.shard_csr(convdiff, mesh)
+        xsol, it = run("dist_cg(step)",
+                       lambda: P.dist_cg(dS, b_step, rtol=1e-5),
+                       dia_spmv=lambda out: out[1] + 1)
+        judge("dist_cg(step)", step, b_step, xsol)
+        xsol, it = run("dist_minres(step)",
+                       lambda: P.dist_minres(dS, b_step, rtol=1e-5),
+                       dia_spmv=lambda out: out[1] + 1)
+        judge("dist_minres(step)", step, b_step, xsol)
+        fetches.clear()
+        xsol, it = run("dist_gmres(convdiff, restart=20)",
+                       lambda: P.dist_gmres(dC, b_cd, restart=20, rtol=1e-5),
+                       dia_spmv=lambda out: (21 * fetches.count(2)
+                                             + fetches.count(1)))
+        judge("dist_gmres(convdiff, restart=20)", convdiff, b_cd, xsol)
+        runs["dist_gmres(convdiff, restart=20)"].update(
+            cycles=fetches.count(2), confirms=fetches.count(1), iters=it)
+        xsol, it = run("dist_bicgstab(convdiff)",
+                       lambda: P.dist_bicgstab(dC, b_cd, rtol=1e-5),
+                       dia_spmv=lambda out: 2 * out[1] + 1)
+        judge("dist_bicgstab(convdiff)", convdiff, b_cd, xsol)
+    finally:
+        linalg._host_fetch = real_fetch
+    del step, convdiff, dS, dC, b_step, b_cd, x_true, xsol
+    torch.cuda.empty_cache()
+
+    # The timings of the DIA route (tracing off): dist_spmv on the local
+    # block, the window it builds, the kernel on the window, and the
+    # single-device SpMV; bytes each input read once, each output written
+    # once (the band, its int8 mask, the window, y).
+    xl = xs.to_local()
+    nd = len(offsets)
+    timing["dist_spmv_ms"] = time_ms(lambda: P.dist_spmv(dA, xl))
+    timing["window_ms"] = time_ms(lambda: D._extend_x(x, dA.halo, group))
+    timing["dia_spmv_window_ms"] = time_ms(lambda: dia_kernel.dia_spmv(pk, xw))
+    timing["single_device_spmv_ms"] = time_ms(lambda: A @ x)
+    timing["dist_spmv_profile"] = profile_calls(lambda: P.dist_spmv(dA, xl))
+    timing["dist_spmv_host_ms"] = host_ms(lambda: P.dist_spmv(dA, xl))
+    timing["single_device_spmv_host_ms"] = host_ms(lambda: A @ x)
+    timing["dia_spmv_window_bytes"] = nd * n * 5 + 4 * (n + 2 * grid) + 4 * n
+    timing["window_copy_bytes"] = 2 * 4 * (n + 2 * grid)
+    del dP, xw
+    torch.cuda.empty_cache()
+
+    # The block-clustered 2^20-row matrix of phase 6's kind: dist_spmv
+    # through bsr_spmv against the all-gathered x, then the 2-d block
+    # layout on the 1x1 grid (plain PyTorch).
+    d, i, p = block_clustered_arrays(rng, rows, 8, 2)
+    R = sparse.csr_array((d, i, p), shape=(rows, rows))
+    xr = torch.from_numpy(rng.standard_normal(rows).astype(np.float32)).to(dev)
+    yr1 = R @ xr
+    dR = P.shard_csr(R, mesh, force_all_gather=True)
+    xrs = D.shard_vector(xr, mesh, dR.rows_padded)
+    yr = run("dist_spmv(block-clustered, all-gather)",
+             lambda: P.dist_spmv(dR, xrs), bsr_spmv=1)
+    check(dR.spmv_path == "bsr" and dR.bsr is not None,
+          f"the all-gather row block took {dR.spmv_path}")
+    close(yr.to_local(), yr1, 1e-5, "dist_spmv(bsr) vs the single-device "
+          "R @ x")
+    st = dR.bsr
+    x2d = D._all_gather(xr, group).reshape(-1, 128)
+    hold("dist_spmv(bsr) row block", "bsr_spmv", bsr_ops.bsr_spmv(st, x2d),
+         bsr_ops.bsr_spmv_plain(st, x2d), False)
+    xrl = xrs.to_local()
+    timing["dist_spmv_bsr_ms"] = time_ms(lambda: P.dist_spmv(dR, xrl))
+    timing["bsr_spmv_row_block_ms"] = time_ms(
+        lambda: bsr_ops.bsr_spmv(st, x2d))
+    timing["dist_spmv_bsr_profile"] = profile_calls(lambda: P.dist_spmv(dR, xrl))
+    timing["dist_spmv_bsr_host_ms"] = host_ms(lambda: P.dist_spmv(dR, xrl))
+    timing["single_device_bsr_host_ms"] = host_ms(lambda: R @ xr)
+    # The host cost of the one-rank collectives the routes make.
+    scalar = torch.zeros((), device=dev)
+    timing["collective_host_ms"] = {
+        "all_reduce(scalar)": host_ms(
+            lambda: torch.distributed.all_reduce(scalar, group=group)),
+        "all_gather(2^20 f32)": host_ms(lambda: D._all_gather(xr, group))}
+    d2 = P.shard_csr(R, layout="2d-block")
+    check(d2.grid == (1, 1), f"2d-block on one rank: grid {d2.grid}")
+    x2s = D.shard_vector(xr, d2.mesh, d2.rows_padded, layout="2d-block")
+    y2 = run("dist_spmv(block-clustered, 2d-block 1x1)",
+             lambda: P.dist_spmv(d2, x2s))
+    check(d2.spmv_path == "2d-block", f"2d-block took {d2.spmv_path}")
+    runs["dist_spmv(block-clustered, 2d-block 1x1)"].update(
+        max_abs_err_vs_single=close(y2.to_local(), yr1, 1e-5,
+                                    "2d-block vs the single-device R @ x"))
+
+    # At one rank no collective moves a byte: the comm ledger holds none,
+    # as its formulas predict.
+    predicted = {"dist_spmv(pde_4096)": D.spmv_comm_volumes(dA, n, 4),
+                 "dist_spmv(bsr)": D.spmv_comm_volumes(dR, rows, 4),
+                 "dist_spmv(2d)": D.spmv_comm_volumes(d2, rows, 4)}
+    comm = obs.counters.snapshot("comm.")
+    check(not any(b for v in predicted.values() for b in v.values())
+          and not any(comm.values()),
+          f"one rank moved bytes: {predicted}, {comm}")
+    return {"runs": runs, "launches": launches, "kernel_vs_plain": vs_plain,
+            "timing": timing, "builds": builds,
+            "spmv_max_abs_err_vs_scipy_f64": vs_scipy,
+            "comm_counters": comm, "seconds_in_rank":
+            time.perf_counter() - t_phase}
 
 
 def main() -> int:
@@ -273,83 +749,7 @@ def main() -> int:
              for name, text in _build.LOGS.items()}
     log({"phase": "build", "seconds": build_s, "ptxas": ptxas})
 
-    def sync():
-        torch.cuda.synchronize(dev)
-
-    def time_ms(fn, reps: int = REPS) -> float:
-        """Median over ``reps`` samples of the time per call of ``INNER``
-        calls in a row: the card runs them back to back, so the host's
-        cost of each launch stays out of a kernel's time."""
-        for _ in range(3):
-            fn()
-        sync()
-        times = []
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(INNER):
-                fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / INNER)
-        return float(np.median(times))
-
-    def profile_calls(fn, name: str) -> dict:
-        """``INNER`` calls of ``fn`` in a row under ``torch.profiler``:
-        the device time per call of the kernels whose name holds
-        ``name`` (None when the trace holds no device time), and the
-        count of every copy and synchronisation in the trace."""
-        from torch.profiler import ProfilerActivity, profile
-
-        fn()
-        sync()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(INNER):
-                fn()
-            end = torch.cuda.Event()
-            end.record()
-            end.synchronize()
-        rows = prof.key_averages()
-
-        def device_us(e):
-            return float(getattr(e, "device_time_total",
-                                 getattr(e, "cuda_time_total", 0.0)))
-
-        kern = [e for e in rows if name in e.key and device_us(e) > 0]
-        return {"kernel_device_ms_per_call": (
-                    sum(device_us(e) for e in kern) / 1e3 / INNER
-                    if kern else None),
-                "kernels": {e.key: e.count for e in kern},
-                "copies": {e.key: e.count for e in rows
-                           if "memcpy" in e.key.lower()},
-                "synchronizations": {e.key: e.count for e in rows
-                                     if "synchronize" in e.key.lower()}}
-
-    def max_abs(a, b) -> float:
-        return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
-
-    def close(y, ref, rtol: float, what: str) -> float:
-        sync()
-        check(bool(torch.isfinite(y).all()) == bool(torch.isfinite(ref).all()),
-              f"{what}: finiteness differs")
-        err = max_abs(y, ref)
-        scale = float(ref.float().abs().max()) if ref.numel() else 0.0
-        check(err <= rtol * max(scale, 1.0), f"{what}: max |Δ| {err} > "
-              f"{rtol} * {scale}")
-        return err
-
-    counters = {"dia_spmv": dia_kernel.dia_spmv, "bsr_spmv": bsr_ops.bsr_spmv,
-                "dia_spmm": dia_kernel.dia_spmm, "bsr_spmm": bsr_ops.bsr_spmm,
-                "dia_spgemm": dia_kernel.dia_spgemm}
-
-    def reset_counts() -> None:
-        for fn in counters.values():
-            fn.launches = 0
-
-    def read_counts() -> dict:
-        return {name: fn.launches for name, fn in counters.items()}
+    counters = kernel_counters()
 
     def bound(nbytes: float, nops: float) -> dict:
         """``bound_ms`` and ``bound_by`` of a kernel moving ``nbytes``
@@ -427,26 +827,7 @@ def main() -> int:
                           randx(n, torch.bfloat16), True))
 
     def block_clustered(rows, blocks_per_row, per_block):
-        """Canonical CSR arrays: per block-row, ``blocks_per_row``
-        distinct block-columns; per row, ``per_block`` distinct columns
-        in each of them."""
-        nbr = rows // 128
-        bcols = np.stack([np.sort(rng.choice(nbr, blocks_per_row,
-                                             replace=False))
-                          for _ in range(nbr)])              # (nbr, k)
-        row_bcols = np.repeat(bcols, 128, axis=0)            # (rows, k)
-        picks = [rng.integers(0, 128, (rows, blocks_per_row))]
-        for _ in range(per_block - 1):
-            picks.append((picks[-1] + 1 + rng.integers(
-                0, 128 // per_block, (rows, blocks_per_row))) % 128)
-        cols = (row_bcols[:, :, None] * 128
-                + np.stack(picks, axis=2)).reshape(rows, -1)
-        cols = np.sort(cols, axis=1)
-        check(bool((np.diff(cols, axis=1) > 0).all()), "columns distinct")
-        nnz = cols.size
-        indptr = np.arange(rows + 1, dtype=np.int64) * cols.shape[1]
-        data = rng.standard_normal(nnz).astype(np.float32)
-        return data, cols.reshape(-1).astype(np.int32), indptr
+        return block_clustered_arrays(rng, rows, blocks_per_row, per_block)
 
     def same_nonfinite(y, ref, rtol: float, what: str) -> float:
         """The NaN/inf pattern equal element for element, the finite
@@ -3061,14 +3442,29 @@ def main() -> int:
          "widening_timing": widening, "sliced_ell": sliced,
          "obs": obs_check, "seconds": comp_seconds})
 
+    # ---- 14. the distribution layer at world size 1 -------------------------
+    from legate_sparse_tpu_torch.parallel.launch import run_ranks
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p14 = run_ranks(phase14_rank, 1, backend="nccl", timeout=600,
+                    init_timeout=120)[0]
+    log({"phase": "main_path_distributed", "nvidia_smi": smi_line, **p14,
+         "seconds": time.perf_counter() - t0})
+    phase14 = p14["launches"]
+    check(all(phase14[k] > 0 for k in ("dia_spmv", "dia_spmm", "bsr_spmv")),
+          f"phase 14 launches {phase14}")
+
     for row in (dia_row, bsr_row, dia_spmm_row, bsr_spmm_row,
                 dia_spgemm_row):
         row["launches"] += (phase10[row["name"]] + phase11[row["name"]]
-                            + phase12[row["name"]])
+                            + phase12[row["name"]] + phase14[row["name"]])
         row["max_abs_err"] = max([row["max_abs_err"]] + [
             h["max_abs_err"] for h in (list(kernel_vs_plain.values())
                                        + list(spec_vs_plain.values())
-                                       + list(comp_vs_plain.values()))
+                                       + list(comp_vs_plain.values())
+                                       + list(p14["kernel_vs_plain"]
+                                              .values()))
             if h["kernel"] == row["name"]])
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

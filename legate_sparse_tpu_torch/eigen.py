@@ -151,8 +151,8 @@ def _restart_direction(V, key: int, j: int, rdtype, dtype, mask=None):
     if mask is not None:
         fresh = fresh * mask
     for _ in range(2):
-        fresh = fresh - V.T @ (V.conj() @ fresh)
-    return fresh / torch.clamp_min(torch.linalg.vector_norm(fresh), eps)
+        fresh = fresh - V.T @ _linalg._global_sum(V.conj() @ fresh)
+    return fresh / torch.clamp_min(_linalg._norm(fresh), eps)
 
 
 def _first_restart(flags: np.ndarray, start: int, m: int):
@@ -259,16 +259,20 @@ def _shift_invert_op(matvec, sigma, dtype, dev, n, outer_atol, sym: bool):
     return solve, inner_atol
 
 
-def _probe_inverse(matvec, solve, sigma, dtype, dev, n, inner_atol, name):
+def _probe_inverse(matvec, solve, sigma, dtype, dev, n, inner_atol, name,
+                   mask=None):
     """One explicit (A - sigma I)x = v solve with a true residual check
     before any recurrence runs.  On a singular (A - sigma I) the
     iterative solve converges to a pseudo-inverse apply whose Ritz pairs
     pass every residual test while missing the null-space eigenvalue
     nearest sigma; the stagnated probe residual is the signature, and
-    ``ArpackNoConvergence`` sends the caller to its host fallback."""
+    ``ArpackNoConvergence`` sends the caller to its host fallback.
+    ``mask`` (a padded operator's valid rows) keeps the probe off the
+    padding and gives its length."""
     shift = torch.tensor(sigma, dtype=dtype, device=dev)
-    _probe_apply(lambda x: matvec(x) - shift * x, solve, n, dtype, dev,
-                 inner_atol, f"shift-invert {name}")
+    _probe_apply(lambda x: matvec(x) - shift * x, solve,
+                 n if mask is None else mask.shape[0], dtype, dev,
+                 inner_atol, f"shift-invert {name}", mask=mask)
 
 
 def _check_original_residuals(matvec, lam, X, atol, name):
@@ -279,7 +283,10 @@ def _check_original_residuals(matvec, lam, X, atol, name):
     passing subset."""
     AX = to_numpy(_block(matvec)(X))
     Xh = to_numpy(X)
-    resid = np.linalg.norm(AX - Xh * lam[None, :], axis=0)
+    D = AX - Xh * lam[None, :]
+    # Column norms, summed over the ranks of a distributed operator.
+    resid = np.sqrt(to_numpy(_linalg._global_sum(torch.as_tensor(
+        (D.conj() * D).real.sum(axis=0), device=X.device))))
     scale = np.maximum(np.abs(lam), 1.0)
     # Slack x50: the inner solve is inexact by design (inner_atol is
     # 1e-2 * atol); this rejects stagnation, not last-digit noise.
@@ -398,15 +405,18 @@ def _normalized_rhs_solver(solve_unit):
     return solve
 
 
-def _probe_apply(apply_fn, solve, n, dtype, dev, inner_atol, what):
+def _probe_apply(apply_fn, solve, n, dtype, dev, inner_atol, what,
+                 mask=None):
     """One explicit solve of ``apply_fn(x) = v`` with a true residual
     check before any recurrence runs (see ``_probe_inverse``).  Returns
     the probe RNG so callers draw consistent start vectors."""
     rng = np.random.default_rng(20260801)
     v = _on(rng.standard_normal(n), dev).to(dtype)
-    v = v / torch.linalg.vector_norm(v)
+    if mask is not None:
+        v = v * mask
+    v = v / _linalg._norm(v)
     x = solve(v)
-    res = float(torch.linalg.vector_norm(apply_fn(x) - v))
+    res = float(_linalg._norm(apply_fn(x) - v))
     if not np.isfinite(res) or res > 100.0 * inner_atol:
         from scipy.sparse.linalg import ArpackNoConvergence
 
@@ -630,8 +640,8 @@ def _lanczos(matvec, v0, mask, m: int):
             # Classical Gram-Schmidt against the rows set so far, twice
             # (twice is enough, Parlett).
             for _ in range(2):
-                w = w - Vj.T @ (Vj.conj() @ w)
-            beta_next = torch.linalg.vector_norm(w).to(dtype)
+                w = w - Vj.T @ _linalg._global_sum(Vj.conj() @ w)
+            beta_next = _linalg._norm(w).to(dtype)
             flag = beta_next.real <= 100 * eps * torch.clamp_min(
                 alpha.real.abs(), 1.0)
             beta_next = torch.where(flag, torch.zeros_like(beta_next),
@@ -654,14 +664,17 @@ def _lanczos(matvec, v0, mask, m: int):
 
 
 def _lanczos_eigsh(matvec, n, dtype, dev, k, which, v0, ncv, maxiter, tol,
-                   return_eigenvectors, max_rank=None):
+                   return_eigenvectors, max_rank=None, mask=None):
+    """The Lanczos escalation of ``eigsh``; ``max_rank`` caps the Krylov
+    dimension and ``mask`` keeps breakdown restarts on the valid rows of
+    a padded operator (``parallel.dist_eigsh``)."""
     import scipy.linalg as _sl
 
     rdtype = dtype.to_real()
     if v0 is None:
         v0 = np.random.default_rng(0).standard_normal(n)
     v0 = as_tensor(v0, dev).to(dtype)
-    v0 = v0 / torch.linalg.vector_norm(v0)
+    v0 = v0 / _linalg._norm(v0)
     rank = int(max_rank) if max_rank is not None else n
     # Escalate the subspace until the Ritz residuals converge (each
     # retry doubles m; n caps it).  tol=0 means machine precision.
@@ -672,7 +685,7 @@ def _lanczos_eigsh(matvec, n, dtype, dev, k, which, v0, ncv, maxiter, tol,
             m = min(rank, 2 * m)
         # m doubles only right before a run: the checks after the loop
         # judge the size that ran.
-        V, a, b_all = _lanczos(matvec, v0, None, m=m)
+        V, a, b_all = _lanczos(matvec, v0, mask, m=m)
         w, y = _sl.eigh_tridiagonal(a, b_all[:-1])
         w_k, y_k = _select_sym_ritz(w, y, k, which)
         # Ritz residual bound |beta_{m+1} e_m^T y_i|: the final
@@ -808,16 +821,19 @@ def eigsh(A, k=6, M=None, sigma=None, which="LM", v0=None, ncv=None,
 
 def _eigsh_shift_invert(matvec, n_cols, dtype, dev, k, sigma, which, v0,
                         ncv, maxiter, tol, return_eigenvectors,
-                        name="eigsh"):
+                        name="eigsh", mask=None, max_rank=None):
     """Shift-invert eigsh (see ``eigsh``): Lanczos on ``OP = (A - sigma
-    I)^{-1}`` with the inexact MINRES inner apply."""
+    I)^{-1}`` with the inexact MINRES inner apply.  ``mask`` and
+    ``max_rank`` serve ``parallel.dist_eigsh``: the probe and the Krylov
+    space stay on the valid rows, the Krylov dimension at most the true
+    row count."""
     rdtype = dtype.to_real()
     np_r = to_numpy_dtype(rdtype)
     atol_outer = _outer_atol(tol, rdtype)
     op, inner_atol = _shift_invert_op(matvec, float(sigma), dtype, dev,
                                       n_cols, atol_outer, sym=True)
     _probe_inverse(matvec, op, float(sigma), dtype, dev, n_cols,
-                   inner_atol, name)
+                   inner_atol, name, mask=mask)
 
     # X is always formed: the original-spectrum check below is what
     # catches a stagnated inner solve.
@@ -829,7 +845,8 @@ def _eigsh_shift_invert(matvec, n_cols, dtype, dev, k, sigma, which, v0,
 
     try:
         w_nu, X = _lanczos_eigsh(op, n_cols, dtype, dev, int(k), which,
-                                 v0, ncv, maxiter, tol, True)
+                                 v0, ncv, maxiter, tol, True,
+                                 max_rank=max_rank, mask=mask)
     except ArpackNoConvergence as e:
         # Re-raise with back-transformed eigenvalues, so a caller
         # salvaging e.eigenvalues gets eigenvalues of A.

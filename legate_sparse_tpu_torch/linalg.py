@@ -45,6 +45,8 @@ engine routing and resilience hooks wait for queue 1 item 10.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 import warnings
 from typing import Callable, List, Optional
@@ -271,13 +273,78 @@ def _safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
                        num / torch.where(zero, torch.ones_like(den), den))
 
 
+# The process group over which a distributed solve sums its inner
+# products and norms, and the count and bytes of the all-reduces it made
+# (``reduce_over``); unset on one device.
+_REDUCE = contextvars.ContextVar("legate_sparse_tpu_torch_reduce",
+                                default=None)
+
+
+@contextlib.contextmanager
+def reduce_over(group):
+    """Within the block, the solvers' vectors are one rank's blocks of
+    vectors spread over ``group`` (``parallel.dist_csr``'s solvers):
+    every inner product and norm is all-reduced over it, as GSPMD
+    lowers the JAX package's to a ``psum``.  Yields the dict of
+    ``calls`` and ``bytes`` of those all-reduces."""
+    stats = {"calls": 0, "bytes": 0}
+    token = _REDUCE.set((group, stats))
+    try:
+        yield stats
+    finally:
+        _REDUCE.reset(token)
+
+
+def outside_reductions(fn: Callable) -> Callable:
+    """``fn`` run with no ``reduce_over`` scope: a caller's
+    preconditioner or callback inside a distributed solve works on this
+    rank's vectors alone, and a solve it runs there (an inner ``cg`` on
+    the rank's block) reduces nothing over the ranks."""
+    def run(*args, **kwargs):
+        token = _REDUCE.set(None)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _REDUCE.reset(token)
+    return run
+
+
+def _global_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t``, a sum over this rank's rows, summed over the ranks of a
+    distributed solve (one ``all_reduce``); ``t`` itself on one device.
+    The one door of the solvers' global reductions: ``_vdot``,
+    ``_norm`` and the eigensolvers' projections."""
+    scope = _REDUCE.get()
+    if scope is None:
+        return t
+    import torch.distributed as dist
+
+    from .obs import comm as _comm
+
+    group, stats = scope
+    dist.all_reduce(t, group=group)
+    stats["calls"] += 1
+    stats["bytes"] += _comm.psum_bytes(t.numel(), t.element_size(),
+                                       dist.get_world_size(group))
+    return t
+
+
 def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``jnp.vdot``: conjugates ``a``, promotes mixed dtypes (an
-    operator may hand back another dtype than the iterate's)."""
+    operator may hand back another dtype than the iterate's); summed
+    over the ranks of a distributed solve."""
     if a.dtype != b.dtype:
         dt = torch.promote_types(a.dtype, b.dtype)
         a, b = a.to(dt), b.to(dt)
-    return torch.vdot(a, b)
+    return _global_sum(torch.vdot(a, b))
+
+
+def _norm(v: torch.Tensor) -> torch.Tensor:
+    """``vector_norm(v)``; over the ranks of a distributed solve, the
+    root of the all-reduced sum of squares."""
+    if _REDUCE.get() is None:
+        return torch.linalg.vector_norm(v)
+    return torch.sqrt(_vdot(v, v).real)
 
 
 def _solve_device(b, device) -> torch.device:
@@ -307,7 +374,7 @@ def _setup(A, b, M, device, name: str, square: bool = True):
         raise ValueError(f"{name} needs a {'square ' if square else ''}"
                          f"operator and a vector b of its rows, got "
                          f"{A_op.shape} and {tuple(b.shape)}")
-    bnrm2 = float(torch.linalg.vector_norm(b.detach()))
+    bnrm2 = float(_norm(b.detach()))
     if A_op.dtype is not None:
         b = b.to(find_common_type(A_op.dtype, b.dtype))
     M_op = (IdentityOperator(A_op.shape, dtype=A_op.dtype) if M is None
@@ -385,7 +452,7 @@ def _refined_solve(solver: str, inner_solve: Callable, A_op, A_in,
                      ) as sp:
         for _ in range(cycles):
             r = b - A_op.matvec(x)
-            rn = _host_fetch(torch.linalg.vector_norm(r))[0]
+            rn = _host_fetch(_norm(r))[0]
             _obs_counters.inc(f"transfer.host_sync.{solver}_refine")
             if rn < atol or total >= maxiter:
                 break
@@ -522,7 +589,7 @@ def _gmres_cycle(A_mv: Callable, M_mv: Callable, x: torch.Tensor,
     dev = b.device
     n = b.shape[0]
     r = b - A_mv(x)
-    beta = torch.linalg.vector_norm(r).to(rdt)
+    beta = _norm(r).to(rdt)
     V = torch.zeros((restart + 1, n), dtype=dtype, device=dev)
     V[0] = torch.where(beta > 0, r / beta.to(dtype), r)
     R = torch.zeros((restart, restart), dtype=dtype, device=dev)
@@ -538,7 +605,7 @@ def _gmres_cycle(A_mv: Callable, M_mv: Callable, x: torch.Tensor,
             hij = _vdot(V[i], w)
             w = w - hij * V[i]
             h[i] = hij
-        hnorm = torch.linalg.vector_norm(w)
+        hnorm = _norm(w)
         h[j + 1] = hnorm
         V[j + 1] = torch.where(hnorm > 1e-30, w / hnorm.to(dtype), w)
         for i in range(j):
@@ -602,15 +669,25 @@ def gmres(A, b, x0=None, tol=None, restart=None, maxiter=None, M=None,
                               _refine_inner_operator(A), b, x, atol,
                               int(maxiter), _refine_cycles(refine))
     _obs_counters.handle("op.gmres").inc()
+    return _gmres_loop(A_op.matvec, M_op.matvec, b, x, atol, restart,
+                       int(maxiter), callback, callback_type, bnrm2)
+
+
+def _gmres_loop(A_mv: Callable, M_mv: Callable, b: torch.Tensor,
+                x: torch.Tensor, atol: float, restart: int, maxiter: int,
+                callback: Optional[Callable] = None, callback_type=None,
+                bnrm2: float = 1.0):
+    """The restart cycles of ``gmres`` from ``x`` (reference
+    ``linalg.py:807-951``), one fetch of ``[beta, resid]`` a cycle.
+    Returns ``(x, iters)``."""
     conv = _obs_counters.handle("transfer.host_sync.gmres_conv")
-    lat_name = "lat.gmres.cycle." + _lat.shape_bucket(n)
+    lat_name = "lat.gmres.cycle." + _lat.shape_bucket(b.shape[0])
     iters = 0
     while iters < maxiter:
         with _lat.timer(lat_name), \
                 _trace.span("gmres.cycle", restart=restart,
                             iters_done=iters):
-            x_new, stats = _gmres_cycle(A_op.matvec, M_op.matvec, x, b,
-                                        restart)
+            x_new, stats = _gmres_cycle(A_mv, M_mv, x, b, restart)
             beta_f, resid_f = _host_fetch(stats)
             conv.inc()
         if beta_f < atol:
@@ -619,8 +696,7 @@ def gmres(A, b, x0=None, tol=None, restart=None, maxiter=None, M=None,
         iters += restart
         if callback is not None:
             if callback_type == "pr_norm":
-                callback(_host_fetch(torch.linalg.vector_norm(
-                    b - A_op.matvec(x)))[0] / bnrm2)
+                callback(_host_fetch(_norm(b - A_mv(x)))[0] / bnrm2)
             else:
                 callback(x)
         # The Givens estimate equals the true residual's norm only in
@@ -628,8 +704,7 @@ def gmres(A, b, x0=None, tol=None, restart=None, maxiter=None, M=None,
         # in the Gram-Schmidt basis cannot fake convergence.
         if resid_f < atol:
             conv.inc()
-            if _host_fetch(torch.linalg.vector_norm(
-                    b - A_op.matvec(x)))[0] < atol:
+            if _host_fetch(_norm(b - A_mv(x)))[0] < atol:
                 break
     return x, iters
 

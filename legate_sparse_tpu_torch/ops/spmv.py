@@ -3,7 +3,9 @@
 """Gather-class SpMV and SpMM in plain PyTorch.
 
 Mirrors ``legate_sparse_tpu/ops/spmv.py``: ``csr_spmv`` (``:39``),
-``csr_spmv_rowids`` (``:58``), ``ell_within_budget`` (``:545``),
+``csr_spmv_rowids`` (``:58``), the masked padded-suffix products
+``csr_spmv_rowids_masked`` (``:68``) and ``csr_spmm_rowids_masked``
+(``:85``) of the distributed blocks, ``ell_within_budget`` (``:545``),
 ``ell_pack`` (``:551``), ``ell_spmv`` (``:161``), ``ell_spmm``
 (``:515``), ``csr_spmm_rowids`` (``:589``), ``csr_spmm``
 (``:599``), the row-binned ELL ``sliced_ell_pack`` (``:180``) and
@@ -40,6 +42,29 @@ def csr_spmv_rowids(data, indices, row_ids, x, rows: int) -> torch.Tensor:
     prod = data * x[gather_index(indices)]
     y = torch.zeros((rows,), dtype=prod.dtype, device=prod.device)
     return y.index_add_(0, row_ids, prod)
+
+
+def csr_spmv_rowids_masked(data, indices, row_ids, valid_nnz, x,
+                           rows: int) -> torch.Tensor:
+    """SpMV over a zero-padded nonzero suffix (a distributed padded-CSR
+    block): slots at or past ``valid_nnz`` contribute an exact 0 (the
+    product is masked, not multiplied by 0); ``row_ids`` sorted, summed
+    per row in slot order."""
+    slot = torch.arange(data.shape[0], device=data.device)
+    prod = data * x[gather_index(indices)]
+    prod = torch.where(slot < valid_nnz, prod,
+                       torch.zeros((), dtype=prod.dtype, device=prod.device))
+    return segment_sum(prod, _row_lengths(row_ids, rows))
+
+
+def csr_spmm_rowids_masked(data, indices, row_ids, valid_nnz, X,
+                           rows: int) -> torch.Tensor:
+    """``csr_spmv_rowids_masked`` for a dense (cols, k) X."""
+    slot = torch.arange(data.shape[0], device=data.device)
+    prod = data[:, None] * X[gather_index(indices), :]
+    prod = torch.where((slot < valid_nnz)[:, None], prod,
+                       torch.zeros((), dtype=prod.dtype, device=prod.device))
+    return segment_sum(prod, _row_lengths(row_ids, rows))
 
 
 def csr_spmv(data, indices, indptr, x, rows: int) -> torch.Tensor:

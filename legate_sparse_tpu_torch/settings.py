@@ -26,6 +26,13 @@ read once at import and can be overridden by assignment.
     runs in chunks, so peak memory is O(chunk + nnz(C)) instead of
     O(T).  The JAX package's ``LEGATE_SPARSE_FAST_SPGEMM`` (one pass,
     whatever T) has no counterpart: a chunk of at least T is one pass.
+``precise_images`` (``LEGATE_SPARSE_PRECISE_IMAGES``, off)
+    ``parallel.shard_csr`` realizes x by each shard's exact gather plan
+    (the unique columns it reads, exchanged by one ``all_to_all``)
+    instead of the min/max column window.
+``dist_layout`` (``LEGATE_SPARSE_TPU_DIST_LAYOUT``, ``"1d-row"``)
+    The partition layout ``parallel.shard_csr`` takes when the caller
+    names none (``parallel.mesh.resolve_layout``).
 ``obs`` (``LEGATE_SPARSE_TPU_OBS``, off)
     Span tracing (``legate_sparse_tpu_torch.obs``): a property that
     reads and sets ``obs.trace``'s switch, so ``settings.obs = True``
@@ -59,6 +66,10 @@ class Settings:
                                          False)
         self.spgemm_chunk_products: int = int(
             os.environ.get("LEGATE_SPARSE_SPGEMM_CHUNK", 1 << 24))
+        self.precise_images: bool = _env_bool(
+            "LEGATE_SPARSE_PRECISE_IMAGES", False)
+        self.dist_layout: str = os.environ.get(
+            "LEGATE_SPARSE_TPU_DIST_LAYOUT", "1d-row")
 
     @property
     def obs(self) -> bool:

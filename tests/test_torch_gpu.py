@@ -30,7 +30,11 @@ and the int16 SpMM agrees with the int32 one bit for bit.
 Compressed storage (``csr_array.compress``) against a bf16 operand runs
 the bf16 kernels; against an f32 operand it takes the plain widening
 routes and launches no kernel.  Spans and latency timers make no device
-synchronisation (``torch.profiler`` counts none).
+synchronisation (``torch.profiler`` counts none).  The kernels at their
+distributed call sites run in one spawned NCCL rank
+(``parallel.launch.run_ranks``);
+``test_dist_nccl_ranks_match_one_card`` runs one rank a card and skips
+with fewer than two cards.
 """
 
 import numpy as np
@@ -743,3 +747,271 @@ def test_spans_and_timers_add_no_device_sync(cuda):
     spans = [r for r in obs.records() if r["name"] == "spmv"]
     assert len(spans) >= 10 and spans[-1]["attrs"]["path"] == "dia-kernel"
     obs.reset_all()
+
+
+# ---- the kernels at their distributed call sites (NCCL, world size 1) ----
+#
+# ``parallel.dist_spmv``/``dist_spmm`` run the DIA kernels on the
+# halo-extended window (offsets shifted by +halo, a merged int8 mask)
+# and the BSR kernel on a row block against the all-gathered x.  One
+# spawned NCCL rank (``parallel.launch.run_ranks``) runs every case and
+# returns, per case, whether the kernel launched and equals its plain
+# version on the window (bit for bit: DIA; 1e-5 with equal NaN/inf:
+# BSR) and whether ``dist_spmv`` equals the single-device ``A @ x``
+# (NaN where it has NaN: bf16 storage keeps no hole mask).
+# rows (= rps at one rank) 4099 and 4101 take the scalar variant, 4096
+# the 16-byte one; "reach" puts the halo at its limit (the band reaches
+# rps - 1, the window 3 rps - 2).
+
+DIST_DIA_CASES = {
+    # name -> (rows, offsets, holes with inf/NaN in x)
+    "rps4099": (4099, (-3, -1, 0, 1, 3), False),
+    "rps4096": (4096, (-3, -1, 0, 1, 3), False),
+    "rps4101-holes": (4101, (-64, -1, 0, 1, 64), True),
+    "reach": (2048, (-2047, -1, 0, 1, 2047), False),
+}
+
+
+def _dist_dia_matrix(rows, offsets, holes, dtype, device, rng):
+    diagonals = []
+    for o in offsets:
+        d = rng.standard_normal(rows - abs(o)).astype(np.float32)
+        if holes:
+            d[::5] = 0.0
+        diagonals.append(d)
+    S = sp.diags(diagonals, list(offsets), shape=(rows, rows), format="csr")
+    S.eliminate_zeros()
+    return S, sparse.csr_array(S, dtype=dtype, device=device)
+
+
+def _same(a, b):
+    """Equal values, NaN where the other has NaN (``torch.equal`` calls
+    two NaNs unequal)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb) and torch.equal(
+        torch.where(na, 0, a), torch.where(nb, 0, b)))
+
+
+def _dist_cases(rank, world):
+    """Every distributed kernel case on this NCCL rank."""
+    from legate_sparse_tpu_torch import parallel as P
+    from legate_sparse_tpu_torch.parallel import dist_csr as D
+
+    dev = torch.device("cuda")
+    mesh = P.make_row_mesh()
+    group = mesh.get_group("rows")
+    rng = np.random.default_rng(31)
+    out = {}
+    for name, (rows, offsets, holes) in DIST_DIA_CASES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            S, A = _dist_dia_matrix(rows, offsets, holes, dtype, dev, rng)
+            dA = P.shard_csr(A, mesh)
+            pk = dA.dia_pack
+            x = torch.from_numpy(rng.standard_normal(rows).astype(
+                np.float32)).to(dev, dtype)
+            if holes:
+                # inf/NaN where only holes (and the ring-wrapped halo) read.
+                dead = np.setdiff1d(np.arange(rows), S.indices)
+                poison(x, dead)
+            xw = D._extend_x(x, dA.halo, group)
+            before = dia_kernel.dia_spmv.launches
+            y = dia_kernel.dia_spmv(pk, xw)
+            launched = dia_kernel.dia_spmv.launches - before
+            yp = dia_kernel.dia_spmv_plain(pk.rdata, pk.rmask, xw,
+                                           pk.offsets, pk.shape)
+            yd = P.dist_spmv(dA, D.shard_vector(x, mesh, dA.rows_padded))
+            X = torch.from_numpy(rng.standard_normal((rows, 16)).astype(
+                np.float32)).to(dev, dtype)
+            Xw = D._extend_x(X, dA.halo, group)
+            before = dia_kernel.dia_spmm.launches
+            Y = dia_kernel.dia_spmm(pk, Xw)
+            launched_mm = dia_kernel.dia_spmm.launches - before
+            Yp = dia_kernel.dia_spmm_plain(pk.rdata, pk.rmask, Xw,
+                                           pk.offsets, pk.shape)
+            Yd = P.dist_spmm(dA, D.shard_dense(X, mesh, dA.rows_padded))
+            torch.cuda.synchronize()
+            out[f"{name}-{str(dtype)[6:]}"] = {
+                "halo": dA.halo, "window": tuple(pk.shape),
+                "offsets": pk.offsets, "masked": pk.rmask is not None,
+                "variant": dia_kernel.spmv_vector_ok(pk),
+                "spmv_launched": launched, "spmm_launched": launched_mm,
+                "spmv_bitwise": _same(y, yp), "spmm_bitwise": _same(Y, Yp),
+                "dist_vs_single": _same(yd.full_tensor(), A @ x),
+                "dist_spmm_vs_single": _same(Yd.full_tensor(), A @ X),
+                "finite": bool(torch.isfinite(y).all())}
+    # BSR on a row block against the all-gathered x: a block-clustered
+    # matrix (two 128-column blocks a block-row, three entries a row in
+    # each) and the non-finite case.
+    nbr = 32
+    bc = np.stack([rng.choice(nbr, 2, replace=False) for _ in range(nbr)])
+    r = np.repeat(np.arange(nbr * 128), 6)
+    c = (np.repeat(bc, 128, axis=0)[:, :, None] * 128
+         + rng.integers(0, 128, (nbr * 128, 2, 3))).reshape(-1)
+    bsr_cases = {"bsr-clustered": (_csr(r, c, (nbr * 128,) * 2, rng), None),
+                 "bsr-nonfinite": nonfinite_case()}
+    for name, (S, xn) in bsr_cases.items():
+        A = sparse.csr_array(S, dtype=torch.float32, device=dev)
+        dA = P.shard_csr(A, mesh, force_all_gather=True)
+        x = torch.from_numpy(rng.standard_normal(S.shape[0]).astype(
+            np.float32) if xn is None else xn).to(dev)
+        before = bsr_ops.bsr_spmv.launches
+        yd = P.dist_spmv(dA, D.shard_vector(x, mesh, dA.rows_padded))
+        launched = bsr_ops.bsr_spmv.launches - before
+        xf = D._all_gather(x, group)
+        st = dA.bsr
+        xpad = torch.zeros(st.nbc * 128, device=dev)
+        xpad[:xf.shape[0]] = xf
+        y2d = bsr_ops.bsr_spmv(st, xpad.reshape(-1, 128))
+        yp = bsr_ops.bsr_spmv_plain(st, xpad.reshape(-1, 128))
+        torch.cuda.synchronize()
+        out[name] = {"path": dA.spmv_path, "spmv_launched": launched,
+                     "kernel": y2d.reshape(-1)[:S.shape[0]].cpu().numpy(),
+                     "plain": yp.reshape(-1)[:S.shape[0]].cpu().numpy(),
+                     "dist": yd.full_tensor().cpu().numpy(),
+                     "single": (A @ x).cpu().numpy()}
+    return out
+
+
+@pytest.fixture(scope="module")
+def dist_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from legate_sparse_tpu_torch.parallel.launch import run_ranks
+
+    return run_ranks(_dist_cases, 1, backend="nccl", timeout=300)[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(DIST_DIA_CASES))
+def test_dist_dia_kernels_on_window(dist_card, case, dtype):
+    """The DIA SpMV and SpMM kernels on the distributed window equal their
+    plain versions bit for bit, and dist_spmv/dist_spmm equal the
+    single-device products; the rows decide the variant."""
+    r = dist_card[f"{case}-{dtype}"]
+    rows, offsets, holes = DIST_DIA_CASES[case]
+    halo = max(abs(o) for o in offsets)
+    assert r["halo"] == halo
+    assert r["window"] == (rows, rows + 2 * halo)
+    assert r["offsets"] == tuple(o + halo for o in offsets)
+    assert r["masked"]
+    v = 4 if dtype == "float32" else 8
+    assert r["variant"] == (rows % v == 0)
+    assert r["spmv_launched"] == 1 and r["spmm_launched"] == 1
+    assert r["spmv_bitwise"] and r["spmm_bitwise"]
+    assert r["dist_vs_single"] and r["dist_spmm_vs_single"]
+    # f32 masks the band's holes: inf/NaN in x never reach y.  bf16
+    # storage keeps no hole mask (zero-filled, as in the JAX package):
+    # 0 * inf there is NaN, in the kernel and its plain version alike.
+    assert r["finite"] == (dtype == "float32" or not holes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["bsr-clustered", "bsr-nonfinite"])
+def test_dist_bsr_kernel_on_row_block(dist_card, case):
+    r = dist_card[case]
+    assert r["path"] == "bsr" and r["spmv_launched"] == 1
+    assert_same_nonfinite(r["kernel"], r["plain"])
+    assert_same_nonfinite(r["dist"], r["single"])
+
+
+# ---- more than one card: the collectives across NCCL ranks ---------------
+#
+# One NCCL rank a card (two, then every visible card; skipped with fewer
+# than two):
+# each route of dist_spmv/dist_spmm with its real collectives (the halo
+# exchange between neighbours, the all-gather, the precise plan's
+# all-to-all, the 2-d chunk transpose, panel all-gather and
+# reduce-scatter on a 2 x (cards / 2) grid) and dist_cg, each against
+# the single-card product or solve that every rank also computes: the
+# DIA routes bit for bit, the others within 1e-5 (f32).
+
+def _multi_card_cases(rank, world):
+    from legate_sparse_tpu_torch import parallel as P
+    from legate_sparse_tpu_torch.parallel import dist_csr as D
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(41)
+    grid = 512
+    n = grid * grid
+    main = np.full(n, 4.0, np.float32)
+    p1 = np.full(n - 1, -1.0, np.float32)
+    p1[np.arange(1, grid) * grid - 1] = 0.0
+    pN = np.full(n - grid, -1.0, np.float32)
+    S = sp.diags([main, p1, p1, pN, pN], [0, 1, -1, grid, -grid],
+                 format="csr")
+    S.eliminate_zeros()
+    A = sparse.csr_array(S, dtype=torch.float32, device=dev)
+    nbr = n // 128
+    bc = np.stack([rng.choice(nbr, 4, replace=False) for _ in range(nbr)])
+    r = np.repeat(np.arange(n), 8)
+    c = (np.repeat(bc, 128, axis=0)[:, :, None] * 128
+         + rng.integers(0, 128, (n, 4, 2))).reshape(-1)
+    R = sparse.csr_array(_csr(r, c, (n, n), rng), dtype=torch.float32,
+                         device=dev)
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    X = torch.from_numpy(rng.standard_normal((n, 8)).astype(
+        np.float32)).to(dev)
+    row, grid_mesh = P.make_row_mesh(), P.make_grid_mesh(2, world // 2)
+    out = {}
+
+    def spmv(name, M, mesh, **kw):
+        dM = P.shard_csr(M, mesh, **kw)
+        xs = D.shard_vector(x, dM.mesh, dM.rows_padded, layout=dM.layout)
+        before = {k: f.launches for k, f in (
+            ("dia", dia_kernel.dia_spmv), ("bsr", bsr_ops.bsr_spmv))}
+        y = P.dist_spmv(dM, xs).full_tensor()
+        out[name] = {"path": dM.spmv_path, "halo": dM.halo,
+                     "launched": {"dia": dia_kernel.dia_spmv.launches
+                                  - before["dia"],
+                                  "bsr": bsr_ops.bsr_spmv.launches
+                                  - before["bsr"]},
+                     "same": _same(y, M @ x),
+                     "err": float((y - M @ x).abs().max()
+                                  / (M @ x).abs().max())}
+        return dM
+
+    dA = spmv("halo", A, row)
+    spmv("precise", A, row, precise=True)
+    spmv("all-gather", A, row, force_all_gather=True)
+    spmv("bsr", R, row, force_all_gather=True)
+    spmv("2d-block", R, grid_mesh, layout="2d-block")
+    dG = spmv("grid-1d-row", A, grid_mesh)
+    for name, dM in (("halo", dA), ("grid-1d-row", dG)):
+        Y = P.dist_spmm(dM, P.shard_dense(X, dM.mesh, dM.rows_padded))
+        Yf = Y.full_tensor()[:, :8]
+        out[name]["spmm_same"] = _same(Yf, A @ X)
+    b = torch.ones(n, device=dev)
+    xd, itd = P.dist_cg(dA, b, rtol=0.0, maxiter=200)
+    xc, itc = sparse.linalg.cg(A, b, rtol=0.0, maxiter=200)
+    out["cg"] = {"iters": (itd, itc), "err": float(
+        (xd.full_tensor() - xc).norm() / xc.norm())}
+    torch.cuda.synchronize()
+    return out if rank == 0 else None
+
+
+@pytest.mark.gpu
+def test_dist_nccl_ranks_match_one_card():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices or more (one NCCL rank a card)")
+    from legate_sparse_tpu_torch.ops import _build
+    from legate_sparse_tpu_torch.parallel.launch import run_ranks
+
+    _build.build_all()
+    # Two ranks (both halo messages go to one peer), then every card.
+    for world in sorted({2, torch.cuda.device_count() // 2 * 2}):
+        r = run_ranks(_multi_card_cases, world, backend="nccl",
+                      timeout=300)[0]
+        halo = r["halo"]
+        assert halo["path"] == "dia-kernel" and halo["halo"] == 512, world
+        for name in ("halo", "grid-1d-row"):
+            assert r[name]["same"] and r[name]["spmm_same"], (world, name)
+            assert r[name]["launched"]["dia"] == 1, (world, name)
+        assert r["bsr"]["path"] == "bsr", world
+        assert r["bsr"]["launched"]["bsr"] == 1, world
+        for name in ("precise", "all-gather", "bsr", "2d-block"):
+            assert r[name]["err"] <= 1e-5, (world, name, r[name])
+        assert r["precise"]["path"] == "ell", world
+        assert r["2d-block"]["path"] == "2d-block", world
+        assert r["cg"]["iters"] == (200, 200), world
+        assert r["cg"]["err"] <= 1e-4, world

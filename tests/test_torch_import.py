@@ -54,6 +54,8 @@ def test_import_loads_no_jax():
         "import legate_sparse_tpu_torch.obs.comm\n"
         "import legate_sparse_tpu_torch.obs.export\n"
         "import legate_sparse_tpu_torch.obs.memory\n"
+        "import legate_sparse_tpu_torch.parallel\n"
+        "import legate_sparse_tpu_torch.parallel.launch\n"
         "import legate_sparse_tpu_torch.precond\n"
         "import legate_sparse_tpu_torch.utils_native\n"
         "import legate_sparse_tpu_torch.ops.bsr\n"
