@@ -208,10 +208,23 @@ Phases, each printing one JSON line:
    block-clustered matrix of phase 6's kind with
    ``force_all_gather=True`` through ``bsr_spmv`` (1e-5 of the
    single-device result and of its plain version) and as a 2-d block
-   on the 1x1 grid (plain); every run's launches exactly what it calls
-   for, the ``comm.*`` counters empty as their formulas predict at one
-   rank, and the timings of the distributed SpMV and SpMM beside the
-   kernels on the window (ms, host ms a call, a profile of 10 calls).
+   on the 1x1 grid (plain); ``reshard`` of pde_4096 to the 1x1 2-d
+   block and back (bit for bit with ``A @ x`` again) and
+   ``reshard_vector`` onto its own placement (no byte moved); the
+   general ESC ``dist_spgemm`` of phase 7's 1024² Poisson square, 1d-row
+   all-gather and 1x1 2-d, bit for bit with the single-device ESC; the
+   banded ``dist_spgemm`` of phase 7's 2^24-row band (``dist_diags``),
+   the band realization bit for bit with the single-device ``A @ A``,
+   timed beside it, and ``dist_spmv`` of the product through
+   ``dia_spmv`` on its window; ``DistGMG``-CG on the 4096² grid at
+   phase 8's settings (its build s, the products' realization, the
+   V-cycle's routes per level, phase 8's iteration count, x within 2e-4
+   of phase 8's iterate, the f64 true residual within twice its f32
+   floor, a V-cycle's ms and profile); every run's launches exactly
+   what it calls for, the ``comm.*`` counters empty as their formulas
+   predict at one rank, and the timings of the distributed SpMV and
+   SpMM beside the kernels on the window (ms, host ms a call, a
+   profile of 10 calls).
 
 Launch counts come from the kernel wrappers: each is set to 0 just
 before a main-path phase (in phases 10-12 and 14, each run) drives
@@ -225,9 +238,11 @@ lines are the ``kernels`` JSON object, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.
 """
 
+import atexit
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -383,24 +398,40 @@ def block_clustered_arrays(rng, rows, blocks_per_row, per_block):
     return data, cols.reshape(-1).astype(np.int32), indptr
 
 
-def phase14_rank(rank, world, grid=4096, rows=1 << 20):
+# Phase 14's full widths: the pde_4096 grid (DistGMG's too), the
+# block-clustered matrix's rows, the banded product's rows, the ESC
+# product's Poisson square and DistGMG's levels.
+P14_GRID, P14_ROWS, P14_BAND_ROWS, P14_ESC_GRID, P14_GMG_LEVELS = (
+    4096, 1 << 20, 1 << 24, 1024, 8)
+
+
+def phase14_rank(rank, world, gmg_ref=None):
     """Phase 14 (``main_path_distributed``) on one NCCL rank: the
-    distribution layer at full width (pde_4096 and its phase-10 kin on a
-    ``grid`` x ``grid`` grid, a ``rows``-row block-clustered matrix), its
-    kernels at their distributed call sites.  Returns the phase's
-    record; any failed check raises."""
+    distribution layer at the ``P14_*`` widths (pde_4096 and its
+    phase-10 kin, the block-clustered matrix, the banded product, the
+    ESC product, DistGMG-CG), its kernels at their distributed call
+    sites.  ``gmg_ref`` holds phase 8's GMG-CG iteration count, ms/iter
+    and the path of its iterate (``.npy``).  Returns the phase's record;
+    any failed check raises."""
     import numpy as np
     import scipy.sparse as sp
     import torch
     import torch.distributed
 
+    import importlib
+
     import legate_sparse_tpu_torch as sparse
     from legate_sparse_tpu_torch import linalg, obs
     from legate_sparse_tpu_torch import parallel as P
+    from legate_sparse_tpu_torch.apps import gmg as gmg_app
     from legate_sparse_tpu_torch.ops import bsr as bsr_ops
     from legate_sparse_tpu_torch.ops import dia_kernel
     from legate_sparse_tpu_torch.parallel import dist_csr as D
 
+    spgemm_mod = importlib.import_module(
+        "legate_sparse_tpu_torch.parallel.dist_spgemm")
+    grid, rows, band_rows, esc_grid, gmg_levels = (
+        P14_GRID, P14_ROWS, P14_BAND_ROWS, P14_ESC_GRID, P14_GMG_LEVELS)
     t_phase = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(14)
@@ -686,6 +717,215 @@ def phase14_rank(rank, world, grid=4096, rows=1 << 20):
         max_abs_err_vs_single=close(y2.to_local(), yr1, 1e-5,
                                     "2d-block vs the single-device R @ x"))
 
+    # (d) reshard: pde_4096 from 1d-row to the 1x1 2-d block (the plain
+    # 2-d SpMV) and back (the DIA kernel on the window again, bit for
+    # bit), and a vector onto its own placement, which moves nothing.
+    y1 = A @ x
+    d2p = P.reshard(dA, layout="2d-block")
+    check(d2p.grid == (1, 1) and d2p is not dA, f"reshard: grid {d2p.grid}")
+    x2p = D.shard_vector(x, d2p.mesh, d2p.rows_padded, layout="2d-block")
+    y2p = run("dist_spmv(pde_4096 resharded 2d-block)",
+              lambda: P.dist_spmv(d2p, x2p))
+    reshard_rec = {"to_2d_max_abs_err": close(
+        y2p.to_local()[:n], y1, 1e-5, "resharded 2d-block vs A @ x")}
+    dback = P.reshard(d2p, mesh=mesh, layout="1d-row")
+    check(P.dist_plan_fingerprint(dback) == P.dist_plan_fingerprint(dA),
+          "reshard back: another plan than the source's")
+    yb = run("dist_spmv(pde_4096 resharded back)",
+             lambda: P.dist_spmv(dback, xs), dia_spmv=1)
+    check(torch.equal(yb.to_local(), y1), "resharded back vs A @ x")
+    c0 = obs.counters.snapshot("comm.")
+    xs_same = P.reshard_vector(xs, mesh)
+    check(torch.equal(xs_same.to_local(), xs.to_local())
+          and obs.counters.snapshot("comm.") == c0,
+          "reshard_vector onto its own placement moved bytes")
+    reshard_rec["vector_same_placement_bytes"] = 0
+    del d2p, x2p, y2p, dback, yb, xs_same
+    torch.cuda.empty_cache()
+
+    # (c) The general ESC product at one rank: phase 7's 1024^2 Poisson
+    # square (holes in its band), 1d-row forced to the all-gather and as
+    # the 1x1 2-d block, each bit for bit with the single-device ESC
+    # (one rank runs the same ESC on the same entries).
+    Pp = gmg_app.poisson2D(esc_grid, dtype=torch.float32, device=dev)
+    Cp1 = Pp @ Pp
+    check(Pp.spgemm_path == "esc", f"Poisson square took {Pp.spgemm_path}")
+    counts1 = (Cp1.indptr[1:] - Cp1.indptr[:-1]).long()
+    esc_rec = {"rows": Pp.shape[0], "nnz_a": Pp.nnz, "nnz_c": Cp1.nnz}
+    for name, kw in (("1d-row all-gather", {"force_all_gather": True}),
+                     ("2d-block 1x1", {"layout": "2d-block"})):
+        dPp = P.shard_csr(Pp, mesh, **kw)
+        Cd = run(f"dist_spgemm(ESC, {name})", lambda: P.dist_spgemm(dPp, dPp))
+        if Cd.grid is None:
+            real = spgemm_mod.last_b_realization()
+            check(real == ("all_gather", ()), f"ESC realization {real}")
+            r_, c_, v_ = D._local_entries(Cd)
+        else:
+            ln = int(Cd.counts)
+            r_, c_, v_ = (Cd.row_ids[:ln].long(), Cd.cols[:ln].long(),
+                          Cd.data[:ln])
+        check(torch.equal(torch.bincount(r_, minlength=Pp.shape[0]), counts1)
+              and torch.equal(c_, Cp1.indices.long())
+              and torch.equal(v_, Cp1.data),
+              f"dist_spgemm(ESC, {name}) vs the single-device ESC")
+        esc_rec[name] = {"nnz_hint": Cd.nnz_hint, "bitwise": True,
+                         "ms": time_ms(lambda: P.dist_spgemm(dPp, dPp),
+                                       reps=3)}
+        del Cd, r_, c_, v_, dPp
+    esc_rec["single_device_ms"] = time_ms(lambda: Pp @ Pp, reps=3)
+    del Pp, Cp1, counts1
+    torch.cuda.empty_cache()
+
+    # (a) The banded distributed A @ A at 2^24 rows: BASELINE config 5's
+    # band (5 ones a row) built by dist_diags takes the band realization,
+    # bit for bit with the single-device A @ A (the SpGEMM kernel and
+    # band_to_csr; small integers, so every sum is exact in f32).  Then
+    # dist_spmv of the product through dia_spmv on its window.
+    boffs = [-2, -1, 0, 1, 2]
+    bdiags = [np.ones(band_rows - abs(o), np.float32) for o in boffs]
+    Ab = sparse.diags(bdiags, boffs, shape=(band_rows, band_rows),
+                      format="csr", dtype=torch.float32)
+    dB = P.dist_diags(bdiags, boffs, shape=(band_rows, band_rows), mesh=mesh,
+                      dtype=np.float32)
+    del bdiags
+    Cb1 = Ab @ Ab
+    check(Ab.spgemm_path == "dia-kernel", f"A @ A took {Ab.spgemm_path}")
+    c0 = obs.counters.snapshot("dist_spgemm.")
+    Cb = run("dist_spgemm(band 2^24)", lambda: P.dist_spgemm(dB, dB))
+    took = {k: v - c0.get(k, 0)
+            for k, v in obs.counters.snapshot("dist_spgemm.").items()
+            if v != c0.get(k, 0)}
+    check(took == {"dist_spgemm.realization.band": 1}
+          and Cb.dia_data is not None and Cb.dia_pack is not None,
+          f"the banded product took {took}")
+    r_, c_, v_ = D._local_entries(Cb)
+    check(torch.equal(Cb.counts.long(), (Cb1.indptr[1:]
+                                         - Cb1.indptr[:-1]).long())
+          and torch.equal(c_, Cb1.indices.long())
+          and torch.equal(v_, Cb1.data),
+          "dist_spgemm(band) vs the single-device A @ A")
+    del r_, c_, v_
+    band_rec = {"rows": band_rows, "nnz_c": Cb1.nnz,
+                "offsets_c": list(Cb.dia_offsets), "halo_c": Cb.halo,
+                "bitwise_vs_single": True,
+                "ms": time_ms(lambda: P.dist_spgemm(dB, dB), reps=5),
+                "single_device_ms": time_ms(lambda: Ab @ Ab, reps=5),
+                "profile": profile_calls(lambda: P.dist_spgemm(dB, dB))}
+    xb = torch.from_numpy(rng.standard_normal(band_rows).astype(
+        np.float32)).to(dev)
+    xbs = D.shard_vector(xb, mesh, Cb.rows_padded)
+    yb = run("dist_spmv(band product)", lambda: P.dist_spmv(Cb, xbs),
+             dia_spmv=1)
+    check(Cb.spmv_path == "dia-kernel", f"band product: {Cb.spmv_path}")
+    pkb = Cb.dia_pack
+    xbw = D._extend_x(xb, Cb.halo, group)
+    hold("dist_spmv(band product) window", "dia_spmv",
+         dia_kernel.dia_spmv(pkb, xbw),
+         dia_kernel.dia_spmv_plain(pkb.rdata, pkb.rmask, xbw, pkb.offsets,
+                                   pkb.shape), True)
+    yb1 = Cb1 @ xb
+    band_rec["spmv_vs_single"] = {
+        "max_abs_err": close(yb.to_local(), yb1, 1e-6,
+                             "dist_spmv(band product) vs (A @ A) @ x"),
+        "bitwise": bool(torch.equal(yb.to_local(), yb1))}
+    band_rec["spmv_ms"] = time_ms(lambda: P.dist_spmv(Cb, xbs.to_local()))
+    del Ab, dB, Cb, Cb1, xb, xbs, yb, yb1, pkb, xbw
+    torch.cuda.empty_cache()
+
+    # (b) DistGMG-CG on the grid^2 Poisson operator at phase 8's settings
+    # (linear transfers, gmg_levels levels, rtol 1e-5, b from
+    # default_rng(0)): the hierarchy's build seconds, the realization of
+    # its Galerkin products, the V-cycle's routes per level, iterations
+    # (phase 8's count) and ms/iter, the f64 true residual, and x within
+    # 2e-4 of phase 8's iterate (each of the two is within 1e-4 of the
+    # exact solution by phase 8's check).
+    Ag = gmg_app.poisson2D(grid, dtype=torch.float32, device=dev)
+    dG = P.shard_csr(Ag, mesh)
+    c0 = obs.counters.snapshot("dist_spgemm.realization.")
+    sync()
+    t0 = time.perf_counter()
+    mg = P.DistGMG(dG, levels=gmg_levels, gridop="linear")
+    sync()
+    gmg_rec = {"build_s": time.perf_counter() - t0, "realizations": {
+        k[len("dist_spgemm.realization."):]: v - c0.get(k, 0)
+        for k, v in obs.counters.snapshot(
+            "dist_spgemm.realization.").items() if v != c0.get(k, 0)}}
+    check(sum(gmg_rec["realizations"].values()) == 2 * (gmg_levels - 1),
+          f"DistGMG's products: {gmg_rec['realizations']}")
+    b64 = torch.from_numpy(np.random.default_rng(0).random(n)).to(dev)
+    bg = b64.float()
+    zero = torch.zeros(n, dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    P.dist_spmv(dG, zero)
+    mg.cycle(zero)
+    sync()
+    gmg_rec["first_cycle_s"] = time.perf_counter() - t0
+    levels_A = [dG] + [op[1] for op in mg.operators]
+
+    def gmg_want(route):
+        def count(out):
+            it = out[1]
+            fine = (it + 1) * (dG.spmv_path == route)
+            cyc = sum(2 * (levels_A[lv].spmv_path == route)
+                      + (mg.operators[lv][0].spmv_path == route)
+                      + (mg.operators[lv][2].spmv_path == route)
+                      for lv in range(gmg_levels - 1))
+            return fine + it * cyc
+        return count
+
+    xg, itg = run("DistGMG-CG", lambda: P.dist_cg(
+        dG, bg, rtol=1e-5, maxiter=200, M=mg.cycle),
+        dia_spmv=gmg_want("dia-kernel"), bsr_spmv=gmg_want("bsr"))
+    gmg_rec["routes"] = [{"A": levels_A[lv].spmv_path,
+                          "R": mg.operators[lv][0].spmv_path,
+                          "P": mg.operators[lv][2].spmv_path}
+                         for lv in range(gmg_levels - 1)]
+    gmg_rec["iters"] = int(itg)
+    gmg_rec["ms_per_iter"] = runs["DistGMG-CG"]["card_ms"] / max(itg, 1)
+    check(runs["DistGMG-CG"]["launches"].get("dia_spmv", 0) > 0,
+          "DistGMG-CG launched no dia_spmv on its fine level")
+    rel_res, floor = gmg_app._residuals(Ag, b64, xg.to_local())
+    gmg_rec.update(rel_residual_f64=rel_res, residual_floor=floor)
+    check(rel_res <= max(1e-5, 2.0 * floor),
+          f"DistGMG-CG true relative residual {rel_res} (floor {floor})")
+    if gmg_ref is not None:
+        x8 = torch.from_numpy(np.load(gmg_ref["x"])).to(dev)
+        gmg_rec["phase8"] = {k: gmg_ref[k] for k in ("iters", "ms_per_iter")}
+        gmg_rec["rel_diff_to_phase8_x"] = rel(xg.to_local(), x8)
+        check(itg == gmg_ref["iters"], f"DistGMG-CG took {itg} iterations, "
+              f"phase 8's GMG-CG {gmg_ref['iters']}")
+        check(gmg_rec["rel_diff_to_phase8_x"] <= 2e-4,
+              f"DistGMG-CG x vs phase 8's: {gmg_rec['rel_diff_to_phase8_x']}")
+        del x8
+    # Every V-cycle operator that took the BSR route (the rectangular R
+    # and P row blocks of the coarse levels among them): its kernel held
+    # against the plain version on an x of its column count, as the
+    # route's all-gather gives it at one rank.
+    gmg_rec["bsr_held"] = []
+    for lv in range(gmg_levels - 1):
+        for role, M in (("A", levels_A[lv]), ("R", mg.operators[lv][0]),
+                        ("P", mg.operators[lv][2])):
+            if M.spmv_path != "bsr":
+                continue
+            st = M.bsr
+            xf = torch.zeros(st.nbc * 128, dtype=st.dtype, device=dev)
+            xf[:M.shape[1]] = torch.from_numpy(rng.standard_normal(
+                M.shape[1]).astype(np.float32)).to(dev)
+            x2d = xf.reshape(-1, 128)
+            name = f"DistGMG level {lv} {role} row block"
+            hold(name, "bsr_spmv", bsr_ops.bsr_spmv(st, x2d),
+                 bsr_ops.bsr_spmv_plain(st, x2d), False)
+            gmg_rec["bsr_held"].append([lv, role, list(M.shape)])
+    check(len(gmg_rec["bsr_held"]) == sum(
+        r == "bsr" for lv in gmg_rec["routes"] for r in lv.values()),
+        "a BSR route of the V-cycle was not held against its plain version")
+    gmg_rec["diagnostics"] = mg.diagnostics().splitlines()
+    # One V-cycle alone: its ms and where its device time goes.
+    gmg_rec["cycle_ms"] = time_ms(lambda: mg.cycle(bg), reps=5)
+    gmg_rec["cycle_profile"] = profile_calls(lambda: mg.cycle(bg))
+    del Ag, dG, mg, levels_A, xg, b64, bg, zero
+    torch.cuda.empty_cache()
+
     # At one rank no collective moves a byte: the comm ledger holds none,
     # as its formulas predict.
     predicted = {"dist_spmv(pde_4096)": D.spmv_comm_volumes(dA, n, 4),
@@ -696,7 +936,8 @@ def phase14_rank(rank, world, grid=4096, rows=1 << 20):
           and not any(comm.values()),
           f"one rank moved bytes: {predicted}, {comm}")
     return {"runs": runs, "launches": launches, "kernel_vs_plain": vs_plain,
-            "timing": timing, "builds": builds,
+            "timing": timing, "builds": builds, "band_spgemm": band_rec,
+            "esc_spgemm": esc_rec, "dist_gmg": gmg_rec, "reshard": reshard_rec,
             "spmv_max_abs_err_vs_scipy_f64": vs_scipy,
             "comm_counters": comm, "seconds_in_rank":
             time.perf_counter() - t_phase}
@@ -1648,6 +1889,12 @@ def main() -> int:
     check(ref_res <= 1e-8, f"DST reference residual {ref_res}")
     check(x_err <= 1e-4, f"GMG-CG relative error to the exact solution "
           f"{x_err}")
+    # Phase 14 holds the distributed GMG-CG to this solve.
+    ref_dir = tempfile.mkdtemp(prefix="chip-smoke-")
+    atexit.register(shutil.rmtree, ref_dir, ignore_errors=True)
+    gmg_ref = {"x": os.path.join(ref_dir, "x_gmg.npy"),
+               "iters": sol["iters"], "ms_per_iter": sol["ms_per_iter"]}
+    np.save(gmg_ref["x"], x_gmg.cpu().numpy())
     del x_gmg, sol, mg, A_sp, x_ref, b64
     torch.cuda.empty_cache()
 
@@ -3447,8 +3694,9 @@ def main() -> int:
 
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    p14 = run_ranks(phase14_rank, 1, backend="nccl", timeout=600,
-                    init_timeout=120)[0]
+    p14 = run_ranks(phase14_rank, 1, backend="nccl", timeout=900,
+                    init_timeout=120, args=(gmg_ref,))[0]
+    shutil.rmtree(ref_dir, ignore_errors=True)
     log({"phase": "main_path_distributed", "nvidia_smi": smi_line, **p14,
          "seconds": time.perf_counter() - t0})
     phase14 = p14["launches"]

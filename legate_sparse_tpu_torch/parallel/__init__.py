@@ -1,11 +1,13 @@
 # Copyright 2026.
 # SPDX-License-Identifier: Apache-2.0
 """The distribution layer on ``torch.distributed``: process groups and
-meshes, row/column/2-d block sharded CSR, distributed SpMV/SpMM, the
-distributed solvers and the sharded banded constructors.
+meshes, row/column/2-d block sharded CSR, distributed SpMV/SpMM/SpGEMM,
+the distributed solvers, the distributed GMG preconditioner,
+resharding and the sharded banded constructors.
 
 Counterpart of ``legate_sparse_tpu/parallel/`` (its ``mesh``,
-``dist_csr`` and ``dist_build``), under the same public names.  Every
+``dist_csr``, ``dist_build``, ``dist_spgemm``, ``dist_gmg`` and
+``reshard``), under the same public names.  Every
 rank is a process that calls the same functions with the same
 arguments, holds one shard on its own device, and talks to the others
 through NCCL (``cuda``) or gloo (the CPU)::
@@ -17,8 +19,8 @@ through NCCL (``cuda``) or gloo (the CPU)::
     x, iters = P.dist_cg(A, b, rtol=1e-5)   # x: a sharded DTensor
 
 ``launch.run_ranks`` starts N ranks of a fresh group from a process
-that holds none.  ``dist_spgemm``, ``dist_gmg``, ``reshard`` and
-``survivor_mesh`` wait for the next slice of the port.
+that holds none.  ``survivor_mesh`` (a mesh without a lost rank) waits
+for the resilience layer, and with it ``reshard`` onto fewer ranks.
 """
 
 from .mesh import (  # noqa: F401
@@ -50,3 +52,6 @@ from .dist_csr import (  # noqa: F401
     mesh_fingerprint,
 )
 from .dist_build import dist_diags, dist_poisson2d  # noqa: F401
+from .dist_spgemm import dist_spgemm  # noqa: F401
+from .dist_gmg import DistGMG  # noqa: F401
+from .reshard import chunk_permute_plan, reshard, reshard_vector  # noqa: F401

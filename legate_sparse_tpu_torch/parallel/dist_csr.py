@@ -60,7 +60,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 import numpy as np
@@ -99,7 +99,14 @@ class DistCSR:
     ``dia_data``/``dia_mask`` (nd, rps) are the banded blocks of the
     halo mode, ``dia_pack`` their kernel pack over the window
     (``attach_dia_prepack``), ``bsr`` the BSR structure of an
-    all-gather row block (``attach_bsr_prepack``)."""
+    all-gather row block (``attach_bsr_prepack``).
+
+    ``nnz_cap`` is the largest padded-CSR block over the ranks where a
+    rank's own block is smaller (every rank holds the same number; 0
+    where each block is the shared size): the JAX package's padded
+    width, which the comm formulas and ``dist_spgemm``'s plan key read.
+    ``_src_csr`` is the ``csr_array`` ``shard_csr`` partitioned, which
+    ``reshard`` repartitions."""
 
     data: Optional[torch.Tensor]
     cols: Optional[torch.Tensor]
@@ -125,6 +132,8 @@ class DistCSR:
     nnz_hint: int = 0
     layout: str = LAYOUT_1D_ROW
     grid: Optional[Tuple[int, int]] = None
+    nnz_cap: int = 0
+    _src_csr: object = field(default=None, repr=False, compare=False)
 
     # ---- where this rank sits ----
     @property
@@ -210,27 +219,8 @@ class DistCSR:
                     to_numpy(self.cols[:ln]).astype(np.int64)
                     + j * self.cols_per_shard,
                     to_numpy(self.data[:ln]))
-        s = self.shard
-        start = s * rps
-        if self.ell:
-            W = self.cols.shape[1]
-            valid = (torch.arange(W, device=self.cols.device)[None, :]
-                     < self.counts[:, None])
-            r = (torch.arange(rps, device=self.cols.device)[:, None]
-                 .expand(rps, W)[valid])
-            c, v = self.cols[valid], self.data[valid]
-        else:
-            ln = int(self.counts)
-            r, c, v = self.row_ids[:ln], self.cols[:ln], self.data[:ln]
-        c = to_numpy(c).astype(np.int64)
-        if self.gather_globals is not None:
-            base = to_numpy(self.gather_globals).reshape(-1)
-            rc = base.shape[0]
-            c = np.where(c < rc, base[np.clip(c, 0, rc - 1)],
-                         c - rc + s * self.cols_per_shard)
-        elif self.halo >= 0:
-            c = c + (start - self.halo)
-        return to_numpy(r).astype(np.int64) + start, c, to_numpy(v)
+        r, c, v = _local_entries(self)
+        return (to_numpy(r) + self.shard * rps, to_numpy(c), to_numpy(v))
 
     def _dia_coo(self):
         rows, cols = self.shape
@@ -271,6 +261,34 @@ class DistCSR:
 
 
 # ----------------------------------------------------------- structure --
+
+def _local_entries(A: DistCSR):
+    """This rank's stored entries of a 1d-row layout in storage order
+    (row-major, each row's slots in order) as tensors on its device:
+    local row (int64), global column (int64, rebased from the halo
+    window or the precise plan's compact buffer) and value
+    (``_a_local_flat``, ``dist_spgemm.py:87``)."""
+    A._require_blocks("this operation")
+    rps, dev = A.rows_per_shard, A.data.device
+    if A.ell:
+        W = A.cols.shape[1]
+        valid = (torch.arange(W, device=dev)[None, :] < A.counts[:, None])
+        r = torch.arange(rps, device=dev)[:, None].expand(rps, W)[valid]
+        c, v = A.cols[valid].to(torch.int64), A.data[valid]
+    else:
+        ln = int(A.counts)
+        r = A.row_ids[:ln].to(torch.int64)
+        c, v = A.cols[:ln].to(torch.int64), A.data[:ln]
+    start = A.shard * rps
+    if A.gather_globals is not None:
+        base = A.gather_globals.reshape(-1).to(torch.int64)
+        rc = base.shape[0]
+        c = torch.where(c < rc, base[torch.clamp(c, 0, rc - 1)],
+                        c - rc + A.shard * A.cols_per_shard)
+    elif A.halo >= 0:
+        c = c + (start - A.halo)
+    return r, c, v
+
 
 def attach_dia_prepack(A: DistCSR) -> DistCSR:
     """The DIA kernel's pack of this rank's band over the halo-extended
@@ -435,6 +453,8 @@ def _shard_csr_2d(A, mesh, layout: str) -> DistCSR:
     col = A.indices.to(torch.int64)
     mine = ((row_ids // rps == i) & (col // cps == j))
     col_dt = torch.int16 if cps - 1 <= 32767 else torch.int32
+    per_block = torch.bincount((row_ids // rps) * Rc + col // cps,
+                               minlength=N)
     ln = int(mine.sum())
     cap = max(ln, 1)
     dev = mesh_device(mesh)
@@ -452,7 +472,8 @@ def _shard_csr_2d(A, mesh, layout: str) -> DistCSR:
         counts=torch.tensor(ln, dtype=torch.int32, device=dev),
         row_ids=rid.to(dev), shape=(rows, cols), rows_per_shard=rps,
         halo=-1, ell=False, mesh=mesh, cols_per_shard=cps,
-        nnz_hint=A.nnz, layout=layout, grid=grid)
+        nnz_hint=A.nnz, layout=layout, grid=grid,
+        nnz_cap=max(int(per_block.max()), 1) if A.nnz else 1, _src_csr=A)
 
 
 def shard_csr(A, mesh=None, force_all_gather: bool = False,
@@ -601,7 +622,7 @@ def shard_csr(A, mesh=None, force_all_gather: bool = False,
         gather_globals=(put(torch.from_numpy(gather_globals[s]))
                         if precise else None),
         cols_per_shard=cps, dia_data=dia_block, dia_offsets=dia_offs,
-        dia_mask=dia_mask_block, nnz_hint=nnz))
+        dia_mask=dia_mask_block, nnz_hint=nnz, _src_csr=A))
 
 
 # -------------------------------------------------------------- vectors --
@@ -1193,15 +1214,17 @@ def dist_minres(A: DistCSR, b, x0=None, shift=0.0, tol=None, maxiter=None,
     """Distributed MINRES (``dist_csr.py:2340``): the single-device
     loop (``krylov_extra._minres_loop``) over this rank's blocks; the
     padded rows make the system singular but consistent, which MINRES
-    tolerates.  ``callback`` (a host scipy loop in the JAX package) is
-    not supported."""
+    tolerates.  With a ``callback`` the solve is single-device
+    ``minres``'s scipy host loop, as in the JAX package, on the padded
+    operator (``_host_operator``): every rank runs the same loop on the
+    same all-gathered vectors, and the callback sees each iterate as a
+    host array of the true row count."""
     from ..krylov_extra import _minres_loop
     from ..linalg import _get_atol_rtol, _norm
 
     if callback is not None:
-        raise NotImplementedError(
-            "dist_minres: callback= runs scipy's host loop in the JAX "
-            "package and has no distributed counterpart here")
+        return _minres_on_host(A, b, x0, shift, tol, maxiter, M, callback,
+                               rtol)
     rows, b_loc, x0_loc, maxiter, _, M_loc = _shard_system(
         A, b, x0, maxiter, None, M)
     x = x0_loc if x0_loc is not None else torch.zeros_like(b_loc)
@@ -1211,6 +1234,46 @@ def dist_minres(A: DistCSR, b, x0=None, shift=0.0, tol=None, maxiter=None,
             A.matvec_fn(), M_loc, b_loc, x,
             torch.as_tensor(shift, dtype=b_loc.dtype, device=b_loc.device),
             atol, maxiter, int(conv_test_iters))
+    return _global_vector(A, x, rows), iters
+
+
+def _host_operator(A: DistCSR, fn, dtype):
+    """``fn`` (this rank's block -> this rank's block) as a scipy
+    ``LinearOperator`` on padded host vectors: each rank applies it to
+    its block of the vector and the blocks are all-gathered back, so
+    every rank returns the same array."""
+    import scipy.sparse.linalg as ssl
+
+    L, k, n = A.local_len, _chunk_index(A.mesh, A.layout), A.rows_padded
+    dev = A.device
+
+    def mv(v):
+        v = torch.from_numpy(np.ascontiguousarray(v).reshape(-1)).to(
+            dev, dtype)
+        y = _all_gather(fn(v[k * L:(k + 1) * L]), A.vector_group)
+        return to_numpy(y)
+
+    return ssl.LinearOperator((n, n), matvec=mv,
+                              dtype=np.dtype(str(dtype).split(".")[-1]))
+
+
+def _minres_on_host(A: DistCSR, b, x0, shift, tol, maxiter, M, callback,
+                    rtol):
+    """``dist_minres(callback=...)``: single-device ``minres`` (its
+    scipy branch) on the padded system, as the JAX package runs it."""
+    from ..krylov_extra import minres
+
+    rows, n, dev = A.shape[0], A.rows_padded, A.device
+    bt = _local_rows(_global_host(b, dev), n, 0, n)
+    x0t = (None if x0 is None else
+           _local_rows(_global_host(x0, dev).to(bt.dtype), n, 0, n))
+    op = _host_operator(A, A.matvec_fn(), bt.dtype)
+    Mop = None if M is None else _host_operator(A, M, bt.dtype)
+    x, iters = minres(op, bt, x0=x0t, shift=shift, tol=tol,
+                      maxiter=rows * 10 if maxiter is None else maxiter,
+                      M=Mop, callback=lambda xk: callback(xk[:rows]),
+                      rtol=rtol)
+    x = _local_rows(x, A.local_len, _chunk_index(A.mesh, A.layout), n)
     return _global_vector(A, x, rows), iters
 
 

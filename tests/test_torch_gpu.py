@@ -915,6 +915,132 @@ def test_dist_bsr_kernel_on_row_block(dist_card, case):
     assert_same_nonfinite(r["dist"], r["single"])
 
 
+# ---- dist_spgemm and DistGMG on one NCCL rank ---------------------------
+#
+# The banded product (small integers, so every sum is exact in f32 in
+# any order) against the single-device ``A @ A`` through the SpGEMM
+# kernel, structure and values bit for bit, and its DIA SpMV (the
+# kernel on the window) against the single-device product's; the ESC
+# product of a holey Poisson square, 1d-row forced to the all-gather
+# and as a 1x1 2-d block, bit for bit with the single-device ESC (one
+# rank runs the same ESC on the same entries); DistGMG-CG against the
+# single-device GMG-CG of ``apps/gmg.py`` (f32, rtol 1e-5): the same
+# iteration count, x within 1e-3 of its norm (the hierarchies associate
+# the Galerkin product and estimate rho differently), the DIA kernel
+# launched on the fine level.
+
+def _dist_spgemm_gmg_cases(rank, world):
+    import importlib
+
+    from legate_sparse_tpu_torch import linalg, parallel as P
+    from legate_sparse_tpu_torch.apps import gmg as gmg_app
+    from legate_sparse_tpu_torch.parallel import dist_csr as D
+
+    spgemm_mod = importlib.import_module(
+        "legate_sparse_tpu_torch.parallel.dist_spgemm")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = P.make_row_mesh()
+    rng = np.random.default_rng(43)
+    out = {}
+    n = 1 << 16
+    offsets = [-3, -1, 0, 2, 5]
+    # Nonzero small integers: an exact band, and exact sums.
+    vals = [rng.choice([-3.0, -2.0, -1.0, 1.0, 2.0, 3.0],
+                       n - abs(o)).astype(np.float32) for o in offsets]
+    A = sparse.diags(vals, offsets, shape=(n, n), format="csr",
+                     dtype=torch.float32, device=dev)
+    dA = P.dist_diags(vals, offsets, shape=(n, n), mesh=mesh,
+                      dtype=np.float32)
+    C1 = A @ A
+    before = dia_kernel.dia_spmv.launches
+    C = P.dist_spgemm(dA, dA)
+    r, c, v = D._local_entries(C)
+    x = torch.from_numpy(rng.integers(-3, 4, n).astype(np.float32)).to(dev)
+    y = P.dist_spmv(C, D.shard_vector(x, mesh, C.rows_padded)).to_local()
+    launched = dia_kernel.dia_spmv.launches - before
+    torch.cuda.synchronize()
+    out["band"] = {
+        "single_path": A.spgemm_path, "dist_path": C.spmv_path,
+        "dia": C.dia_data is not None, "launched": launched,
+        "indptr": torch.equal(torch.bincount(r, minlength=n),
+                              (C1.indptr[1:] - C1.indptr[:-1]).long()),
+        "indices": torch.equal(c, C1.indices.long()),
+        "data": torch.equal(v, C1.data),
+        "spmv": torch.equal(y, C1 @ x)}
+    Pp = gmg_app.poisson2D(128, dtype=torch.float32, device=dev)
+    C1 = Pp @ Pp
+    for name, kw in (("esc-1d", {"force_all_gather": True}),
+                     ("esc-2d", {"layout": "2d-block"})):
+        dPp = P.shard_csr(Pp, mesh, **kw)
+        C = P.dist_spgemm(dPp, dPp)
+        r, c, v = D._local_entries(C) if C.grid is None else (
+            C.row_ids[:int(C.counts)].long(),
+            C.cols[:int(C.counts)].long(), C.data[:int(C.counts)])
+        torch.cuda.synchronize()
+        out[name] = {
+            "realization": spgemm_mod.last_b_realization()[0],
+            "grid": C.grid, "single_path": Pp.spgemm_path,
+            "indptr": torch.equal(torch.bincount(r, minlength=Pp.shape[0]),
+                                  (C1.indptr[1:] - C1.indptr[:-1]).long()),
+            "indices": torch.equal(c, C1.indices.long()),
+            "data": torch.equal(v, C1.data)}
+    N = 64
+    sol = gmg_app.solve(N, 4, gridop="linear", tol=1e-5, dtype=torch.float32,
+                        device=dev)
+    Ag = gmg_app.poisson2D(N, dtype=torch.float32, device=dev)
+    dG = P.shard_csr(Ag, mesh)
+    mg = P.DistGMG(dG, levels=4, gridop="linear")
+    b = torch.from_numpy(np.random.default_rng(0).random(N * N)).to(
+        dev, torch.float32)
+    before = dia_kernel.dia_spmv.launches
+    xd, it = P.dist_cg(dG, b, rtol=1e-5, maxiter=200, M=mg.cycle)
+    launched = dia_kernel.dia_spmv.launches - before
+    xs = sol["x"]
+    torch.cuda.synchronize()
+    out["gmg"] = {"iters": (it, sol["iters"]), "fine_path": dG.spmv_path,
+                  "launched": launched,
+                  "err": float((xd.to_local() - xs).norm() / xs.norm())}
+    return out
+
+
+@pytest.fixture(scope="module")
+def spgemm_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from legate_sparse_tpu_torch.parallel.launch import run_ranks
+
+    return run_ranks(_dist_spgemm_gmg_cases, 1, backend="nccl",
+                     timeout=300)[0]
+
+
+@pytest.mark.gpu
+def test_dist_band_spgemm_on_card(spgemm_card):
+    r = spgemm_card["band"]
+    assert r["single_path"] == "dia-kernel" and r["dia"]
+    assert r["indptr"] and r["indices"] and r["data"]
+    assert r["dist_path"] == "dia-kernel" and r["launched"] == 1
+    assert r["spmv"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["esc-1d", "esc-2d"])
+def test_dist_esc_spgemm_on_card(spgemm_card, name):
+    r = spgemm_card[name]
+    assert r["single_path"] == "esc"
+    assert r["grid"] == (None if name == "esc-1d" else (1, 1))
+    if name == "esc-1d":
+        assert r["realization"] == "all_gather"
+    assert r["indptr"] and r["indices"] and r["data"]
+
+
+@pytest.mark.gpu
+def test_dist_gmg_cg_on_card(spgemm_card):
+    r = spgemm_card["gmg"]
+    assert r["iters"][0] == r["iters"][1]
+    assert r["fine_path"] == "dia-kernel" and r["launched"] > 0
+    assert r["err"] <= 1e-3, r["err"]
+
+
 # ---- more than one card: the collectives across NCCL ranks ---------------
 #
 # One NCCL rank a card (two, then every visible card; skipped with fewer
@@ -986,6 +1112,48 @@ def _multi_card_cases(rank, world):
     xc, itc = sparse.linalg.cg(A, b, rtol=0.0, maxiter=200)
     out["cg"] = {"iters": (itd, itc), "err": float(
         (xd.full_tensor() - xc).norm() / xc.norm())}
+    # dist_spgemm: the banded product (its halo exchange) of the exact
+    # band dist_poisson2d stores, against scipy's f64 product; the ESC
+    # of a holey upper bidiagonal, whose window rotations bring the next
+    # row block at three ranks and more, against the single-card ESC.
+    import importlib
+
+    spgemm_mod = importlib.import_module(
+        "legate_sparse_tpu_torch.parallel.dist_spgemm")
+    dB = P.dist_poisson2d(grid, mesh=row, dtype=np.float32)
+    SB = dB.to_csr().toscipy().astype(np.float64)
+    SC = P.dist_spgemm(dB, dB).to_csr().toscipy()
+    out["band-spgemm"] = {"err": float(abs(SC - SB @ SB).max())}
+    d0 = rng.standard_normal(n).astype(np.float32)
+    d0[::3] = 0.0
+    H = sp.diags([d0, rng.standard_normal(n - 1).astype(np.float32)],
+                 [0, 1], format="csr")
+    H.eliminate_zeros()
+    Hc = sparse.csr_array(H, dtype=torch.float32, device=dev)
+    dH = P.shard_csr(Hc, row)
+    C = P.dist_spgemm(dH, dH)
+    real = spgemm_mod.last_b_realization()[0]
+    S1, SC = (Hc @ Hc).toscipy(), C.to_csr().toscipy()
+    out["esc-spgemm"] = {
+        "realization": real,
+        "same_structure": bool(np.array_equal(S1.indptr, SC.indptr)
+                               and np.array_equal(S1.indices, SC.indices)),
+        "err": float(np.abs(S1.data - SC.data).max()
+                     / np.abs(S1.data).max())}
+    # reshard_vector onto the placement rotated by one rank, and back.
+    from torch.distributed.device_mesh import DeviceMesh
+
+    rot = DeviceMesh("cuda", list(range(1, world)) + [0],
+                     mesh_dim_names=("rows",))
+    xs = D.shard_vector(x, row, n)
+    w = P.reshard_vector(xs, rot)
+    L = n // world
+    c = (rank - 1) % world          # rank r holds chunk r - 1 there
+    back = P.reshard_vector(w, row)
+    out["reshard"] = {"chunk": bool(torch.equal(w.to_local(),
+                                                x[c * L:(c + 1) * L])),
+                      "back": bool(torch.equal(back.to_local(),
+                                               xs.to_local()))}
     torch.cuda.synchronize()
     return out if rank == 0 else None
 
@@ -1015,3 +1183,10 @@ def test_dist_nccl_ranks_match_one_card():
         assert r["2d-block"]["path"] == "2d-block", world
         assert r["cg"]["iters"] == (200, 200), world
         assert r["cg"]["err"] <= 1e-4, world
+        band = r["band-spgemm"]
+        assert band["err"] <= 1e-5, (world, band)
+        esc = r["esc-spgemm"]
+        assert esc["realization"] == ("window" if world >= 3
+                                      else "all_gather"), world
+        assert esc["same_structure"] and esc["err"] <= 1e-6, (world, esc)
+        assert r["reshard"]["chunk"] and r["reshard"]["back"], world
