@@ -226,10 +226,35 @@ Phases, each printing one JSON line:
    SpMM beside the kernels on the window (ms, host ms a call, a
    profile of 10 calls).
 
+15. graph analytics and the delta layer: (M) ``main_path_mutation``
+   (``phase15_mutation``): ``DeltaCSR`` on pde_4096 with the default
+   capacity (1024) and watermark (0.75), the empty buffer's ``dot`` bit
+   for bit with ``A @ x`` through ``dia_spmv``, 768 updates of
+   ``mutation_stream(23, A, 768, batch=64)`` with a ``dot`` after each
+   batch held to the mutated matrix's product on the host (scipy, f64)
+   at 1e-6 of ``|A'| |x|``, ``maybe_compact`` at the watermark bit for
+   bit with the port's COO constructor of the merged triples (merged on
+   the host) and its ``dot`` with that matrix's, a view pinned before
+   the swap still serving its version; update ms a batch, the two-term
+   ``dot`` ms beside the base's, compaction s, the route before and
+   after.  (G) and (MD) ``main_path_graph`` (``phase15_rank``, one NCCL
+   rank): BFS, SSSP, connected components and PageRank (``tol=0``, 20
+   iterations) on the directed R-MAT graph at scale 21 (2,097,152
+   vertices, 33,554,432 sampled edges, f64), each against scipy on the
+   host (levels equal to unweighted ``dijkstra``, distances within
+   1e-12, the weak-component partition up to relabelling, PageRank
+   within 1e-10 of a f64 power iteration), batched BFS and SSSP over 4
+   sources bit for bit with the per-source runs, components on the 1x1
+   2-d block (the MIN all-reduce arm); sweeps, card ms, host fetches,
+   routes, scipy's host s, and a sweep of each product alone;
+   ``DistDeltaCSR`` on pde_4096 bit for bit with ``DeltaCSR.dot`` on
+   one buffer (the base term ``dia_spmv`` on the window), ``reshard``
+   to 2d-block and back with the updates pending, ``compact``.
+
 Launch counts come from the kernel wrappers: each is set to 0 just
-before a main-path phase (in phases 10-12 and 14, each run) drives
+before a main-path phase (in phases 10-12, 14 and 15, each run) drives
 its path and read just after; the ``kernels`` line's launches add
-phases 10's, 11's, 12's and 14's to those of phases 4-7, and its
+phases 10's, 11's, 12's, 14's and 15's to those of phases 4-7, and its
 ``max_abs_err`` is the largest over the kernel's shapes in phases 4-7,
 10-12 and 14.  Any
 failed check raises, so the script exits non-zero; it exits non-zero
@@ -941,6 +966,518 @@ def phase14_rank(rank, world, gmg_ref=None):
             "spmv_max_abs_err_vs_scipy_f64": vs_scipy,
             "comm_counters": comm, "seconds_in_rank":
             time.perf_counter() - t_phase}
+
+
+# Phase 15's full widths: the R-MAT graph's scale (Graph500's edge
+# factor of 16 a vertex), the batched sources, the pde grid of (M) and
+# (MD), and (MD)'s updates.
+P15_SCALE, P15_SOURCES, P15_GRID, P15_MD_UPDATES = 21, 4, 4096, 256
+
+
+def pde_diagonals(grid):
+    """pde_4096's diagonals and offsets (phase 4) at ``grid``: the
+    5-point Poisson stencil, f32, its zeros at a grid row's end
+    stored."""
+    import numpy as np
+
+    n = grid * grid
+    p1 = np.full(n - 1, -1.0, np.float32)
+    p1[np.arange(1, grid) * grid - 1] = 0.0
+    pN = np.full(n - grid, -1.0, np.float32)
+    return ([np.full(n, 4.0, np.float32), p1, p1, pN, pN],
+            [0, 1, -1, grid, -grid])
+
+
+def counted_run(fn):
+    """``fn()`` with the kernel counts set to 0 just before it:
+    ``(out, counts, card ms by CUDA events, host s)``."""
+    import torch
+
+    sync()
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    secs = time.perf_counter() - t0
+    return out, read_counts(), start.elapsed_time(end), secs
+
+
+def route_launches(path: str) -> dict:
+    """The launches one SpMV on ``path`` makes."""
+    return {"dia-kernel": {"dia_spmv": 1}, "bsr": {"bsr_spmv": 1}}.get(
+        path, {})
+
+
+def phase15_mutation(grid=None):
+    """Phase 15 (M), ``main_path_mutation``: ``DeltaCSR`` on pde_4096
+    (f32) with the default capacity and watermark, fed by
+    ``mutation_stream(23, A, 768, batch=64)``: the empty buffer bit for
+    bit with ``A @ x`` through ``dia_spmv``; after each batch the
+    two-term ``dot`` against the mutated matrix's product on the host
+    (scipy, f64: the rows no update touched are ``A @ x``, the touched
+    ones summed afresh from the mutated row) at 1e-6 of ``|A'| |x|``;
+    ``maybe_compact`` at the watermark, its base bit for bit the port's
+    COO constructor of the merged triples (merged on the host by numpy)
+    and its ``dot`` bit for bit that matrix's; a view pinned before the
+    swap serving the old version bit for bit.  Returns ``(record,
+    launches)``; any failed check raises."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    import legate_sparse_tpu_torch as sparse
+    from legate_sparse_tpu_torch import gallery, obs, runtime
+    from legate_sparse_tpu_torch.delta import DeltaCSR
+    from legate_sparse_tpu_torch.settings import settings
+    from legate_sparse_tpu_torch.utils import to_numpy
+
+    grid = P15_GRID if grid is None else grid
+    dev = runtime.default_device()
+    launches = {name: 0 for name in kernel_counters()}
+    runs = {}
+
+    def run(name, fn, want):
+        """``fn()`` counted; its launches must be ``want`` (a callable of
+        the result for counts the result decides)."""
+        out, counts, ms, secs = counted_run(fn)
+        for k, v in counts.items():
+            launches[k] += v
+        want = want(out) if callable(want) else want
+        full = {k: want.get(k, 0) for k in counts}
+        check(counts == full, f"{name} launched {counts}, its run calls "
+              f"for {full}")
+        runs.setdefault(name, []).append({"card_ms": ms, "host_s": secs})
+        return out
+
+    t_phase = time.perf_counter()
+    diagonals, offsets = pde_diagonals(grid)
+    n = grid * grid
+    A = sparse.diags(diagonals, offsets, shape=(n, n), format="csr",
+                     dtype=torch.float32)
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    saved = settings.delta
+    settings.delta = True
+    try:
+        D = DeltaCSR(A)
+        check(D.capacity == 1024 and settings.delta_watermark == 0.75,
+              f"delta knobs {D.capacity}, {settings.delta_watermark}")
+        y_base = A @ x
+        y0 = run("dot (empty buffer)", lambda: D.dot(x), {"dia_spmv": 1})
+        route_before = D.base.spmv_path
+        check(route_before == "dia-kernel" and torch.equal(y0, y_base),
+              f"the empty buffer's dot: {route_before}, bit for bit "
+              f"{bool(torch.equal(y0, y_base))}")
+
+        # The host reference: the mutated matrix's product in f64.
+        A_sp = sp.diags([d.astype(np.float64) for d in diagonals], offsets,
+                        shape=(n, n), format="csr")
+        xh = x.double().cpu().numpy()
+        y_ref = A_sp @ xh
+        mag = abs(A_sp) @ np.abs(xh)
+        targets, by_row = {}, {}
+
+        def refresh(rows_touched):
+            for r in rows_touched:
+                s, e = A_sp.indptr[r], A_sp.indptr[r + 1]
+                row = dict(zip(A_sp.indices[s:e].tolist(),
+                               A_sp.data[s:e].tolist()))
+                row.update(by_row[r])
+                c = np.fromiter(row.keys(), np.int64)
+                v = np.fromiter(row.values(), np.float64)
+                y_ref[r] = float(np.dot(v, xh[c]))
+                mag[r] = float(np.dot(np.abs(v), np.abs(xh[c])))
+
+        def within(y, what):
+            diff = np.abs(y.double().cpu().numpy() - y_ref)
+            check(bool(np.all(diff <= 1e-6 * mag + 1e-30)),
+                  f"{what}: max |Δ| {diff.max()} against the mutated "
+                  f"matrix")
+            return float(diff.max())
+
+        t0 = time.perf_counter()
+        batches = list(gallery.mutation_stream(23, A, 768, batch=64))
+        stream_s = time.perf_counter() - t0
+        errs = []
+        for rows, cols, vals in batches:
+            run("update (64)", lambda: D.update(rows, cols, vals), {})
+            touched = set()
+            for r, c, v in zip(rows.tolist(), cols.tolist(), vals.tolist()):
+                targets[(r, c)] = v
+                by_row.setdefault(r, {})[c] = v
+                touched.add(r)
+            refresh(touched)
+            y = run("dot (two terms)", lambda: D.dot(x), {"dia_spmv": 1})
+            errs.append(within(y, f"two-term dot at {D.pending} pending"))
+        pending = D.pending
+        check(len(batches) == 12 and pending >= int(0.75 * D.capacity),
+              f"{len(batches)} batches, {pending} pending slots")
+        two_term_ms = time_ms(lambda: D.dot(x), reps=5)
+        base_ms = time_ms(lambda: D.base.dot(x), reps=5)
+
+        # Compaction at the watermark; a view pinned before the swap.
+        v_old = D.view()
+        y_old = v_old.dot(x)
+        merged = run("maybe_compact", D.maybe_compact, {})
+        compact = runs["maybe_compact"][-1]
+        check(merged == pending and (D.version, D.pending) == (1, 0),
+              f"maybe_compact merged {merged} of {pending}, version "
+              f"{D.version}")
+        check(torch.equal(v_old.dot(x), y_old),
+              "the pinned view no longer serves its version")
+
+        # The cold rebuild: A's stored triples merged with the targets on
+        # the host (numpy), through the port's COO constructor.
+        t0 = time.perf_counter()
+        indptr_h = to_numpy(A.indptr).astype(np.int64)
+        key = (np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr_h)) * n
+               + to_numpy(A.indices).astype(np.int64))
+        val = to_numpy(A.data)
+        tk = np.fromiter((r * n + c for r, c in sorted(targets)), np.int64)
+        tv = np.fromiter((targets[k] for k in sorted(targets)), np.float64)
+        pos = np.searchsorted(key, tk)
+        hit = (pos < key.size) & (key[np.minimum(pos, key.size - 1)] == tk)
+        val = val.copy()
+        val[pos[hit & (tv != 0)]] = tv[hit & (tv != 0)].astype(np.float32)
+        keep = np.ones(key.size, dtype=bool)
+        keep[pos[hit & (tv == 0)]] = False
+        key, val = key[keep], val[keep]
+        ins = ~hit & (tv != 0)
+        at = np.searchsorted(key, tk[ins])
+        key = np.insert(key, at, tk[ins])
+        val = np.insert(val, at, tv[ins].astype(np.float32))
+        C = sparse.csr_array((val, (key // n, key % n)), shape=(n, n),
+                             device=dev)
+        cold_s = time.perf_counter() - t0
+        del key, val, indptr_h
+        same = all(torch.equal(a, b) for a, b in (
+            (D.base.data, C.data), (D.base.indices, C.indices),
+            (D.base.indptr, C.indptr)))
+        check(same, "the compacted base differs from the cold rebuild")
+        yc = run("dot (compacted)", lambda: D.dot(x),
+                 lambda out: route_launches(D.base.spmv_path))
+        route_after = D.base.spmv_path
+        yC = C @ x
+        check(C.spmv_path == route_after and torch.equal(yc, yC),
+              f"the compacted dot ({route_after}) vs the cold rebuild's "
+              f"({C.spmv_path})")
+        err_after = within(yc, "the compacted dot")
+        compacted_ms = time_ms(lambda: D.dot(x), reps=5)
+        record = {
+            "rows": n, "nnz_before": A.nnz, "nnz_after": D.base.nnz,
+            "updates": 768, "batches": len(batches), "pending": pending,
+            "stream_host_s": stream_s,
+            "update_ms": [r["host_s"] * 1e3 for r in runs["update (64)"]],
+            "two_term_dot_card_ms": [r["card_ms"]
+                                     for r in runs["dot (two terms)"]],
+            "update_ms_median": float(np.median(
+                [r["host_s"] * 1e3 for r in runs["update (64)"]])),
+            "two_term_dot_card_ms_median": float(np.median(
+                [r["card_ms"] for r in runs["dot (two terms)"]])),
+            "two_term_dot_ms": two_term_ms, "base_dot_ms": base_ms,
+            "compacted_dot_ms": compacted_ms,
+            "compaction_s": compact["host_s"],
+            "compaction_card_ms": compact["card_ms"],
+            "cold_rebuild_host_s": cold_s,
+            "route_before": route_before, "route_after": route_after,
+            "max_abs_err_two_term": max(errs),
+            "max_abs_err_compacted": err_after,
+            "counters": obs.counters.snapshot("delta."),
+            "seconds": time.perf_counter() - t_phase}
+    finally:
+        settings.delta = saved
+    return record, launches
+
+
+def phase15_rank(rank, world):
+    """Phase 15 (G) and (MD), ``main_path_graph``, on one NCCL rank:
+    BFS, SSSP, connected components and PageRank on a directed R-MAT
+    graph at ``P15_SCALE`` (f64, Graph500's edge factor 16), each held
+    against scipy on the host; batched BFS and SSSP over
+    ``P15_SOURCES`` sources bit for bit with the per-source runs;
+    components on the 1x1 2-d block (the MIN all-reduce arm); then
+    ``DistDeltaCSR`` on pde_4096: bit for bit with the single-device
+    ``DeltaCSR.dot`` on one buffer, ``reshard`` to 2d-block and back
+    with the updates pending, and ``compact``.  Returns the record;
+    any failed check raises."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    from scipy.sparse import csgraph as scsg
+
+    import legate_sparse_tpu_torch as sparse
+    from legate_sparse_tpu_torch import gallery, graph, obs
+    from legate_sparse_tpu_torch import parallel as P
+    from legate_sparse_tpu_torch.delta import DeltaCSR, DistDeltaCSR
+    from legate_sparse_tpu_torch.graph import algorithms as galg
+    from legate_sparse_tpu_torch.parallel import dist_csr as D
+    from legate_sparse_tpu_torch.settings import settings
+
+    t_phase = time.perf_counter()
+    mesh = P.make_row_mesh()
+    dev = D.mesh_device(mesh)
+    launches = {name: 0 for name in kernel_counters()}
+    runs = {}
+
+    def run(name, fn, want=None, alg=None, semiring=None):
+        """``fn()`` counted and traced: its launches must be ``want`` (a
+        callable of the result's route, or none), and the record takes
+        the ``dist_spmv`` routes, the sweeps and, for ``alg``, its
+        iterations and host fetches."""
+        obs.reset_all()
+        obs.enable()
+        try:
+            out, counts, ms, secs = counted_run(fn)
+        finally:
+            obs.disable()
+        paths = sorted({r["attrs"].get("path") for r in obs.records()
+                        if r["name"] == "dist_spmv" and "attrs" in r})
+        for k, v in counts.items():
+            launches[k] += v
+        want = want(paths) if callable(want) else (want or {})
+        full = {k: want.get(k, 0) for k in counts}
+        check(counts == full, f"{name} launched {counts}, its run calls "
+              f"for {full}")
+        snap = obs.counters.snapshot()
+        rec = {"card_ms": ms, "host_s": secs, "routes": paths,
+               "launches": {k: v for k, v in counts.items() if v}}
+        if semiring == "plus-times":
+            rec["sweeps"] = snap.get("op.dist_spmv", 0)
+        elif semiring is not None:
+            rec["sweeps"] = (snap.get("graph.dist_spmv." + semiring, 0)
+                             + snap.get("graph.dist_spmm." + semiring, 0))
+        if semiring is not None:
+            # The run's card ms over its sweeps: the push operator's
+            # build included (``sweep_ms`` has a sweep alone).
+            rec["run_ms_per_sweep"] = ms / max(rec["sweeps"], 1)
+        if alg is not None:
+            rec["iters"] = snap.get(f"graph.{alg}.iters", 0)
+            rec["host_fetches"] = snap.get(
+                "transfer.host_sync.graph_" + alg, 0)
+        runs[name] = rec
+        return out
+
+    def scipy_s(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        runs[name]["scipy_host_s"] = time.perf_counter() - t0
+        return out
+
+    # Warm-up, uncounted: the process group's first collectives and the
+    # first launch of each product on a scale-10 graph.
+    W = gallery.rmat(10, nnz_per_row=16, rng=1, device=dev)
+    graph.bfs(W, [0, 1])
+    graph.sssp(W, [0, 1])
+    graph.connected_components(W)
+    graph.pagerank(W, max_iters=5)
+    del W
+
+    # (G) The graph: R-MAT, directed, f64, duplicates kept.
+    t0 = time.perf_counter()
+    G = gallery.rmat(P15_SCALE, nnz_per_row=16, rng=0, device=dev)
+    sync()
+    gen_s = time.perf_counter() - t0
+    n = G.shape[0]
+    Gs = G.toscipy()
+    Gi = sp.csr_array((Gs.data, Gs.indices.astype(np.int32),
+                       Gs.indptr.astype(np.int32)), shape=Gs.shape)
+    g_rec = {"vertices": n, "sampled_edges": G.nnz, "rmat_host_s": gen_s}
+
+    def levels(d):
+        return np.where(np.isinf(d), -1, d).astype(np.int32)
+
+    def rel_err(got, ref, what):
+        fin = np.isfinite(ref)
+        check(np.array_equal(np.isfinite(got), fin), f"{what}: infinities")
+        err = float(np.max(np.abs(got[fin] - ref[fin])
+                           / np.maximum(np.abs(ref[fin]), 1e-300)))
+        check(err <= 1e-12, f"{what}: max rel {err} against scipy")
+        return err
+
+    lv = run("bfs", lambda: graph.bfs(G, 0), alg="bfs", semiring="or-and")
+    ref = scipy_s("bfs", lambda: scsg.dijkstra(Gi, indices=0,
+                                               unweighted=True))
+    check(np.array_equal(lv.cpu().numpy(), levels(ref)),
+          "bfs: levels differ from scipy's unweighted dijkstra")
+    runs["bfs"]["reached"] = int(np.isfinite(ref).sum())
+    dd = run("sssp", lambda: graph.sssp(G, 0), alg="sssp",
+             semiring="min-plus")
+    ref = scipy_s("sssp", lambda: scsg.dijkstra(Gi, indices=0))
+    runs["sssp"]["max_rel_err"] = rel_err(dd.cpu().numpy(), ref, "sssp")
+    nc, lab = run("connected_components",
+                  lambda: graph.connected_components(G), alg="cc",
+                  semiring="min-plus")
+    rnc, rlab = scipy_s("connected_components",
+                        lambda: scsg.connected_components(
+                            Gi, directed=True, connection="weak"))
+    labh = lab.cpu().numpy()
+    check(nc == rnc and len(set(zip(labh.tolist(), rlab.tolist()))) == nc,
+          f"connected_components: {nc} vs scipy's {rnc}")
+    runs["connected_components"]["components"] = nc
+    pr = run("pagerank", lambda: graph.pagerank(G, tol=0.0, max_iters=20),
+             want=lambda paths: {"bsr_spmv": 20} if "bsr" in paths else {},
+             alg="pagerank", semiring="plus-times")
+
+    def power_iteration():
+        S = Gi.copy()
+        S.sum_duplicates()
+        outdeg = np.diff(S.indptr).astype(np.float64)
+        inv = np.where(outdeg > 0, 1.0 / np.maximum(outdeg, 1.0), 0.0)
+        ST = sp.csr_array((np.ones(S.nnz), S.indices, S.indptr),
+                          shape=S.shape).T.tocsr()
+        dang = (outdeg == 0).astype(np.float64)
+        r = np.full(n, 1.0 / n)
+        for _ in range(20):
+            r = 0.85 * (ST @ (r * inv) + (dang @ r) / n) + 0.15 / n
+        return r
+
+    rref = scipy_s("pagerank", power_iteration)
+    pr_err = float(np.max(np.abs(pr.cpu().numpy() - rref)))
+    check(pr_err <= 1e-10 * float(np.max(rref)),
+          f"pagerank: max |Δ| {pr_err} against the f64 power iteration")
+    runs["pagerank"]["max_abs_err"] = pr_err
+    runs["pagerank"]["sum"] = float(pr.sum())
+
+    # Batched sources: one dist_spmm sweep for all, against per-source.
+    outdeg = np.diff(Gi.indptr)
+    pick = np.random.default_rng(15).choice(np.flatnonzero(outdeg > 0),
+                                            P15_SOURCES - 1, replace=False)
+    sources = [0] + sorted(int(s) for s in pick)
+    lvb = run("bfs(batched)", lambda: graph.bfs(G, sources), alg="bfs",
+              semiring="or-and")
+    per = [lv] + [run(f"bfs({s})", lambda s=s: graph.bfs(G, s), alg="bfs",
+                      semiring="or-and") for s in sources[1:]]
+    check(torch.equal(lvb, torch.stack(per)),
+          "batched bfs vs the per-source runs")
+    ref = scipy_s("bfs(batched)", lambda: scsg.dijkstra(
+        Gi, indices=sources, unweighted=True))
+    check(np.array_equal(lvb.cpu().numpy(), levels(ref)),
+          "batched bfs vs scipy")
+    ddb = run("sssp(batched)", lambda: graph.sssp(G, sources), alg="sssp",
+              semiring="min-plus")
+    per = [dd] + [run(f"sssp({s})", lambda s=s: graph.sssp(G, s),
+                      alg="sssp", semiring="min-plus")
+                  for s in sources[1:]]
+    check(torch.equal(ddb, torch.stack(per)),
+          "batched sssp vs the per-source runs")
+    ref = scipy_s("sssp(batched)", lambda: scsg.dijkstra(Gi, indices=sources))
+    runs["sssp(batched)"]["max_rel_err"] = rel_err(ddb.cpu().numpy(), ref,
+                                                   "batched sssp")
+    nc2, lab2 = run("connected_components(2d-block)",
+                    lambda: graph.connected_components(G, layout="2d-block"),
+                    alg="cc", semiring="min-plus")
+    check(nc2 == nc and torch.equal(lab2, lab)
+          and runs["connected_components(2d-block)"]["routes"]
+          == ["2d-block"], "connected_components on the 1x1 2-d block")
+
+    # One sweep of each algorithm's product at steady state, on the
+    # operator it builds (CUDA events, 5 samples of 10 calls).
+    sweep_ms = {}
+    opB, _ = galg._push_operator(G, True, True)
+    dB = P.shard_csr(opB, mesh)
+    f = torch.zeros(dB.local_len, dtype=torch.bool, device=dev)
+    f[sources] = True
+    sweep_ms["bfs or-and"] = time_ms(
+        lambda: P.dist_spmv(dB, f, semiring="or-and"), reps=5)
+    F = torch.zeros((dB.local_len, len(sources)), dtype=torch.bool,
+                    device=dev)
+    F[sources, torch.arange(len(sources))] = True
+    sweep_ms["bfs or-and, batched"] = time_ms(
+        lambda: P.dist_spmm(dB, F, semiring="or-and"), reps=5)
+    g_rec["push_operator"] = {"nnz": opB.nnz, "route": dB.spmv_path}
+    del opB, dB, f, F
+    opS, _ = galg._push_operator(G, True, False)
+    dS = P.shard_csr(opS, mesh)
+    dvec = torch.where(lvb[0] >= 0, 1.0, torch.inf).to(torch.float64)
+    dvec = torch.cat([dvec, dvec.new_full((dS.local_len - n,), torch.inf)])
+    sweep_ms["sssp min-plus"] = time_ms(
+        lambda: P.dist_spmv(dS, dvec, semiring="min-plus"), reps=5)
+    del opS, dS, dvec
+    M, _, _ = galg._pagerank_operator(G)
+    dM = P.shard_csr(M, mesh)
+    r = torch.full((dM.local_len,), 1.0 / n, dtype=torch.float64, device=dev)
+    sweep_ms["pagerank plus-times"] = time_ms(lambda: P.dist_spmv(dM, r),
+                                              reps=5)
+    g_rec["pagerank_operator"] = {"nnz": M.nnz, "route": dM.spmv_path}
+    del M, dM, r
+    g_rec["sweep_ms"] = sweep_ms
+    g_rec["sources"] = sources
+    del G, Gs, Gi, lv, dd, lab, pr, lvb, ddb, lab2, per
+    torch.cuda.empty_cache()
+
+    # (MD) DistDeltaCSR on pde_4096 beside the single-device DeltaCSR.
+    saved = settings.delta
+    settings.delta = True
+    try:
+        diagonals, offsets = pde_diagonals(P15_GRID)
+        nA = P15_GRID * P15_GRID
+        A = sparse.diags(diagonals, offsets, shape=(nA, nA), format="csr",
+                         dtype=torch.float32)
+        x = torch.from_numpy(np.random.default_rng(16).standard_normal(
+            nA).astype(np.float32)).to(dev)
+        Dl = DeltaCSR(A)
+        dA = P.shard_csr(A, mesh)
+        DD = DistDeltaCSR(dA)
+        xs = D.shard_vector(x, mesh, dA.rows_padded)
+        y = run("DistDeltaCSR.dot (empty)", lambda: DD.dot(xs),
+                {"dia_spmv": 1})
+        check(torch.equal(y.to_local(), A @ x) and dA.spmv_path
+              == "dia-kernel", "the empty DistDeltaCSR.dot vs A @ x")
+        for rows, cols, vals in gallery.mutation_stream(
+                24, A, P15_MD_UPDATES, batch=64):
+            run("DistDeltaCSR.update", lambda: DD.update(rows, cols, vals))
+            Dl.update(rows, cols, vals)
+        pending = DD.pending
+        check(pending == Dl.pending > 0, f"pending {pending}, {Dl.pending}")
+        yd = run("DistDeltaCSR.dot", lambda: DD.dot(xs), {"dia_spmv": 1})
+        yl = run("DeltaCSR.dot", lambda: Dl.dot(x), {"dia_spmv": 1})
+        check(torch.equal(yd.to_local(), yl),
+              "DistDeltaCSR.dot vs the single-device DeltaCSR.dot")
+        md = {"pending": pending, "dist_dot_ms": time_ms(lambda: DD.dot(xs),
+                                                         reps=5),
+              "dot_ms": time_ms(lambda: Dl.dot(x), reps=5)}
+        D2 = run("reshard(1d-row -> 2d-block)",
+                 lambda: P.reshard(DD, layout="2d-block"))
+        check(isinstance(D2, DistDeltaCSR) and D2.layout == "2d-block"
+              and D2.pending == pending and D2.entries() == DD.entries(),
+              "the 2d-block reshard dropped the pending buffer")
+        xs2 = D.shard_vector(x, D2.mesh, D2.rows_padded, layout="2d-block")
+        y2 = run("DistDeltaCSR.dot (2d-block)", lambda: D2.dot(xs2))
+        md["err_2d_block"] = close(y2.to_local(), yl, 1e-5,
+                                   "DistDeltaCSR.dot on 2d-block")
+        D1 = run("reshard(2d-block -> 1d-row)",
+                 lambda: P.reshard(D2, layout="1d-row"))
+        check(D1.pending == pending and D1.entries() == DD.entries(),
+              "the 1d-row reshard dropped the pending buffer")
+        y1 = run("DistDeltaCSR.dot (back on 1d-row)", lambda: D1.dot(xs),
+                 {"dia_spmv": 1})
+        check(torch.equal(y1.to_local(), yl),
+              "DistDeltaCSR.dot back on 1d-row vs DeltaCSR.dot")
+        old_base = D1.base
+        merged = run("DistDeltaCSR.compact", D1.compact)
+        check(merged == pending and (D1.version, D1.pending) == (1, 0)
+              and D1.base is not old_base,
+              f"DistDeltaCSR.compact merged {merged} of {pending}")
+        Dl.compact()
+        yc = run("DistDeltaCSR.dot (compacted)", lambda: D1.dot(xs),
+                 lambda paths: route_launches(paths[0]) if paths else {})
+        ylc = Dl.dot(x)
+        md["err_compacted"] = close(yc.to_local(), ylc, 1e-5,
+                                    "the compacted DistDeltaCSR.dot")
+        md["routes"] = {"dist_compacted": D1.base.spmv_path,
+                        "single_compacted": Dl.base.spmv_path}
+        md["compaction_s"] = runs["DistDeltaCSR.compact"]["host_s"]
+        del A, Dl, dA, DD, D2, D1, old_base, xs, xs2, x
+    finally:
+        settings.delta = saved
+    torch.cuda.empty_cache()
+    return {"runs": runs, "launches": launches, "graph": g_rec,
+            "dist_delta": md,
+            "seconds_in_rank": time.perf_counter() - t_phase}
 
 
 def main() -> int:
@@ -3703,10 +4240,25 @@ def main() -> int:
     check(all(phase14[k] > 0 for k in ("dia_spmv", "dia_spmm", "bsr_spmv")),
           f"phase 14 launches {phase14}")
 
+    # ---- 15. graph analytics and the delta layer ---------------------------
+    torch.cuda.empty_cache()
+    m_rec, m_launches = phase15_mutation()
+    log({"phase": "main_path_mutation", "nvidia_smi": smi_line, **m_rec,
+         "launches": m_launches})
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p15 = run_ranks(phase15_rank, 1, backend="nccl", timeout=900,
+                    init_timeout=120)[0]
+    log({"phase": "main_path_graph", "nvidia_smi": smi_line, **p15,
+         "seconds": time.perf_counter() - t0})
+    phase15 = {k: m_launches[k] + p15["launches"][k] for k in m_launches}
+    check(phase15["dia_spmv"] > 0, f"phase 15 launches {phase15}")
+
     for row in (dia_row, bsr_row, dia_spmm_row, bsr_spmm_row,
                 dia_spgemm_row):
         row["launches"] += (phase10[row["name"]] + phase11[row["name"]]
-                            + phase12[row["name"]] + phase14[row["name"]])
+                            + phase12[row["name"]] + phase14[row["name"]]
+                            + phase15[row["name"]])
         row["max_abs_err"] = max([row["max_abs_err"]] + [
             h["max_abs_err"] for h in (list(kernel_vs_plain.values())
                                        + list(spec_vs_plain.values())

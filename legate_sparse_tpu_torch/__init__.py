@@ -30,7 +30,10 @@ Entry points run on ``cuda`` unless the caller names a device
 device and no such request they raise.  The package imports neither
 ``jax`` nor ``legate_sparse_tpu``.  The eigensolvers (``linalg.eigs``,
 ``eigsh``, ``lobpcg``, ``svds``) and ``csgraph`` are the port's own,
-on the operator's or graph's device.
+on the operator's or graph's device.  ``graph`` (BFS, SSSP, connected
+components and PageRank as semiring SpMV over the distribution layer)
+and ``delta`` (streaming mutation: ``DeltaCSR``, ``DistDeltaCSR``) are
+the graph-analytics and mutation layers.
 """
 
 import scipy.sparse as _scipy_sparse
@@ -40,6 +43,7 @@ from .module import *  # noqa: F401,F403  (module.__all__)
 from .types import SparseEfficiencyWarning  # noqa: F401
 from .coverage import clone_module as _clone_module
 from . import linalg  # noqa: F401
+from . import graph  # noqa: F401
 
 # Every other scipy.sparse name as its scipy fallback, so the namespace
 # is complete (reference ``__init__.py:36``).

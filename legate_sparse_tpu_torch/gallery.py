@@ -5,10 +5,11 @@
 - Constructors: ``diags``, ``eye``, ``identity``, ``spdiags``, ``kron``,
   ``kronsum``, ``tril``/``triu``, ``vstack``, ``hstack``,
   ``block_diag``, ``bmat``/``block_array``, and ``find``.
-- Generators: ``random``, ``powerlaw`` and ``rmat``.  They draw with
-  numpy's ``Generator`` in the JAX package's order, so one seed gives
-  the same matrix in both packages, bit for bit; only the finished
-  arrays move to the device.
+- Generators: ``random``, ``powerlaw`` and ``rmat``, and the update
+  stream ``mutation_stream``.  They draw with numpy's ``Generator`` in
+  the JAX package's order, so one seed gives the same matrix (or
+  stream) in both packages, bit for bit; only the finished arrays move
+  to the device.
 
 A band is laid out with numpy on the host (scipy's column-aligned DIA
 layout, O(num_diags) bookkeeping) and moved to the device once.  The
@@ -469,3 +470,94 @@ def kronsum(A, B, format=None):
     L = kron(identity(B.shape[0], dtype=A.dtype, device=A.device), A)
     R = kron(B, identity(A.shape[0], dtype=B.dtype, device=A.device))
     return (L + R).asformat(format)
+
+
+def _pattern(A):
+    """``(nnz, entry(j), member(r, c))`` of ``A``'s stored pattern on the
+    host: the (row, col) of stored entry ``j`` in storage order and a
+    membership test.  A ``csr_array`` answers from its indptr and
+    indices (a search within the row's slice), holding no set of every
+    entry; anything else goes through its COO triple and a set, as the
+    JAX package does for every input."""
+    from .csr import csr_array
+
+    if isinstance(A, csr_array):
+        indptr = to_numpy(A.indptr).astype(np.int64)
+        indices = to_numpy(A.indices).astype(np.int64)
+        sorted_rows = A.has_sorted_indices
+
+        def entry(j):
+            return (int(np.searchsorted(indptr, j, side="right")) - 1,
+                    int(indices[j]))
+
+        def member(r, c):
+            row = indices[indptr[r]:indptr[r + 1]]
+            if sorted_rows:
+                k = int(np.searchsorted(row, c))
+                return k < row.shape[0] and int(row[k]) == c
+            return bool(np.any(row == c))
+
+        return int(indices.shape[0]), entry, member
+    if hasattr(A, "_coo_parts"):
+        erows, ecols, _ = (to_numpy(p) for p in A._coo_parts())
+    else:
+        coo = A.tocoo()
+        erows, ecols = np.asarray(coo.row), np.asarray(coo.col)
+    erows = erows.astype(np.int64)
+    ecols = ecols.astype(np.int64)
+    existing = set(zip(erows.tolist(), ecols.tolist()))
+    return (int(erows.shape[0]),
+            lambda j: (int(erows[j]), int(ecols[j])),
+            lambda r, c: (r, c) in existing)
+
+
+def mutation_stream(seed, A, n_updates=100, *, insert_frac=0.3,
+                    delete_frac=0.1, batch=10, rng=None):
+    """Seeded stream of entry updates over the pattern of ``A``
+    (``gallery.py:583``): ``(rows, cols, vals)`` batches of host
+    int64/float64 arrays, each update drawn as
+
+    - an overwrite (the remainder): a stored entry gets a new value;
+    - an insert (``insert_frac``): a coordinate outside the pattern (and
+      outside the inserts so far) gets a value, rejection-sampled with
+      at most 64 tries;
+    - a delete (``delete_frac``): a stored entry is set to 0.0.
+
+    The draws are numpy's ``Generator`` calls of the JAX package in its
+    order, and they depend on nothing but the membership answers, so one
+    seed, pattern and set of knobs gives the JAX generator's stream bit
+    for bit.  ``n_updates`` counts entry updates; the last batch may be
+    short."""
+    rng = rng if isinstance(rng, np.random.Generator) else (
+        np.random.default_rng(seed))
+    m, n = A.shape
+    nnz, entry, member = _pattern(A)
+    inserted = set()
+    if nnz == 0 and delete_frac + (1 - insert_frac) > 0:
+        raise ValueError("mutation_stream: matrix has no stored entries to "
+                         "overwrite or delete")
+    n_updates = int(n_updates)
+    batch = max(int(batch), 1)
+    emitted = 0
+    while emitted < n_updates:
+        take = min(batch, n_updates - emitted)
+        rows = np.zeros(take, dtype=np.int64)
+        cols = np.zeros(take, dtype=np.int64)
+        vals = np.zeros(take, dtype=np.float64)
+        kinds = rng.random(take)
+        for i in range(take):
+            if kinds[i] < insert_frac:
+                for _ in range(64):
+                    r = int(rng.integers(0, m))
+                    c = int(rng.integers(0, n))
+                    if (r, c) not in inserted and not member(r, c):
+                        break
+                inserted.add((r, c))
+                rows[i], cols[i] = r, c
+                vals[i] = float(rng.random()) + 0.5
+            else:
+                rows[i], cols[i] = entry(int(rng.integers(0, nnz)))
+                vals[i] = (0.0 if kinds[i] < insert_frac + delete_frac
+                           else float(rng.random()) + 0.5)
+        emitted += take
+        yield rows, cols, vals

@@ -16,9 +16,12 @@ compressed storage ``csr_spmv_rowids_f32acc`` (``:270``),
 and ``sliced_ell_spmv_f32acc`` (``:335``), and the semiring products
 ``csgraph`` relaxes with:
 ``semiring_identity`` (``:381``), ``_semiring_product`` (``:398``),
-``csr_semiring_spmv_rowids_masked`` (``:412``) and
-``csr_semiring_spmm_rowids_masked`` (``:431``).  The JAX package
-leaves these to XLA; here they are ordinary tensor ops.  Padded and
+``csr_semiring_spmv_rowids_masked`` (``:412``),
+``csr_semiring_spmm_rowids_masked`` (``:431``), ``ell_semiring_spmv``
+(``:450``), ``ell_semiring_spmm`` (``:465``) and
+``sliced_ell_semiring_spmv`` (``:484``) that the graph layer computes
+over, and the delta layer's ``coo_spmv_segment`` (``:137``).  The JAX
+package leaves these to XLA; here they are ordinary tensor ops.  Padded and
 masked slots of the plus-times products contribute an exact 0 (a
 masked product, never ``0*x``), so a non-finite x entry that no row
 stores never produces NaN.  Column indices may be compressed storage's
@@ -330,20 +333,30 @@ def _semiring_product(mul: str, vals, gathered):
 def _semiring_reduce(prod, row_ids, rows: int, add: str):
     """Reduce the slots of each row (``row_ids`` sorted) by ``add``: a
     segment sum for ``"sum"``, a scatter-min or -max from the identity
-    otherwise (order-free, so bit for bit on any device)."""
+    otherwise (order-free, so bit for bit on any device).  Booleans
+    count their True slots with integer adds (or: any; and: all), which
+    every device reduces; no bool scatter-reduce."""
     if add == "sum":
         lengths = torch.bincount(row_ids.to(torch.int64), minlength=rows)
         return segment_sum(prod, lengths)
     if add not in ("min", "max"):
         raise ValueError(f"unknown semiring add {add!r}")
-    work = prod.to(torch.uint8) if prod.dtype == torch.bool else prod
-    out = semiring_identity(add, work.dtype, work.device).expand(
-        (rows,) + tuple(work.shape[1:])).clone()
     idx = row_ids.to(torch.int64)
-    if work.dim() == 2:
-        idx = idx[:, None].expand_as(work)
-    out.scatter_reduce_(0, idx, work, "amin" if add == "min" else "amax")
-    return out.to(torch.bool) if prod.dtype == torch.bool else out
+    shape = (rows,) + tuple(prod.shape[1:])
+    if prod.dtype == torch.bool:
+        hits = torch.zeros(shape, dtype=torch.int32, device=prod.device)
+        hits.index_add_(0, idx, prod.to(torch.int32))
+        if add == "max":
+            return hits > 0
+        total = torch.zeros((rows,), dtype=torch.int32, device=prod.device)
+        total.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
+        return hits == (total if prod.dim() == 1 else total[:, None])
+    out = semiring_identity(add, prod.dtype, prod.device).expand(
+        shape).clone()
+    if prod.dim() == 2:
+        idx = idx[:, None].expand_as(prod)
+    out.scatter_reduce_(0, idx, prod, "amin" if add == "min" else "amax")
+    return out
 
 
 def csr_semiring_spmv_rowids_masked(data, indices, row_ids, valid_nnz, x,
@@ -368,3 +381,90 @@ def csr_semiring_spmm_rowids_masked(data, indices, row_ids, valid_nnz, X,
     prod = torch.where((slot < valid_nnz)[:, None], prod,
                        semiring_identity(add, prod.dtype, prod.device))
     return _semiring_reduce(prod, row_ids, rows, add)
+
+
+def _plus_times(add: str, mul: str) -> bool:
+    """Whether the pair is plus-times: the semiring products then run
+    their plus-times sibling, so the two agree bit for bit."""
+    return add == "sum" and mul == "times"
+
+
+def _semiring_row_reduce(prod, add: str):
+    """Reduce axis 1 of a (rows, W[, k]) ELL product by the add-op;
+    booleans reduce by any/all."""
+    if add == "sum":
+        return prod.sum(dim=1)
+    if add not in ("min", "max"):
+        raise ValueError(f"unknown semiring add {add!r}")
+    if prod.dtype == torch.bool:
+        return prod.any(dim=1) if add == "max" else prod.all(dim=1)
+    return prod.amax(dim=1) if add == "max" else prod.amin(dim=1)
+
+
+def _ell_valid(ell_counts, W: int):
+    slot = torch.arange(W, dtype=ell_counts.dtype, device=ell_counts.device)
+    return slot[None, :] < ell_counts[:, None]
+
+
+def ell_semiring_spmv(ell_data, ell_cols, ell_counts, x, add: str,
+                      mul: str) -> torch.Tensor:
+    """Semiring SpMV over an ELL pack: padded slots' products take the
+    add-op's identity, each row reduces by the add-op."""
+    if _plus_times(add, mul):
+        return ell_spmv(ell_data, ell_cols, ell_counts, x)
+    valid = _ell_valid(ell_counts, ell_data.shape[1])
+    prod = _semiring_product(mul, ell_data, x[gather_index(ell_cols)])
+    prod = torch.where(valid, prod,
+                       semiring_identity(add, prod.dtype, prod.device))
+    return _semiring_row_reduce(prod, add)
+
+
+def ell_semiring_spmm(ell_data, ell_cols, ell_counts, X, add: str,
+                      mul: str) -> torch.Tensor:
+    """``ell_semiring_spmv`` for a dense (cols, k) X (the multi-source
+    frontier's per-shard product): the (rows, W, k) product in one pass,
+    frontier batches being narrow."""
+    if _plus_times(add, mul):
+        return ell_spmm(ell_data, ell_cols, ell_counts, X)
+    valid = _ell_valid(ell_counts, ell_data.shape[1])
+    prod = _semiring_product(mul, ell_data[:, :, None],
+                             X[gather_index(ell_cols), :])
+    prod = torch.where(valid[:, :, None], prod,
+                       semiring_identity(add, prod.dtype, prod.device))
+    return _semiring_row_reduce(prod, add)
+
+
+def sliced_ell_semiring_spmv(bins, x, rows: int, add: str,
+                             mul: str) -> torch.Tensor:
+    """Semiring SpMV over a ``sliced_ell_pack``: one masked ELL
+    reduction a bin, written back to the rows of the bin; rows in no bin
+    keep the add-op's identity."""
+    if _plus_times(add, mul):
+        return sliced_ell_spmv(bins, x, rows)
+    probe = _semiring_product(mul, bins[0][0][:1, :1],
+                              x[gather_index(bins[0][1][:1, :1])])
+    y = semiring_identity(add, probe.dtype, x.device).expand(
+        (rows,)).clone()
+    for ell_data, ell_cols, cnt, row_idx in bins:
+        y[row_idx.to(torch.int64)] = ell_semiring_spmv(
+            ell_data, ell_cols, cnt, x, add, mul).to(probe.dtype)
+    return y
+
+
+def coo_spmv_segment(data, row_ids, col_ids, valid_nnz, x,
+                     rows: int) -> torch.Tensor:
+    """Masked COO SpMV over a power-of-two padded update buffer (the
+    delta layer's serving product): slots at or past ``valid_nnz``
+    contribute an exact 0 (the product is masked, never ``0*x``), and
+    padded slots carry the out-of-range row ``rows``, whose sum is
+    dropped.  ``row_ids`` are sorted; each row's entries sum in slot
+    order over the rows the buffer touches, which are scattered into
+    zeros (one host sync for their count)."""
+    slot = torch.arange(data.shape[0], device=data.device)
+    prod = torch.where(slot < valid_nnz, data * x[gather_index(col_ids)],
+                       torch.zeros((), dtype=data.dtype,
+                                   device=data.device))
+    uniq, counts = torch.unique_consecutive(row_ids, return_counts=True)
+    y = torch.zeros((rows + 1,), dtype=prod.dtype, device=prod.device)
+    y[uniq.to(torch.int64)] = segment_sum(prod, counts)
+    return y[:rows]

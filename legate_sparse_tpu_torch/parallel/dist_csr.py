@@ -50,9 +50,19 @@ Observability: ``op.shard_csr``, ``op.dist_spmv``, ``op.dist_spmm``,
 span (``path``, ``shards``, ``halo``, ``comm_bytes``, ``comm_calls``);
 ``comm.dist_spmv.*``/``comm.dist_spmm.*`` per call, and for the solvers
 ``comm.dist_<solver>.psum``: the all-reduces of inner products and
-norms the solve ran (each SpMV records itself).  The semiring products
-(queue 1 item 9) and the resilience and engine arms (item 10) wait for
-later slices.
+norms the solve ran (each SpMV records itself).
+
+The semiring arm (``dist_spmv``/``dist_spmm`` with ``semiring=``,
+``dist_csr.py:1415-1503``, ``:1808-1871``): any catalog entry but
+plus-times (which takes the ordinary dispatch) runs the ELL or padded-CSR
+blocks through ``ops/spmv.py``'s semiring products, never the DIA or BSR
+route.  The 1-d realizations are plus-times' own; on the 2-d layouts the
+partial rows are all-reduced along mesh columns by the semiring's add
+(``ReduceOp.MIN``/``MAX``) where plus-times reduce-scatters a sum.
+NCCL and gloo reduce no ``torch.bool``: an or-and frontier travels as
+its ``uint8`` view and is or-ed as a ``MAX``.  Counters
+``graph.dist_spmv.<name>``/``graph.dist_spmm.<name>``.  The resilience
+and engine arms (queue 1 item 10) wait for a later slice.
 """
 
 from __future__ import annotations
@@ -986,13 +996,123 @@ def _dispatch(A: DistCSR, x_local: torch.Tensor):
         A.rows_per_shard), "padded-csr"
 
 
-def dist_spmv(A: DistCSR, x):
+# ------------------------------------------------------- semiring arm --
+
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """A tensor as the collectives carry it: a bool as its uint8 view
+    (neither NCCL nor gloo reduces or, everywhere, moves bool)."""
+    return t.view(torch.uint8) if t.dtype == torch.bool else t
+
+
+def _unwire(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return t.view(torch.bool) if dtype == torch.bool else t
+
+
+def semiring_spmv_comm_volumes(A: DistCSR, x_itemsize: int,
+                               y_itemsize: int, collective: str,
+                               cols: int = 1):
+    """Per-call collective volumes of one semiring ``dist_spmv``
+    (``dist_spmm`` with ``cols`` > 1) on ``A`` (``dist_csr.py:1415``):
+    the 1-d layouts realize x as plus-times does, so
+    ``spmv_comm_volumes`` at the x itemsize; the 2-d layouts swap the
+    reduce-scatter for the semiring add's all-reduce
+    (``obs.comm.spmv_volumes_2d_semiring``)."""
+    x_local = A.rows_padded // A.num_shards
+    if A.grid is not None:
+        return _comm.spmv_volumes_2d_semiring(
+            grid_rows=A.grid[0], grid_cols=A.grid[1], spc=x_local,
+            rps=A.rows_per_shard, x_itemsize=x_itemsize,
+            y_itemsize=y_itemsize, collective=collective)
+    precise_C = (int(A.gather_idx.shape[-1])
+                 if A.gather_idx is not None else None)
+    return _comm.spmv_volumes(
+        shards=A.num_shards, halo=A.halo, precise_C=precise_C,
+        x_local_elems=x_local * max(cols, 1), itemsize=x_itemsize,
+        cols=max(cols, 1))
+
+
+def _semiring_2d(A: DistCSR, x_local: torch.Tensor, sr) -> torch.Tensor:
+    """The 2-d block semiring SpMV (``_block_semiring_spmv_2d_fn``,
+    ``dist_csr.py:1287-1340``): chunk transpose and x panel as in
+    ``_spmv_2d``, this block's semiring product, then the partial rows
+    all-reduced along mesh columns by the add-op and this rank's chunk
+    sliced out."""
+    Rc = A.grid[1]
+    x_panel = _unwire(_all_gather(_transpose_chunks(A, _wire(x_local)),
+                                  A.mesh.get_group(ROW_AXIS)), x_local.dtype)
+    y_part = _spmv_ops.csr_semiring_spmv_rowids_masked(
+        A.data, A.cols, A.row_ids, A.counts, x_panel, A.rows_per_shard,
+        sr.add, sr.mul).contiguous()
+    op = dist.ReduceOp.MIN if sr.add == "min" else dist.ReduceOp.MAX
+    dist.all_reduce(_wire(y_part), op=op, group=A.mesh.get_group(COL_AXIS))
+    chunk = A.rows_per_shard // Rc
+    j = A.mesh.get_local_rank(COL_AXIS)
+    return y_part[j * chunk:(j + 1) * chunk]
+
+
+def _dist_spmv_semiring(A: DistCSR, x_local: torch.Tensor, sr):
+    """The semiring arm of ``dist_spmv`` (``dist_csr.py:1443-1490``): comm
+    volumes priced before the dispatch, the ``dist_spmv`` span with its
+    path, ``graph.dist_spmv.<name>``; the ELL or padded-CSR blocks, never
+    the DIA or BSR route (they hold plus-times arithmetic)."""
+    _obs_counters.handle("op.dist_spmv").inc()
+    _obs_counters.handle("graph.dist_spmv." + sr.name).inc()
+    y_item = (1 if sr.mul == "and" else
+              torch.promote_types(A.dtype, x_local.dtype).itemsize)
+    vols = semiring_spmv_comm_volumes(A, x_local.element_size(), y_item,
+                                      sr.collective)
+    comm_bytes = _comm.record("dist_spmv", vols, layout=A.layout)
+    precise = A.gather_idx is not None
+    with _lat.timer("lat.dist_spmv." + _lat.shape_bucket(A.shape[0])), \
+            _trace.span("dist_spmv", shards=A.num_shards, halo=A.halo,
+                        comm_bytes=comm_bytes,
+                        comm_calls=sum(1 for b in vols.values() if b > 0)
+                        ) as sp:
+        if A.grid is not None:
+            y, path = _semiring_2d(A, x_local, sr), "2d-block"
+        else:
+            A._require_blocks("dist_spmv")
+            x_src = _unwire(_realize(A, _wire(x_local)), x_local.dtype)
+            if A.ell:
+                y, path = _spmv_ops.ell_semiring_spmv(
+                    A.data, A.cols, A.counts, x_src, sr.add, sr.mul), "ell"
+            else:
+                y, path = _spmv_ops.csr_semiring_spmv_rowids_masked(
+                    A.data, A.cols, A.row_ids, A.counts, x_src,
+                    A.rows_per_shard, sr.add, sr.mul), "padded-csr"
+        if sp is not None:
+            sp.set(path=path, layout=A.layout, precise=precise,
+                   semiring=sr.name)
+    A.spmv_path = path
+    return y
+
+
+def _resolve_semiring_arg(semiring):
+    """None for plus-times or no semiring (the ordinary program is that
+    semiring), else the catalog entry (``dist_csr.py:1493``)."""
+    if semiring is None:
+        return None
+    from ..graph.semiring import resolve
+
+    sr = resolve(semiring)
+    if sr.add == "sum" and sr.mul == "times":
+        return None
+    return sr
+
+
+def dist_spmv(A: DistCSR, x, semiring=None):
     """y = A @ x.  ``x`` is a sharded vector of length ``A.rows_padded``
     (``shard_vector``), and so is the result; given this rank's local
-    block (a plain tensor), the result is this rank's block of y."""
+    block (a plain tensor), the result is this rank's block of y.
+    ``semiring`` (a catalog name or ``graph.Semiring``) generalises the
+    product; None and ``"plus-times"`` run the ordinary dispatch."""
     from torch.distributed.tensor import DTensor
 
-    y = _spmv_local(A, _local(x))
+    sr = _resolve_semiring_arg(semiring)
+    if sr is not None:
+        y = _dist_spmv_semiring(A, _local(x), sr)
+    else:
+        y = _spmv_local(A, _local(x))
     if not isinstance(x, DTensor):
         return y
     return _global_vector(A, y, A.rows_padded)
@@ -1015,12 +1135,27 @@ def _spmm_local(A: DistCSR, X_local: torch.Tensor):
         A.rows_per_shard), "padded-csr"
 
 
-def dist_spmm(A: DistCSR, X):
+def _spmm_semiring_local(A: DistCSR, X_local: torch.Tensor, sr):
+    """``(Y_local, path)`` of the semiring SpMM (``_block_semiring_spmm_fn``,
+    ``dist_csr.py:1808-1871``): k stacked sources in one realization and
+    one product, column by column the semiring SpMV."""
+    X_src = _unwire(_realize(A, _wire(X_local)), X_local.dtype)
+    if A.ell:
+        return _spmv_ops.ell_semiring_spmm(
+            A.data, A.cols, A.counts, X_src, sr.add, sr.mul), "ell"
+    return _spmv_ops.csr_semiring_spmm_rowids_masked(
+        A.data, A.cols, A.row_ids, A.counts, X_src, A.rows_per_shard,
+        sr.add, sr.mul), "padded-csr"
+
+
+def dist_spmm(A: DistCSR, X, semiring=None):
     """Y = A @ X for a dense (rows_padded, k) operand sharded by
     ``shard_dense`` (rows over "rows", columns over "cols" on a grid
     mesh); a plain tensor is this rank's block.  1d-row layouts only, as
     in the JAX package.  A banded matrix in halo mode with k <=
-    ``SPMM_MAX_K`` takes the DIA SpMM kernel on the window."""
+    ``SPMM_MAX_K`` takes the DIA SpMM kernel on the window.
+    ``semiring`` generalises the product as in ``dist_spmv`` (the
+    batched multi-source frontier)."""
     from torch.distributed.tensor import DTensor
 
     if A.grid is not None:
@@ -1034,7 +1169,12 @@ def dist_spmm(A: DistCSR, X):
     _comm.record("dist_spmm", spmv_comm_volumes(
         A, int(X_local.shape[0]) * max(k_loc, 1), X_local.element_size(),
         cols=max(k_loc, 1)))
-    Y, A.spmm_path = _spmm_local(A, X_local)
+    sr = _resolve_semiring_arg(semiring)
+    if sr is not None:
+        _obs_counters.handle("graph.dist_spmm." + sr.name).inc()
+        Y, A.spmm_path = _spmm_semiring_local(A, X_local, sr)
+    else:
+        Y, A.spmm_path = _spmm_local(A, X_local)
     if not isinstance(X, DTensor):
         return Y
     return _dtensor(Y, X.device_mesh, X.placements, tuple(X.shape))

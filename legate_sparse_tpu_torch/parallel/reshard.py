@@ -5,7 +5,8 @@
 Counterpart of ``legate_sparse_tpu/parallel/reshard.py``:
 ``chunk_permute_plan`` (``:71``), the chunk permute
 (``_chunk_permute_program``, ``:103``), ``reshard_vector`` (``:127``)
-and ``reshard`` (``:188``).
+and ``reshard`` (``:188``), which hands a ``delta.DistDeltaCSR`` to its
+``_delta_reshard_carry`` (``:204-209``).
 
 - ``reshard_vector``: a sharded padded vector is one contiguous chunk
   per rank, in the mesh's flat order.  A placement change over the same
@@ -146,7 +147,11 @@ def reshard(A, mesh=None, layout: Optional[str] = None):
     layout)`` is the source's, else ``shard_csr`` of the ``csr_array``
     ``A`` kept.  A matrix without one (not built by ``shard_csr``), a
     destination over fewer ranks, or one whose order permutes the
-    ranks raises ``ValueError``."""
+    ranks raises ``ValueError``.  A ``delta.DistDeltaCSR`` carries its
+    pending updates across (``_delta_reshard_carry``, ``reshard.py:204``)."""
+    carry = getattr(A, "_delta_reshard_carry", None)
+    if carry is not None:
+        return carry(mesh, layout)
     lay = A.layout if layout is None else resolve_layout(layout)
     dst_mesh = _default_mesh(lay) if mesh is None else mesh
     _obs_counters.inc("op.reshard")

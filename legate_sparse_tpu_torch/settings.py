@@ -38,6 +38,23 @@ read once at import and can be overridden by assignment.
     reads and sets ``obs.trace``'s switch, so ``settings.obs = True``
     and the environment variable are the same switch, as in the JAX
     package.  Counters and latency histograms are on either way.
+``graph_max_iters`` (``LEGATE_SPARSE_TPU_GRAPH_MAX_ITERS``, 0)
+    Sweep cap of the graph traversals (BFS, connected components); 0
+    derives it from the vertex count (n + 1).  SSSP keeps its n-sweep
+    cap, its negative-cycle detector.
+``graph_conv_iters`` (``LEGATE_SPARSE_TPU_GRAPH_CONV_ITERS``, 5)
+    PageRank iterations per host fetch of its convergence test.
+``delta`` (``LEGATE_SPARSE_TPU_DELTA``, off)
+    The delta layer (``legate_sparse_tpu_torch.delta``): its
+    constructors raise while it is off.
+``delta_capacity`` (``LEGATE_SPARSE_TPU_DELTA_CAPACITY``, 1024)
+    Distinct (row, col) update slots a delta buffer holds before
+    ``update`` raises ``DeltaCapacityError``.
+``delta_watermark`` (``LEGATE_SPARSE_TPU_DELTA_WATERMARK``, 0.75)
+    Fraction of the capacity at which ``maybe_compact`` merges and an
+    update arms the compaction worker.
+``delta_worker_ms`` (``LEGATE_SPARSE_TPU_DELTA_WORKER_MS``, 0)
+    The compaction worker's cadence in ms; 0 starts no worker.
 """
 
 from __future__ import annotations
@@ -70,6 +87,17 @@ class Settings:
             "LEGATE_SPARSE_PRECISE_IMAGES", False)
         self.dist_layout: str = os.environ.get(
             "LEGATE_SPARSE_TPU_DIST_LAYOUT", "1d-row")
+        self.graph_max_iters: int = int(
+            os.environ.get("LEGATE_SPARSE_TPU_GRAPH_MAX_ITERS", "0"))
+        self.graph_conv_iters: int = int(
+            os.environ.get("LEGATE_SPARSE_TPU_GRAPH_CONV_ITERS", "5"))
+        self.delta: bool = _env_bool("LEGATE_SPARSE_TPU_DELTA", False)
+        self.delta_capacity: int = int(
+            os.environ.get("LEGATE_SPARSE_TPU_DELTA_CAPACITY", "1024"))
+        self.delta_watermark: float = float(
+            os.environ.get("LEGATE_SPARSE_TPU_DELTA_WATERMARK", "0.75"))
+        self.delta_worker_ms: float = float(
+            os.environ.get("LEGATE_SPARSE_TPU_DELTA_WORKER_MS", "0"))
 
     @property
     def obs(self) -> bool:

@@ -34,7 +34,12 @@ synchronisation (``torch.profiler`` counts none).  The kernels at their
 distributed call sites run in one spawned NCCL rank
 (``parallel.launch.run_ranks``);
 ``test_dist_nccl_ranks_match_one_card`` runs one rank a card and skips
-with fewer than two cards.
+with fewer than two cards.  The graph and delta layers on the card
+(``test_semiring_matvec_on_card``, ``test_delta_on_card``,
+``test_mutation_stream_on_card``): the semiring products and the delta
+serving are plain PyTorch, held to the same run on the CPU (min, max
+and or bit for bit; sums at 1e-12), the delta base term through the DIA
+kernel.
 """
 
 import numpy as np
@@ -1190,3 +1195,94 @@ def test_dist_nccl_ranks_match_one_card():
                                       else "all_gather"), world
         assert esc["same_structure"] and esc["err"] <= 1e-6, (world, esc)
         assert r["reshard"]["chunk"] and r["reshard"]["back"], world
+
+
+# ------------------------------------------------- graph and delta layers --
+
+def _graph_case(n=512, seed=3):
+    rng = np.random.default_rng(seed)
+    S = sp.random(n, n, density=0.02, random_state=rng, format="csr")
+    S.data[:] = rng.uniform(0.5, 2.0, S.nnz)
+    return S, rng.uniform(0, 1, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("semiring", ["plus-times", "min-plus", "max-times",
+                                      "or-and"])
+@pytest.mark.parametrize("kernel", ["semiring-csr", "semiring-ell",
+                                    "semiring-sliced-ell"])
+def test_semiring_matvec_on_card(cuda, semiring, kernel):
+    """``graph.matvec`` on the card equal to the same call on the CPU:
+    min, max and or bit for bit (order-free reductions), plus-times
+    within 1e-12 (its sums meet in another order)."""
+    from legate_sparse_tpu_torch import graph
+
+    S, x = _graph_case()
+    v = torch.from_numpy(x > 0.5 if semiring == "or-and" else x)
+    got = graph.matvec(sparse.csr_array(S, device=cuda), v.to(cuda),
+                       semiring=semiring, kernel=kernel)
+    want = graph.matvec(sparse.csr_array(S, device="cpu"), v,
+                        semiring=semiring, kernel=kernel)
+    assert got.device.type == cuda.type and got.dtype == want.dtype
+    if semiring == "plus-times":
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-12, atol=1e-12)
+    else:
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_delta_on_card(cuda):
+    """``DeltaCSR`` on a band on the card: the empty buffer is ``A @ x``
+    bit for bit through one ``dia_spmv`` launch; after a stream of
+    updates the two-term product is the CPU run's within 1e-6 of
+    ``|A'| |x|``, and compaction is the CPU run's base bit for bit."""
+    from legate_sparse_tpu_torch import gallery
+    from legate_sparse_tpu_torch.delta import DeltaCSR
+    from legate_sparse_tpu_torch.settings import settings
+
+    n = 4096
+    rng = np.random.default_rng(12)
+    S = sp.diags([rng.standard_normal(n - abs(o)).astype(np.float32)
+                  for o in (-2, 0, 1)], [-2, 0, 1], format="csr")
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    saved = settings.delta
+    settings.delta = True
+    try:
+        D = DeltaCSR(sparse.csr_array(S, device=cuda))
+        H = DeltaCSR(sparse.csr_array(S, device="cpu"))
+        xc = x.to(cuda)
+        dia_kernel.dia_spmv.launches = 0
+        y0 = D.dot(xc)
+        assert dia_kernel.dia_spmv.launches == 1
+        assert D.base.spmv_path == "dia-kernel"
+        assert torch.equal(y0, D.base @ xc)
+        for rows, cols, vals in gallery.mutation_stream(4, H.base, 96,
+                                                        batch=32):
+            D.update(rows, cols, vals)
+            H.update(rows, cols, vals)
+        y, yh = D.dot(xc).cpu(), H.dot(x)
+        mag = np.abs(S.toarray()) @ np.abs(x.numpy()) + 1.0
+        assert np.all(np.abs((y - yh).numpy()) <= 1e-6 * mag)
+        pending = H.pending
+        assert D.pending == pending > 0
+        assert D.compact() == H.compact() == pending
+        for a, b in ((D.base.data, H.base.data),
+                     (D.base.indices, H.base.indices),
+                     (D.base.indptr, H.base.indptr)):
+            assert torch.equal(a.cpu(), b)
+    finally:
+        settings.delta = saved
+
+
+@pytest.mark.gpu
+def test_mutation_stream_on_card(cuda):
+    """The stream over a matrix on the card is the stream over the same
+    matrix on the CPU."""
+    from legate_sparse_tpu_torch import gallery
+
+    G = gallery.rmat(10, nnz_per_row=8, rng=5, device="cpu")
+    Gc = sparse.csr_array(G, device=cuda)
+    for a, b in zip(gallery.mutation_stream(9, Gc, 200, batch=50),
+                    gallery.mutation_stream(9, G, 200, batch=50)):
+        for u, v in zip(a, b):
+            np.testing.assert_array_equal(u, v)

@@ -42,10 +42,14 @@ def test_import_loads_no_jax():
         "import legate_sparse_tpu_torch.coverage\n"
         "import legate_sparse_tpu_torch.csc\n"
         "import legate_sparse_tpu_torch.csgraph\n"
+        "import legate_sparse_tpu_torch.delta\n"
+        "import legate_sparse_tpu_torch.delta.dist\n"
         "import legate_sparse_tpu_torch.eigen\n"
         "import legate_sparse_tpu_torch._lobpcg\n"
         "import legate_sparse_tpu_torch.expm\n"
         "import legate_sparse_tpu_torch.gallery\n"
+        "import legate_sparse_tpu_torch.graph\n"
+        "import legate_sparse_tpu_torch.graph.algorithms\n"
         "import legate_sparse_tpu_torch.interop\n"
         "import legate_sparse_tpu_torch.io\n"
         "import legate_sparse_tpu_torch.krylov_extra\n"
