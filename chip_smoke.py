@@ -250,11 +250,40 @@ Phases, each printing one JSON line:
    ``DistDeltaCSR`` on pde_4096 bit for bit with ``DeltaCSR.dot`` on
    one buffer (the base term ``dia_spmv`` on the window), ``reshard``
    to 2d-block and back with the updates pending, ``compact``.
+16. the serving path (``phase16_serving``), ``main_path_serving`` and
+   ``timing_serving``: four ``bench.py::_engine_config`` matrices of one
+   shape bucket (n = 2^20 - 91, seeds 7, 13, 29, and n = 2^20 - 37; 11
+   nonzeros a row and one of 704, f32), each's plain ``dot`` through
+   ``"csr-rowids"``.  (E) the engine: A1's cold dispatch (plan and pack)
+   and warm ms a request beside the direct ``dot``, bit for bit, with
+   no host sync in a warm request; A4 a plan hit; 8 executor requests on
+   A1 as one stacked SpMM, each column bit for bit its single dispatch;
+   ``multi_matvec`` of A1-A4 as one plan execution, each result bit for
+   bit its own plan's; CG on A1 + A1^T + a dominant diagonal (built on
+   the card, 100 iterations) with the engine on against off: the same
+   iterations and bits, ms/iter of each.  (G) the bench's two-stage,
+   three-tenant gateway load on A1-A3 (stage A ``max_batch=4``; stage B
+   flush-only, ``tenant_quota=8``: 24 ``queue_full`` rejections) plus
+   two tenants served inline, 8 requests a stage each, "banded" on
+   pde_4096 (``dia_spmv``) and "blocks" on the 2^20 block-clustered
+   matrix (``bsr_spmv``): every ``gateway.*`` total as
+   ``P16_GATEWAY_TOTALS`` (held equal to the JAX package's by
+   ``tests/test_torch_gateway.py``) plus the inline tenants', every
+   served y bit for bit the direct ``A.dot``, A1's against scipy f64 at
+   1e-4, requests/s and p50/p99 latency to completion a stage.  (A)
+   ``autotune.tune`` (5 trials) on A1 and on phase 9's scale-20 R-MAT
+   (f64): each candidate's median, the verdict, the routed ``dot`` bit
+   for bit the verdict's candidate, the store through a JSON file.  (R)
+   with ``settings.resil``: one injected ``gateway.dispatch`` fault
+   served inline bit for bit, an expired deadline shed at admission.
+   ``engine.route.error``, ``gateway.dispatch_fallback`` and
+   ``gateway.breaker_inline`` must not move in any sub-run.
 
 Launch counts come from the kernel wrappers: each is set to 0 just
-before a main-path phase (in phases 10-12, 14 and 15, each run) drives
-its path and read just after; the ``kernels`` line's launches add
-phases 10's, 11's, 12's, 14's and 15's to those of phases 4-7, and its
+before a main-path phase (in phases 10-12, 14 and 15, each run; in
+phase 16, the gateway load) drives its path and read just after; the
+``kernels`` line's launches add phases 10's, 11's, 12's, 14's, 15's and
+16's to those of phases 4-7, and its
 ``max_abs_err`` is the largest over the kernel's shapes in phases 4-7,
 10-12 and 14.  Any
 failed check raises, so the script exits non-zero; it exits non-zero
@@ -1480,6 +1509,466 @@ def phase15_rank(rank, world):
             "seconds_in_rank": time.perf_counter() - t_phase}
 
 
+# Phase 16's full widths: the engine matrices' rows (bench.py's
+# ``_engine_config``: n = P16_ROWS - 91 and P16_ROWS - 37, 11 nonzeros a
+# row and one row of 704), the pde_4096 grid, the block-clustered
+# matrix's rows and the R-MAT scale of phase 9.
+P16_ROWS, P16_GRID, P16_IRR_ROWS, P16_RMAT_SCALE = 1 << 20, 4096, 1 << 20, 20
+
+# The ``gateway.*`` totals of the bench's two-stage load on three engine
+# matrices: ``tests/test_torch_gateway.py`` holds the same sequence's
+# totals equal to the JAX package's, and to these.
+P16_GATEWAY_TOTALS = {
+    "gateway.admitted": 72, "gateway.dispatched_requests": 72,
+    "gateway.dispatches": 13, "gateway.outcome.served": 72,
+    "gateway.outcome.shed": 24, "gateway.packed": 3,
+    "gateway.rejected.queue_full": 24, "gateway.submitted": 96,
+    "gateway.tenant.background.served": 40,
+    "gateway.tenant.background.shed": 24,
+    "gateway.tenant.background.submitted": 64,
+    "gateway.tenant.batch.served": 16,
+    "gateway.tenant.batch.submitted": 16,
+    "gateway.tenant.interactive.served": 16,
+    "gateway.tenant.interactive.submitted": 16,
+}
+
+
+def engine_matrix(n, nnz_per_row=11, seed=7):
+    """``bench.py::_engine_config`` as scipy CSR: random columns, one
+    heavy row of ``64 * nnz_per_row`` that breaks the ELL and BSR
+    budgets, nnz = nnz_per_row * (n + 63), so n = 2^20 - 91 and 2^20 -
+    37 share one shape bucket whatever the seed."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    counts = np.full(n, nnz_per_row, dtype=np.int64)
+    counts[0] = min(64 * nnz_per_row, n)
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    nnz = int(indptr[-1])
+    indices = rng.integers(0, n, size=nnz).astype(np.int32)
+    order = np.lexsort((indices, np.repeat(np.arange(n), counts)))
+    data = rng.standard_normal(nnz).astype(np.float32)
+    return sp.csr_matrix((data, indices[order], indptr), shape=(n, n))
+
+
+def phase16_serving():
+    """Phase 16, ``main_path_serving``: the serving path (engine,
+    executor, gateway, autotune, request resilience) at full width.
+    Returns ``(record, timing, launches)``; any failed check raises."""
+    import warnings
+
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    import legate_sparse_tpu_torch as sparse
+    from legate_sparse_tpu_torch import autotune, linalg, obs, resilience
+    from legate_sparse_tpu_torch import runtime
+    from legate_sparse_tpu_torch.engine import (
+        Engine, Gateway, RequestExecutor)
+    from legate_sparse_tpu_torch.ops import spmv as spmv_ops
+    from legate_sparse_tpu_torch.ops.convert import gather_index
+    from legate_sparse_tpu_torch.settings import settings
+
+    t_phase = time.perf_counter()
+    dev = runtime.default_device()
+    g = torch.Generator(device=dev).manual_seed(16)
+    rec, timing = {}, {}
+
+    def randx(n, dtype=torch.float32, k=None):
+        shape = (n,) if k is None else (n, k)
+        return torch.randn(shape, device=dev, dtype=dtype, generator=g)
+
+    def bits(a, b, what):
+        check(torch.equal(a, b), f"{what}: not bit for bit")
+
+    def host_syncs(fn):
+        """Synchronising CUDA calls ``fn`` makes (sync debug mode)."""
+        if dev.type != "cuda":
+            fn()
+            return 0
+        sync()
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        # (The mode's own notice, that it is a prototype, is no sync.)
+        return sum("called a synchronizing" in str(m.message) for m in w)
+
+    def fallbacks():
+        return {k: obs.counters.get(k) for k in (
+            "engine.route.error", "gateway.dispatch_fallback",
+            "gateway.breaker_inline")}
+
+    f0 = fallbacks()
+    n = P16_ROWS - 91
+    t0 = time.perf_counter()
+    S = [engine_matrix(n, seed=s) for s in (7, 13, 29)]
+    S.append(engine_matrix(P16_ROWS - 37, seed=7))
+    A1, A2, A3, A4 = (sparse.csr_array(M, device=dev) for M in S)
+    rec["matrices"] = {"rows": [M.shape[0] for M in S],
+                       "nnz": [M.nnz for M in S],
+                       "host_build_s": time.perf_counter() - t0}
+    x1 = randx(n)
+    for name, M in (("A1", A1), ("A2", A2), ("A3", A3), ("A4", A4)):
+        M.dot(torch.ones(M.shape[1], device=dev))
+        check(M.spmv_path == "csr-rowids",
+              f"{name}'s plain dot took {M.spmv_path}")
+        check(M._serial_rows(), f"{name}: rows past SERIAL_MAX_ROW")
+
+    # ---- (E) the engine -------------------------------------------------
+    eng = Engine()
+    sync()
+    t0 = time.perf_counter()
+    y_cold = eng.matvec(A1, x1)
+    sync()
+    cold_s = time.perf_counter() - t0
+    y_dot = A1.dot(x1)
+    bits(y_cold, y_dot, "engine plan vs csr-rowids dot (A1)")
+    plan_ms = time_ms(lambda: eng.matvec(A1, x1, _checked=True))
+    dot_ms = time_ms(lambda: A1.dot(x1))
+    rowids_ms = time_ms(lambda: spmv_ops.csr_spmv_rowids(
+        A1.data, A1.indices, A1._get_row_ids(), x1, n,
+        lengths=A1._get_row_lengths(), serial=True))
+    reqs = 50
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reqs):
+        eng.matvec(A1, x1)
+    sync()
+    warm_req_ms = (time.perf_counter() - t0) * 1e3 / reqs
+    warm_syncs = host_syncs(lambda: eng.matvec(A1, x1))
+    check(warm_syncs == 0, f"a warm engine request synced {warm_syncs}x")
+    h0, m0 = (obs.counters.get("engine.plan.hits"),
+              obs.counters.get("engine.plan.misses"))
+    x4 = randx(A4.shape[1])
+    bits(eng.matvec(A4, x4), A4.dot(x4), "engine plan vs dot (A4)")
+    check(obs.counters.get("engine.plan.misses") == m0
+          and obs.counters.get("engine.plan.hits") == h0 + 1,
+          "A4 must hit A1's plan")
+    # The executor: 8 requests on A1 become one stacked SpMM.
+    xs = [randx(n) for _ in range(8)]
+    ex = RequestExecutor(eng, max_batch=8, queue_depth=64, timeout_ms=0)
+    b0 = obs.counters.get("engine.exec.batches")
+    try:
+        futs = [ex.submit(A1, x) for x in xs]
+        ys = [f.result(timeout=120) for f in futs]
+    finally:
+        ex.shutdown()
+    check(obs.counters.get("engine.exec.batches") == b0 + 1,
+          "8 requests must make one stacked dispatch")
+    for i, (y, x) in enumerate(zip(ys, xs)):
+        bits(y, eng.matvec(A1, x, _checked=True), f"stacked column {i}")
+    X8 = torch.stack(xs, dim=1)
+    stack_ms = time_ms(lambda: eng.matmat(A1, X8, _checked=True))
+    # torch's own 2-D segment_reduce against its 1-D one on A1's
+    # products: the stack sums every column in the SpMV's order
+    # (``row_sums``), whatever these give.
+    prod = A1.data * x1[gather_index(A1.indices)]
+    lens = A1._get_row_lengths()
+    r1 = torch.segment_reduce(prod, "sum", lengths=lens)
+    r2 = torch.segment_reduce(prod[:, None], "sum", lengths=lens)[:, 0]
+    raw = {"equal": bool(torch.equal(r1, r2)),
+           "max_abs_diff": float((r1 - r2).abs().max())}
+    # multi_matvec of A1-A4: one plan execution.
+    pairs = [(A1, x1), (A2, xs[1]), (A3, xs[2]), (A4, x4)]
+    key = eng._key("spmv_multi", n, n, A1.nnz, A1.dtype, k=4)
+    e0 = obs.counters.get(f"engine.plan.{key.plan_id}.execs")
+    ym = eng.multi_matvec(pairs)
+    check(obs.counters.get(f"engine.plan.{key.plan_id}.execs") == e0 + 1,
+          "multi_matvec must be one plan execution")
+    for i, (y, (M, x)) in enumerate(zip(ym, pairs)):
+        bits(y, eng.matvec(M, x, _checked=True), f"multi_matvec slot {i}")
+    multi_ms = time_ms(lambda: eng.multi_matvec(pairs, _checked=True))
+    # Engine-routed CG on A1 + A1^T + a dominant diagonal, built on the
+    # card: the same iterations and bits as with the engine off.
+    Ssym = A1 + A1.T
+    dom = float((abs(Ssym) @ torch.ones(n, device=dev)).max()) + 1.0
+    Spd = Ssym + sparse.eye(n, dtype=np.float32, device=dev) * dom
+    b = torch.ones(n, device=dev)
+    Spd.dot(b)                      # its structure caches, before timing
+    cg_runs = {}
+    # Off, on, off, on: a first solve's one-time costs show as the gap
+    # between the two runs of one setting.
+    for label, on in (("engine_off", False), ("engine_on", True)) * 2:
+        settings.engine = on
+        try:
+            Aop = linalg.make_linear_operator(Spd)
+            sync()
+            t0 = time.perf_counter()
+            xcg, it = linalg.cg(Aop, b, rtol=1e-30, maxiter=100)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3 / max(int(it), 1)
+        finally:
+            settings.engine = False
+        run = cg_runs.setdefault(label, {"x": xcg, "iters": int(it),
+                                         "ms_per_iter": [],
+                                         "engine_closure":
+                                         Aop._engine_mv is not None})
+        run["ms_per_iter"].append(ms)
+        check(int(it) == run["iters"], f"{label}: iterations differ")
+        bits(xcg, run["x"], f"{label}: the second solve's iterate")
+    check(cg_runs["engine_on"]["engine_closure"],
+          "engine-routed CG took no engine closure")
+    check(cg_runs["engine_on"]["iters"] == cg_runs["engine_off"]["iters"],
+          "engine-routed CG iterations differ")
+    bits(cg_runs["engine_on"]["x"], cg_runs["engine_off"]["x"],
+         "engine-routed CG iterate")
+    rec["engine"] = {
+        "cold_s": cold_s, "warm_ms_per_request": warm_req_ms,
+        "plan_ms": plan_ms, "dot_ms": dot_ms,
+        "warm_request_host_syncs": warm_syncs,
+        "a4_plan_hit": True, "executor_batch_ms": stack_ms,
+        "executor_ms_per_request": stack_ms / 8,
+        "torch_segment_reduce_2d_vs_1d": raw,
+        "multi_matvec_ms": multi_ms,
+        "cg": {k: {kk: vv for kk, vv in v.items() if kk != "x"}
+               for k, v in cg_runs.items()},
+        "plans": {k: {kk: v[kk] for kk in ("hits", "execs")}
+                  for k, v in eng.stats()["plans"].items()}}
+    del Ssym, Spd, Aop, cg_runs, prod, r1, r2, X8, ys, ym
+    check(fallbacks() == f0, f"fallback counters moved in (E): "
+          f"{fallbacks()} against {f0}")
+    # Bytes of one product's work: values and indices read once, the row
+    # lengths, x read and y written (the padded pack moves more).
+    work_bytes = A1.nnz * 8 + n * 8 + 2 * n * 4
+    pk = A1._engine_pack[1]
+    pack_bytes = (2 * key.nnz_b * 4 + pk.lengths.numel() * 8
+                  + 2 * key.cols_b * 4)
+    timing["engine_spmv"] = {"ms": plan_ms, "csr_rowids_ms": rowids_ms,
+                             "dot_ms": dot_ms, "bytes": work_bytes,
+                             "pack_bytes": pack_bytes,
+                             "bound_ms": work_bytes / HBM_BYTES_PER_S * 1e3}
+    timing["engine_spmm_k8"] = {
+        "ms": stack_ms, "csr_rowids_ms": time_ms(
+            lambda: spmv_ops.csr_spmm_rowids(
+                A1.data, A1.indices, None, torch.stack(xs, dim=1), n,
+                lengths=lens, serial=True)),
+        "bytes": A1.nnz * 8 + n * 8 + 2 * 8 * n * 4}
+    timing["engine_spmm_k8"]["bound_ms"] = (
+        timing["engine_spmm_k8"]["bytes"] / HBM_BYTES_PER_S * 1e3)
+    timing["engine_multi_k4"] = {
+        "ms": multi_ms, "csr_rowids_ms": 4 * rowids_ms,
+        "bytes": 4 * work_bytes,
+        "bound_ms": 4 * work_bytes / HBM_BYTES_PER_S * 1e3}
+
+    # ---- (G) the gateway under the bench's two-stage load ---------------
+    Pd, offsets = pde_diagonals(P16_GRID)
+    Pde = sparse.diags(Pd, offsets, shape=(P16_GRID ** 2,) * 2,
+                       format="csr", dtype=np.float32, device=dev)
+    rng = np.random.default_rng(0)
+    d, i, p = block_clustered_arrays(rng, P16_IRR_ROWS, 8, 2)
+    Irr = sparse.csr_array((d, i, p), shape=(P16_IRR_ROWS,) * 2,
+                           device=dev)
+    xp, xi = randx(Pde.shape[1]), randx(P16_IRR_ROWS)
+    yp_ref, yi_ref = Pde.dot(xp), Irr.dot(xi)   # builds their structures
+    check(Pde.spmv_path == "dia-kernel" and Irr.spmv_path == "bsr",
+          f"inline tenants took {Pde.spmv_path}, {Irr.spmv_path}")
+    ones = torch.ones(n, device=dev)
+    g0 = obs.counters.snapshot("gateway.")
+    settings.gateway = True
+    stages, futs_all = [], []
+    sync()
+    reset_counts()
+    try:
+        for stage, kw in (("A", dict(max_batch=4, tenant_quota=64)),
+                          ("B", dict(max_batch=32, tenant_quota=8))):
+            gw = Gateway(Engine(), queue_depth=128, rate=0.0, burst=16.0,
+                         slack_ms=5.0, timeout_ms=0.0, **kw)
+            submitted, done_at, futs = [], {}, []
+
+            def stamp(f, i):
+                # A served tensor is only launched: complete it first.
+                sync()
+                done_at[i] = time.perf_counter()
+
+            def submit(M, x, tenant, qos):
+                i = len(futs)
+                submitted.append(time.perf_counter())
+                f = gw.submit(M, x, tenant=tenant, qos=qos)
+                f.add_done_callback(lambda f, i=i: stamp(f, i))
+                futs.append((f, M, x, tenant))
+
+            t0 = time.perf_counter()
+            try:
+                for j in range(8):
+                    submit(A1 if j % 2 == 0 else A2, ones, "interactive",
+                           "interactive")
+                for _ in range(8):
+                    submit(A3, ones, "batch", "batch")
+                for _ in range(32):
+                    submit(A1, ones, "background", "background")
+                for _ in range(8):
+                    submit(Pde, xp, "banded", "interactive")
+                for _ in range(8):
+                    submit(Irr, xi, "blocks", "interactive")
+                gw.flush()
+                for f, *_ in futs:
+                    f.result(timeout=300)
+            finally:
+                gw.shutdown()
+            sync()
+            wall = time.perf_counter() - t0
+            served = [i for i, (f, *_r) in enumerate(futs)
+                      if not isinstance(f.result(), resilience.Rejected)]
+            lat = np.array([(done_at[i] - submitted[i]) * 1e3
+                            for i in served])
+            stages.append({"stage": stage, "requests": len(futs),
+                           "served": len(served), "wall_s": wall,
+                           "requests_per_s": len(served) / wall,
+                           "p50_ms": float(np.percentile(lat, 50)),
+                           "p99_ms": float(np.percentile(lat, 99))})
+            futs_all += futs
+    finally:
+        settings.gateway = False
+    g_launches = read_counts()
+    gdelta = {k: v - g0.get(k, 0)
+              for k, v in obs.counters.snapshot("gateway.").items()
+              if v - g0.get(k, 0)}
+    # The two inline tenants add 8 requests a stage each to the load's
+    # totals, every one served inline.
+    want = dict(P16_GATEWAY_TOTALS)
+    for k in ("gateway.submitted", "gateway.outcome.served"):
+        want[k] += 32
+    want["gateway.inline"] = 32
+    for t in ("banded", "blocks"):
+        want[f"gateway.tenant.{t}.submitted"] = 16
+        want[f"gateway.tenant.{t}.served"] = 16
+    check(gdelta == want, f"gateway totals {gdelta} against {want}")
+    check(g_launches["dia_spmv"] == 16 and g_launches["bsr_spmv"] == 16,
+          f"inline tenants' launches {g_launches}")
+    # Every served result bit for bit the direct A.dot (the comparison's
+    # launches stay out of the counts read above).
+    direct = {}
+    for f, M, x, _t in futs_all:
+        y = f.result()
+        if isinstance(y, resilience.Rejected):
+            continue
+        if (id(M), id(x)) not in direct:
+            direct[(id(M), id(x))] = M.dot(x)
+        bits(y, direct[(id(M), id(x))], "gateway result vs A.dot")
+    y1 = direct[(id(A1), id(ones))].double().cpu().numpy()
+    ref = S[0].astype(np.float64) @ np.ones(n)
+    scale = np.abs(S[0]).astype(np.float64) @ np.ones(n)
+    a1_rel = float(np.max(np.abs(y1 - ref) / np.maximum(scale, 1e-30)))
+    check(a1_rel <= 1e-4, f"A1 @ 1 against scipy f64: {a1_rel}")
+    rec["gateway"] = {"stages": stages, "totals": gdelta,
+                      "launches": g_launches,
+                      "a1_vs_scipy_f64_rel": a1_rel}
+    del futs_all, direct
+    check(fallbacks() == f0, f"fallback counters moved in (G): "
+          f"{fallbacks()} against {f0}")
+
+    # ---- (A) autotune ---------------------------------------------------
+    G = sparse.rmat(P16_RMAT_SCALE, nnz_per_row=8, rng=0, device=dev)
+    xg = randx(G.shape[1], torch.float64)
+    tuned = {}
+    settings.autotune = True
+    try:
+        autotune.reset()
+        for name, M, x in (("A1", A1, x1), ("rmat", G, xg)):
+            v = autotune.tune(M, x, trials=5)
+            h0 = obs.counters.get("autotune.route.hits")
+            y = M.dot(x)
+            check(M.spmv_path == v.label,
+                  f"{name}'s routed dot took {M.spmv_path}")
+            check(obs.counters.get("autotune.route.hits") == h0 + 1,
+                  f"{name}: no autotune route hit")
+            bits(y, autotune.CANDIDATES[v.label].run(M, x, "spmv"),
+                 f"{name}'s routed dot vs its verdict's candidate")
+            tuned[name] = {"verdict": v.label, "medians_ms": v.timings_ms,
+                           "serial_rows": M._serial_rows()}
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "verdicts.json")
+            store = autotune.VerdictStore(path=path)
+            for M in (A1, G):
+                k = autotune.key_for(M, "spmv")
+                v = autotune.get_store().lookup(k)
+                store.record(k, v.label, timings_ms=v.timings_ms,
+                             trials=v.trials)
+            back = autotune.VerdictStore(path=path)
+            check(len(back) == 2 and all(
+                back.lookup(autotune.key_for(M, "spmv")).label
+                == tuned[name]["verdict"]
+                for name, M in (("A1", A1), ("rmat", G))),
+                "verdict store JSON round trip")
+    finally:
+        settings.autotune = False
+        autotune.reset()
+    rec["autotune"] = tuned
+    # csr-rowids beside the atomic ``index_add_`` it replaced (whose sum
+    # changes bits from call to call), on A1 and the R-MAT.
+    def atomic(M, x):
+        prod = M.data * x[gather_index(M.indices)]
+        return torch.zeros(M.shape[0], dtype=prod.dtype,
+                           device=dev).index_add_(0, M._get_row_ids(), prod)
+
+    for name, M, x in (("A1", A1, x1), ("rmat", G, xg)):
+        timing["csr_rowids_" + name] = {
+            "ms": time_ms(lambda: spmv_ops.csr_spmv_rowids(
+                M.data, M.indices, M._get_row_ids(), x, M.shape[0],
+                lengths=M._get_row_lengths(), serial=M._serial_rows()),
+                reps=5),
+            "atomic_index_add_ms": time_ms(lambda: atomic(M, x), reps=5),
+            "serial_rows": M._serial_rows(), "rows": M.shape[0],
+            "nnz": M.nnz, "dtype": str(M.dtype)}
+    del G, xg
+    check(fallbacks() == f0, f"fallback counters moved in (A): "
+          f"{fallbacks()} against {f0}")
+
+    # ---- (R) resilience on the request path -----------------------------
+    settings.gateway = True
+    settings.resil = True
+    settings.resil_backoff_ms = 0.0
+    resilience.reset()
+    try:
+        gw = Gateway(Engine(), max_batch=4, queue_depth=128,
+                     tenant_quota=64, rate=0.0, burst=16.0, slack_ms=5.0,
+                     timeout_ms=0.0)
+        i0 = obs.counters.get("gateway.dispatch_fault_inline")
+        try:
+            resilience.inject("gateway.dispatch", kind="error", count=1)
+            xs4 = [randx(n) for _ in range(4)]
+            mats = [A1, A2, A1, A2]
+            futs = [gw.submit(M, x, tenant=f"t{j % 2}")
+                    for j, (M, x) in enumerate(zip(mats, xs4))]
+            for f, M, x in zip(futs, mats, xs4):
+                bits(f.result(timeout=120), M.dot(x),
+                     "fault-inline result vs A.dot")
+            with resilience.deadline.scope(0.0):
+                shed = gw.submit(A1, x1, tenant="late").result(timeout=30)
+        finally:
+            gw.shutdown()
+        fault_inline = obs.counters.get("gateway.dispatch_fault_inline") - i0
+        check(fault_inline == 1, f"dispatch_fault_inline {fault_inline}")
+        check(isinstance(shed, resilience.Rejected)
+              and shed.reason == "deadline_shed"
+              and shed.site == "gateway.admit",
+              f"expired request: {shed!r}")
+        rec["resilience"] = {"dispatch_fault_inline": fault_inline,
+                             "fired": resilience.faults.fired(
+                                 "gateway.dispatch"),
+                             "shed": {"reason": shed.reason,
+                                      "site": shed.site}}
+    finally:
+        resilience.reset()
+        settings.resil = False
+        settings.gateway = False
+    f1 = fallbacks()
+    check(f1["gateway.dispatch_fallback"] == f0["gateway.dispatch_fallback"]
+          and f1["gateway.breaker_inline"] == f0["gateway.breaker_inline"]
+          and f1["engine.route.error"] == f0["engine.route.error"],
+          f"fallback counters moved in (R): {f1} against {f0}")
+    rec["fallback_counters"] = f1
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec, timing, g_launches
+
+
 def main() -> int:
     import torch
 
@@ -2126,8 +2615,11 @@ def main() -> int:
     csr_bytes = (R.nnz * (R.data.element_size() + R.indices.element_size())
                  + R.indptr.numel() * 8 + st.nblocks * 4 + (st.nbr + 1) * 8)
     bsr_bytes = csr_bytes + 2 * 4 * rows
+    # csr-rowids as ``csr_array.dot`` runs it: the cached row lengths
+    # and summation order.
     csr_rowids_ms = time_ms(lambda: spmv_ops.csr_spmv_rowids(
-        R.data, R.indices, row_ids, x, rows))
+        R.data, R.indices, row_ids, x, rows,
+        lengths=R._get_row_lengths(), serial=R._serial_rows()))
     bsr_row = {
         "name": "bsr_spmv", "route": "cuda",
         "source": "legate_sparse_tpu_torch/csrc/bsr_spmv.cu",
@@ -2184,7 +2676,8 @@ def main() -> int:
     }
     log({"phase": "timing_bsr_spmm", **bsr_spmm_row,
          "csr_rowids_ms": time_ms(lambda: spmv_ops.csr_spmm_rowids(
-             R.data, R.indices, row_ids, X, rows))})
+             R.data, R.indices, row_ids, X, rows,
+             lengths=R._get_row_lengths(), serial=R._serial_rows()))})
     del R, R_lib, st, x, X, Y, row_ids
     torch.cuda.empty_cache()
 
@@ -4200,7 +4693,9 @@ def main() -> int:
         "f64": {"ms": time_ms(lambda: spmv_ops.sliced_ell_spmv(
                     bins, xg, g_rows), reps=5),
                 "csr_rowids_ms": time_ms(lambda: spmv_ops.csr_spmv_rowids(
-                    G.data, G.indices, g_rid, xg, g_rows), reps=5),
+                    G.data, G.indices, g_rid, xg, g_rows,
+                    lengths=G._get_row_lengths(),
+                    serial=G._serial_rows()), reps=5),
                 "bytes": G.spmv_traffic_bytes(xg, path="sliced-ell"),
                 "max_abs_err": sliced_err},
         "bf16_f32acc": {
@@ -4254,11 +4749,19 @@ def main() -> int:
     phase15 = {k: m_launches[k] + p15["launches"][k] for k in m_launches}
     check(phase15["dia_spmv"] > 0, f"phase 15 launches {phase15}")
 
+    # ---- 16. the serving path ----------------------------------------------
+    torch.cuda.empty_cache()
+    s_rec, s_timing, phase16 = phase16_serving()
+    log({"phase": "main_path_serving", "nvidia_smi": smi_line, **s_rec,
+         "launches": phase16})
+    log({"phase": "timing_serving", "nvidia_smi": smi_line, **s_timing})
+    torch.cuda.empty_cache()
+
     for row in (dia_row, bsr_row, dia_spmm_row, bsr_spmm_row,
                 dia_spgemm_row):
         row["launches"] += (phase10[row["name"]] + phase11[row["name"]]
                             + phase12[row["name"]] + phase14[row["name"]]
-                            + phase15[row["name"]])
+                            + phase15[row["name"]] + phase16[row["name"]])
         row["max_abs_err"] = max([row["max_abs_err"]] + [
             h["max_abs_err"] for h in (list(kernel_vs_plain.values())
                                        + list(spec_vs_plain.values())

@@ -33,7 +33,12 @@ device and no such request they raise.  The package imports neither
 on the operator's or graph's device.  ``graph`` (BFS, SSSP, connected
 components and PageRank as semiring SpMV over the distribution layer)
 and ``delta`` (streaming mutation: ``DeltaCSR``, ``DistDeltaCSR``) are
-the graph-analytics and mutation layers.
+the graph-analytics and mutation layers.  The serving path is
+``engine`` (shape-bucketed plans, the micro-batching executor and the
+multi-tenant gateway: ``engine.get_gateway().submit(A, x, tenant=,
+qos=)``), ``autotune`` (measured kernel verdicts) and ``resilience``
+(fault injection, retries, breakers, deadlines); each is off until its
+setting turns it on.
 """
 
 import scipy.sparse as _scipy_sparse
@@ -44,6 +49,7 @@ from .types import SparseEfficiencyWarning  # noqa: F401
 from .coverage import clone_module as _clone_module
 from . import linalg  # noqa: F401
 from . import graph  # noqa: F401
+from . import autotune, engine, resilience  # noqa: F401
 
 # Every other scipy.sparse name as its scipy fallback, so the namespace
 # is complete (reference ``__init__.py:36``).

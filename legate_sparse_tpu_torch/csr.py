@@ -29,6 +29,10 @@ label                     SpMV (``spmv_path``) and SpMM (``spmm_path``)
 ``"csr-rowids-bf16"``     another dtype: f32 products and sums (SpMV;
                           SpMM ``"csr-rowids-bf16"`` only)
 ``"csr"``                 the operand's dtype promoted the matrix
+``"engine"``              ``settings.engine``: the shape-bucketed plan
+                          (``engine/``), bit for bit ``"csr-rowids"``
+a verdict's label         ``settings.autotune``: a stored verdict's
+                          kernel (``autotune/``)
 ========================  ==============================================
 
 A sparse operand (``csr_array``, ``dia_array``, scipy) takes SpGEMM,
@@ -39,9 +43,12 @@ A sparse operand (``csr_array``, ``dia_array``, scipy) takes SpGEMM,
 int16 indices) against an operand of another dtype takes the JAX
 package's widening routes: ``"dia-torch"`` (f32 products),
 ``"ell-bf16"`` and ``"csr-rowids-bf16"`` (f32 accumulation); BSR and
-the DIA kernels stand down there.  The JAX package's
-engine/autotune/resilience routes are not part of the port yet.
-Every product counts ``op.*`` and times ``lat.*`` (``obs``).
+the DIA kernels stand down there.  Ahead of the structure chain, as
+in the JAX package, come the engine rung and then the autotune rung;
+each declines (off, the default; a banded or block matrix; dtype
+promotion) into the chain.  With ``settings.resil`` on, ``dot`` runs
+under the ``csr.dot`` resilience site.  Every product counts ``op.*``
+and times ``lat.*`` (``obs``).
 
 In-place mutators (``sum_duplicates``, ``eliminate_zeros``,
 ``sort_indices``, ``setdiag``, ``resize``, the ``data`` setter) rebind
@@ -66,9 +73,15 @@ from .ops import dia_kernel as _dia_kernel
 from .ops import dia_ops as _dia_ops
 from .ops import spgemm as _spgemm_ops
 from .ops import spmv as _spmv_ops
+from .autotune import route_matmat as _autotune_route_matmat
+from .autotune import route_matvec as _autotune_route_matvec
+from .engine import route_matmat as _engine_route_matmat
+from .engine import route_matvec as _engine_route_matvec
 from .obs import counters as _obs_counters
 from .obs import latency as _lat
 from .obs import trace as _trace
+from .resilience import faults as _rfaults
+from .resilience import policy as _rpolicy
 from .runtime import default_float
 from .settings import settings
 from .types import (SparseEfficiencyWarning, check_nnz, coord_dtype_for,
@@ -220,6 +233,7 @@ class csr_array(CompressedBase):
         # Static-structure caches of the SpMV hot path, built lazily on
         # the first matvec (False = tried, not applicable).
         self._row_ids = None
+        self._row_lengths = None
         self._ell = None
         self._ell_width = None
         self._dia = None
@@ -227,6 +241,10 @@ class csr_array(CompressedBase):
         self._dia_pack = None
         self._bsr = None
         self._sliced_ell = None
+        # The engine's bucket-padded operands ((terms, pack), engine/
+        # core.py) and the autotuner's structure fingerprint.
+        self._engine_pack = None
+        self._fingerprint = None
         # Labels of the paths the last SpMV, SpMM and SpGEMM (with this
         # matrix on the left) took.
         self.spmv_path: Optional[str] = None
@@ -248,8 +266,10 @@ class csr_array(CompressedBase):
         out = type(self)._from_parts(data, self._indices, self._indptr,
                                      self.shape, canonical=self._canonical)
         out._row_ids = self._row_ids
+        out._row_lengths = self._row_lengths
         out._ell_width = self._ell_width
         out._dia_offsets = self._dia_offsets
+        out._fingerprint = self._fingerprint
         out._sorted = self._sorted
         return out
 
@@ -409,8 +429,11 @@ class csr_array(CompressedBase):
         self._dia_pack = None
         self._bsr = None
         self._sliced_ell = None
+        self._engine_pack = None
         if structure_changed:
             self._row_ids = None
+            self._row_lengths = None
+            self._fingerprint = None
             self._ell_width = None
             self._dia_offsets = None
             self._canonical = None
@@ -1112,16 +1135,42 @@ class csr_array(CompressedBase):
                                                          self.nnz)
         return self._row_ids
 
+    def _get_row_lengths(self) -> torch.Tensor:
+        """Cached stored entries per row (``indptr[1:] - indptr[:-1]``),
+        the segment lengths of the csr-rowids sums: taken from indptr on
+        the device, with no host sync."""
+        if self._row_lengths is None:
+            self._row_lengths = self._indptr[1:] - self._indptr[:-1]
+        return self._row_lengths
+
+    def _get_fingerprint(self):
+        """Cached sparsity fingerprint (``autotune.Fingerprint``)."""
+        if self._fingerprint is None:
+            from .autotune import compute_fingerprint
+
+            self._fingerprint = compute_fingerprint(self)
+        return self._fingerprint
+
+    def _get_ell_width(self) -> int:
+        """Cached length of the longest row (at least 1): one host
+        sync."""
+        if self._ell_width is None:
+            self._ell_width = (
+                max(int((self._indptr[1:] - self._indptr[:-1]).max()), 1)
+                if self.shape[0] and self.nnz else 1)
+        return self._ell_width
+
+    def _serial_rows(self) -> bool:
+        """The csr-rowids summation order (``ops.spmv.row_sums``): one
+        thread a row unless a row holds more than ``SERIAL_MAX_ROW``."""
+        return self._get_ell_width() <= _spmv_ops.SERIAL_MAX_ROW
+
     def _get_ell(self):
         """Cached ELL pack, or None (padding over budget)."""
         if self._ell is not None:
             return self._ell if self._ell is not False else None
         rows = self.shape[0]
-        if self._ell_width is None:
-            self._ell_width = (
-                max(int((self._indptr[1:] - self._indptr[:-1]).max()), 1)
-                if rows and self.nnz else 1)
-        W = self._ell_width
+        W = self._get_ell_width()
         if not _spmv_ops.ell_within_budget(rows, W, self.nnz,
                                            settings.ell_max_expand):
             self._ell = False
@@ -1256,7 +1305,24 @@ class csr_array(CompressedBase):
         Each SpMV and SpMM counts ``op.spmv``/``op.spmm``, records its
         host dispatch time in ``lat.spmv.<bucket>``/``lat.spmm.<bucket>``
         and, while tracing is on, a ``spmv``/``spmm`` span with its path,
-        rows, nnz, bytes (``spmv_traffic_bytes``) and flops."""
+        rows, nnz, bytes (``spmv_traffic_bytes``) and flops.
+
+        With ``settings.resil`` on, the dispatch runs under the
+        ``csr.dot`` site policy (JAX ``csr.py:1296-1318``): injectable,
+        retried with deterministic backoff, K consecutive failures
+        opening the site's breaker (a typed fast-fail while open).  Off,
+        this is one flag read."""
+        if settings.resil:
+            def attempt():
+                # The hook wraps the value, so an armed ``nonfinite``
+                # fault can poison the product.
+                return _rfaults.fault_point("csr.dot",
+                                            self._dot_impl(other, out=out))
+
+            return _rpolicy.run("csr.dot", attempt)
+        return self._dot_impl(other, out=out)
+
+    def _dot_impl(self, other, out=None):
         require_supported_dtype(self.dtype)
         if _is_scipy_sparse(other):
             other = csr_array(other, device=self.device)
@@ -1293,15 +1359,37 @@ class csr_array(CompressedBase):
             src = self if A is self else None
         with _lat.timer("lat.spmv." + _lat.shape_bucket(rows)), \
                 _trace.span("spmv") as sp:
-            y, path = self._spmv(A, src, x, lowp)
+            y, path = self._routed(src, x, _engine_route_matvec,
+                                   _autotune_route_matvec)
+            if y is None:
+                y, path = self._spmv(A, src, x, lowp)
             if sp is not None:
+                # The engine's plan is the CSR gather over padded
+                # operands: its traffic is the CSR model's.
                 sp.set(path=path, rows=rows, nnz=self.nnz,
-                       bytes=A.spmv_traffic_bytes(x, path=path),
+                       bytes=A.spmv_traffic_bytes(
+                           x, path="csr" if path == "engine" else path),
                        flops=2 * self.nnz)
         self.spmv_path = path
         if squeeze:
             y = y[:, None]
         return fill_out(y, out)
+
+    @staticmethod
+    def _routed(src, operand, engine_route, autotune_route):
+        """``(y, path)`` of the engine rung, then the autotune rung
+        (JAX ``csr.py:1361-1400``), or ``(None, None)`` when both
+        decline (off, the default; a banded or block matrix; dtype
+        promotion; a verdict miss)."""
+        if src is None:
+            return None, None
+        y = engine_route(src, operand)
+        if y is not None:
+            return y, "engine"
+        routed = autotune_route(src, operand)
+        if routed is not None:
+            return routed
+        return None, None
 
     def _spmv(self, A, src, x, lowp: bool):
         """``(y, path)`` of ``A @ x`` in the JAX package's order (DIA →
@@ -1335,10 +1423,11 @@ class csr_array(CompressedBase):
                 rows), "csr-rowids-bf16"
         if src is not None:
             return _spmv_ops.csr_spmv_rowids(
-                A.data, A.indices, src._get_row_ids(), x,
-                rows), "csr-rowids"
-        return _spmv_ops.csr_spmv(A.data, A.indices, A.indptr, x,
-                                  rows), "csr"
+                A.data, A.indices, src._get_row_ids(), x, rows,
+                lengths=src._get_row_lengths(),
+                serial=src._serial_rows()), "csr-rowids"
+        return _spmv_ops.csr_spmv(A.data, A.indices, A.indptr, x, rows,
+                                  serial=self._serial_rows()), "csr"
 
     def _matmat(self, X: torch.Tensor) -> torch.Tensor:
         """SpMM ``A @ X`` for dense X (cols, k), in the SpMV branch's
@@ -1361,47 +1450,54 @@ class csr_array(CompressedBase):
         k = X.shape[1]
         with _lat.timer("lat.spmm." + _lat.shape_bucket(rows)), \
                 _trace.span("spmm") as sp:
-            dia = src._get_dia() if src is not None else None
-            bsr = (src._get_bsr()
-                   if src is not None and not lowp and dia is None
-                   and 0 < k <= _BSR_MAX_K else None)
-            ell = (src._get_ell()
-                   if src is not None and not lowp and dia is None
-                   and bsr is None else None)
-            if dia is not None:
-                # The cheap k gate first: no kernel pack for an X the
-                # kernel cannot take.
-                packed = (src._get_dia_pack()
-                          if 0 < k <= _dia_kernel.SPMM_MAX_K and not lowp
-                          else None)
-                if _dia_kernel.spmm_supported(packed, X):
-                    Y = _dia_kernel.dia_spmm(packed, X.contiguous())
-                    path = "dia-kernel"
+            Y, path = self._routed(src, X, _engine_route_matmat,
+                                   _autotune_route_matmat)
+            if Y is None:
+                dia = src._get_dia() if src is not None else None
+                bsr = (src._get_bsr()
+                       if src is not None and not lowp and dia is None
+                       and 0 < k <= _BSR_MAX_K else None)
+                ell = (src._get_ell()
+                       if src is not None and not lowp and dia is None
+                       and bsr is None else None)
+                if dia is not None:
+                    # The cheap k gate first: no kernel pack for an X the
+                    # kernel cannot take.
+                    packed = (src._get_dia_pack()
+                              if 0 < k <= _dia_kernel.SPMM_MAX_K
+                              and not lowp else None)
+                    if _dia_kernel.spmm_supported(packed, X):
+                        Y = _dia_kernel.dia_spmm(packed, X.contiguous())
+                        path = "dia-kernel"
+                    else:
+                        Y = _dia_ops.dia_spmm_masked(dia[0], dia[2], X,
+                                                     dia[1], self.shape)
+                        path = "dia-torch"
+                elif bsr is not None:
+                    Y = bsr.matmat(X)
+                    path = "bsr"
+                elif ell is not None:
+                    Y = _spmv_ops.ell_spmm(ell[0], ell[1], ell[2], X)
+                    path = "ell"
+                elif src is not None and lowp:
+                    Y = _spmv_ops.csr_spmm_rowids_f32acc(
+                        A.data, A.indices, src._get_row_ids(), X, rows)
+                    path = "csr-rowids-bf16"
+                elif src is not None:
+                    Y = _spmv_ops.csr_spmm_rowids(
+                        A.data, A.indices, src._get_row_ids(), X, rows,
+                        lengths=src._get_row_lengths(),
+                        serial=src._serial_rows())
+                    path = "csr-rowids"
                 else:
-                    Y = _dia_ops.dia_spmm_masked(dia[0], dia[2], X, dia[1],
-                                                 self.shape)
-                    path = "dia-torch"
-            elif bsr is not None:
-                Y = bsr.matmat(X)
-                path = "bsr"
-            elif ell is not None:
-                Y = _spmv_ops.ell_spmm(ell[0], ell[1], ell[2], X)
-                path = "ell"
-            elif src is not None and lowp:
-                Y = _spmv_ops.csr_spmm_rowids_f32acc(
-                    A.data, A.indices, src._get_row_ids(), X, rows)
-                path = "csr-rowids-bf16"
-            elif src is not None:
-                Y = _spmv_ops.csr_spmm_rowids(A.data, A.indices,
-                                              src._get_row_ids(), X, rows)
-                path = "csr-rowids"
-            else:
-                Y = _spmv_ops.csr_spmm(A.data, A.indices, A.indptr, X, rows)
-                path = "csr"
+                    Y = _spmv_ops.csr_spmm(A.data, A.indices, A.indptr, X,
+                                           rows, serial=self._serial_rows())
+                    path = "csr"
             if sp is not None:
                 sp.set(path=path, rows=rows, k=int(k), nnz=self.nnz,
                        flops=2 * self.nnz * int(k),
-                       bytes=A.spmv_traffic_bytes(X, path=path))
+                       bytes=A.spmv_traffic_bytes(
+                           X, path="csr" if path == "engine" else path))
         self.spmm_path = path
         return Y
 

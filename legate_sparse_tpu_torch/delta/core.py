@@ -193,6 +193,10 @@ class DeltaView:
     def dtype(self):
         return self.base.dtype
 
+    @property
+    def device(self):
+        return self.base.device
+
     def dot(self, x):
         """One SpMV on the pinned version: the base's own dispatch plus
         the masked COO delta term; an empty buffer is the base dispatch
@@ -367,6 +371,10 @@ class DeltaCSR:
     @property
     def dtype(self):
         return self._view.dtype
+
+    @property
+    def device(self):
+        return self._view.device
 
     @property
     def base(self):

@@ -39,8 +39,14 @@ and ``<solver>.refine`` while tracing is on; and
 ``transfer.host_sync.{cg_conv,gmres_conv,<solver>_refine}`` at each
 fetch.  The JAX package's one-shot CG loop never fetches, so it counts
 no ``cg_conv`` (its chunked resilience loop does); the port's CG
-fetches at every convergence test and counts each.  The JAX package's
-engine routing and resilience hooks wait for queue 1 item 10.
+fetches at every convergence test and counts each.
+
+With ``settings.engine`` on, an operator over an engine-eligible
+``csr_array`` builds the engine's matvec closure when it is made
+(``_SparseMatrixLinearOperator._engine_mv``), so the solver loops run
+their products through the bucketed plan, bit for bit the plain
+csr-rowids product.  The JAX package's solver resilience hooks
+(deadlines, health, checkpoints) wait for a later slice.
 """
 
 from __future__ import annotations
@@ -151,11 +157,32 @@ class _CustomLinearOperator(LinearOperator):
 class _SparseMatrixLinearOperator(LinearOperator):
     """Wraps a ``csr_array``; ``matvec`` and ``matmat`` are its ``dot``,
     ``rmatvec`` that of its conjugate transpose, built on the first call
-    and cached (reference ``linalg.py:211-214``)."""
+    and cached (reference ``linalg.py:211-214``).
+
+    With ``settings.engine`` on, construction builds the engine's
+    bucketed matvec closure for an eligible matrix (JAX
+    ``linalg.py:157-209``), and ``matvec`` runs the solver's products
+    through it: bit for bit the plain csr-rowids product, without the
+    per-call routing checks of ``dot``."""
 
     def __init__(self, A: csr_array):
         self.A = A
         self.AT = None
+        self._engine_mv = None
+        from .settings import settings as _settings
+
+        if _settings.engine:
+            from .engine import get_engine
+
+            # The route's "engine on is always safe" contract: a plan
+            # build failure must not make a solve raise where the plain
+            # dispatch would succeed.
+            try:
+                self._engine_mv = get_engine().traceable_matvec(A)
+            except Exception as e:
+                _obs_counters.inc("engine.route.error")
+                _trace.event("engine.route.error", op="solver_matvec",
+                             error=repr(e)[:200])
         super().__init__(A.dtype, A.shape)
 
     @property
@@ -163,7 +190,25 @@ class _SparseMatrixLinearOperator(LinearOperator):
         return self.A.device
 
     def _matvec(self, x, out=None):
+        if (self._engine_mv is not None
+                and isinstance(x, torch.Tensor) and x.dim() == 1
+                and x.device == self.A.device
+                and torch.promote_types(self.A.dtype, x.dtype)
+                == self.A.dtype
+                and self._engine_fresh()):
+            # The dtype gate mirrors engine eligibility: a promoted
+            # iterate (an f64 rhs over an f32 matrix) must not be cast
+            # down by the closure; it keeps the plain dispatch.
+            return fill_out(self._engine_mv(x), out)
         return self.A.dot(x, out=out)
+
+    def _engine_fresh(self) -> bool:
+        """The closure read the operands padded at construction; after
+        an in-place mutation of ``A`` (which clears ``A._engine_pack``)
+        it would solve the OLD matrix, so the live dispatch serves."""
+        cached = self.A._engine_pack
+        return (cached is not None
+                and cached[1] is getattr(self._engine_mv, "pack", None))
 
     def _matmat(self, X, out=None):
         return self.A.dot(X, out=out)

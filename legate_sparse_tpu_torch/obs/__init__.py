@@ -17,7 +17,9 @@ JAX package's names, so one dashboard or test reads both packages:
 - ``export`` — OpenMetrics text of the counters and histograms;
 - ``memory`` — ``mem.*`` watermark events (RSS, the card's allocated
   bytes);
-- ``comm`` — the collective byte formulas of the distribution layer.
+- ``comm`` — the collective byte formulas of the distribution layer;
+- ``context`` — request-scoped trace ids that tag spans and draw the
+  Chrome trace's flow arcs.
 
 Enable tracing with ``LEGATE_SPARSE_TPU_OBS=1`` (read once at import),
 ``settings.obs = True`` or programmatically::
@@ -32,7 +34,9 @@ context manager; counters and histograms stay live either way.  No
 span, timer or counter synchronises with the card.
 """
 
-from . import comm, counters, export, latency, memory, trace  # noqa: F401
+from . import (  # noqa: F401
+    comm, context, counters, export, latency, memory, trace,
+)
 from .counters import inc, snapshot  # noqa: F401
 from .export import snapshot_openmetrics, write_openmetrics  # noqa: F401
 from .latency import observe  # noqa: F401
@@ -42,7 +46,8 @@ from .trace import (  # noqa: F401
 )
 
 __all__ = [
-    "comm", "counters", "export", "latency", "memory", "trace",
+    "comm", "context", "counters", "export", "latency", "memory",
+    "trace",
     "inc", "snapshot", "observe",
     "snapshot_openmetrics", "write_openmetrics",
     "complete_span", "enable", "disable", "enabled", "event", "records",

@@ -29,9 +29,11 @@ Spans carry a per-name sequence number: occurrence 0 of a name is the
 first call (it builds structure caches, and a kernel's first launch
 builds it with nvcc), later occurrences are steady state.
 
-Not ported: the JAX package's request-context trace ids and tenant
-attribution hooks (its obs v4/v5), and with them the Chrome trace's
-flow arcs; they wait for the serving layers.
+Spans and events closed while a request's trace context is active
+(``obs.context``) carry its ``trace_id``; the Chrome trace binds the
+tagged slices of one request into a flow arc.  Not ported yet: the JAX
+package's tenant attribution hook (``attrib.on_span_close``, its obs
+v5).
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional
 
+from . import context as _context
 from . import counters as _counters
 
 # Span attribute keys that auto-accumulate into the process-wide
@@ -136,6 +139,12 @@ class Span:
             st.pop()
         if exc_type is not None:
             self.attrs["error"] = exc_type.__name__
+        # A span closed under a request's trace context belongs to its
+        # flow arc; explicit ids (a batch naming its members) win.
+        if "trace_id" not in self.attrs and "trace_ids" not in self.attrs:
+            tid_ctx = _context.current_trace_id()
+            if tid_ctx is not None:
+                self.attrs["trace_id"] = tid_ctx
         with _lock:
             seq = _seq_by_name.get(self.name, 0)
             _seq_by_name[self.name] = seq + 1
@@ -216,6 +225,10 @@ def complete_span(name: str, start_ns: int, dur_ns: int,
     have no nesting stack)."""
     if not _enabled:
         return
+    if "trace_id" not in attrs and "trace_ids" not in attrs:
+        tid_ctx = _context.current_trace_id()
+        if tid_ctx is not None:
+            attrs["trace_id"] = tid_ctx
     with _lock:
         seq = _seq_by_name.get(name, 0)
         _seq_by_name[name] = seq + 1
@@ -242,6 +255,10 @@ def event(name: str, **attrs: Any) -> None:
     accelerator-probe failure, a collective-realization decline."""
     if not _enabled:
         return
+    if "trace_id" not in attrs:
+        tid_ctx = _context.current_trace_id()
+        if tid_ctx is not None:
+            attrs = dict(attrs, trace_id=tid_ctx)
     with _lock:
         if len(_records) >= MAX_RECORDS:
             _counters.inc("obs.dropped_records")
@@ -298,6 +315,9 @@ def to_chrome_trace(extra_metadata: Optional[Dict[str, Any]] = None
     process metadata."""
     pid = os.getpid()
     trace_events: List[Dict[str, Any]] = []
+    # Flow anchors: spans tagged with a trace id, singly (``trace_id``)
+    # or as a batch's member list (``trace_ids``).
+    flow_anchors: Dict[str, List[Dict[str, Any]]] = {}
     for r in records():
         ev: Dict[str, Any] = {
             "name": r["name"],
@@ -311,12 +331,37 @@ def to_chrome_trace(extra_metadata: Optional[Dict[str, Any]] = None
             ev["dur"] = r["dur_ns"] / 1e3
             args["seq"] = r["seq"]
             args["first_call"] = r["first"]
+            ids = [args["trace_id"]] if isinstance(
+                args.get("trace_id"), str) else []
+            ids += [t for t in (args.get("trace_ids") or ())
+                    if isinstance(t, str)]
+            for t in ids:
+                flow_anchors.setdefault(t, []).append(ev)
         else:
             ev["ph"] = "i"
             ev["s"] = "p"
         if args:
             ev["args"] = args
         trace_events.append(ev)
+    # One flow arc per trace id ("s" start, "t" step, "f" finish), each
+    # record on its anchor slice's coordinates: Perfetto draws the
+    # request as one connected arc (gateway.admit -> the batch -> the
+    # dispatch).
+    for trace_id, anchors in sorted(flow_anchors.items()):
+        if len(anchors) < 2:
+            continue
+        anchors.sort(key=lambda ev: ev["ts"])
+        last = len(anchors) - 1
+        for i, anchor in enumerate(anchors):
+            flow: Dict[str, Any] = {
+                "name": "request", "cat": "flow",
+                "ph": "s" if i == 0 else ("f" if i == last else "t"),
+                "id": trace_id, "pid": pid, "tid": anchor["tid"],
+                "ts": anchor["ts"],
+            }
+            if i == last:
+                flow["bp"] = "e"
+            trace_events.append(flow)
     from . import latency as _latency
 
     meta: Dict[str, Any] = {

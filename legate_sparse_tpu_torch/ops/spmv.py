@@ -39,12 +39,24 @@ import numpy as np
 from .convert import gather_index, row_ids_from_indptr, segment_sum
 
 
-def csr_spmv_rowids(data, indices, row_ids, x, rows: int) -> torch.Tensor:
+def csr_spmv_rowids(data, indices, row_ids, x, rows: int, lengths=None,
+                    serial=None) -> torch.Tensor:
     """y[i] = Σ data[j]·x[indices[j]] over the nonzeros j of row i, with
-    per-nonzero row ids precomputed."""
+    per-nonzero row ids precomputed.  Float rows sum through
+    ``row_sums``, the same bits on every call on the card (an atomic
+    ``index_add_`` sums in no fixed order); integers, whose sum does not
+    depend on order, keep ``index_add_``.  ``lengths`` are the rows'
+    lengths (``csr_array._get_row_lengths``: counted from ``row_ids``
+    when absent) and ``serial`` the summation order
+    (``csr_array._serial_rows``: taken from the longest row, one host
+    sync, when absent)."""
     prod = data * x[gather_index(indices)]
-    y = torch.zeros((rows,), dtype=prod.dtype, device=prod.device)
-    return y.index_add_(0, row_ids, prod)
+    if not (prod.is_floating_point() or prod.is_complex()):
+        y = torch.zeros((rows,), dtype=prod.dtype, device=prod.device)
+        return y.index_add_(0, row_ids, prod)
+    if lengths is None:
+        lengths = _row_lengths(row_ids, rows)[:rows]
+    return row_sums(prod, lengths, serial)
 
 
 def csr_spmv_rowids_masked(data, indices, row_ids, valid_nnz, x,
@@ -52,12 +64,14 @@ def csr_spmv_rowids_masked(data, indices, row_ids, valid_nnz, x,
     """SpMV over a zero-padded nonzero suffix (a distributed padded-CSR
     block): slots at or past ``valid_nnz`` contribute an exact 0 (the
     product is masked, not multiplied by 0); ``row_ids`` sorted, summed
-    per row in slot order."""
+    per row in slot order.  A padded slot may carry the out-of-range id
+    ``rows``, whose sum is dropped, as the JAX package's
+    ``segment_sum`` drops it."""
     slot = torch.arange(data.shape[0], device=data.device)
     prod = data * x[gather_index(indices)]
     prod = torch.where(slot < valid_nnz, prod,
                        torch.zeros((), dtype=prod.dtype, device=prod.device))
-    return segment_sum(prod, _row_lengths(row_ids, rows))
+    return segment_sum(prod, _row_lengths(row_ids, rows))[:rows]
 
 
 def csr_spmm_rowids_masked(data, indices, row_ids, valid_nnz, X,
@@ -67,14 +81,44 @@ def csr_spmm_rowids_masked(data, indices, row_ids, valid_nnz, X,
     prod = data[:, None] * X[gather_index(indices), :]
     prod = torch.where((slot < valid_nnz)[:, None], prod,
                        torch.zeros((), dtype=prod.dtype, device=prod.device))
-    return segment_sum(prod, _row_lengths(row_ids, rows))
+    return segment_sum(prod, _row_lengths(row_ids, rows))[:rows]
 
 
-def csr_spmv(data, indices, indptr, x, rows: int) -> torch.Tensor:
+def csr_multi_spmv_rowids_masked(data, indices, row_ids, valid_nnz, X,
+                                 rows: int, b: int, lengths=None,
+                                 serial=None) -> torch.Tensor:
+    """``b`` independent masked SpMVs in one stacked dispatch (the
+    gateway's cross-tenant batch): row ``i`` of the (b, nnz) operands
+    is matrix ``i``'s padded pack, ``X[i]`` its own x.  Each matrix's
+    segments are offset by ``i * (rows + 1)``: the ``+ 1`` keeps its
+    padding row id ``rows`` inside its own dropped segment instead of
+    aliasing matrix ``i + 1``'s row 0.  One gather, one ``where`` and
+    one segmented sum (``row_sums`` in the packs' one ``serial``
+    order); per matrix the products and the order of each row's sum are
+    those of the single product, so packing requests is invisible to
+    each of them.  A slot with ``valid_nnz == 0`` (batch padding)
+    contributes only exact zeros.  ``lengths`` is (b, s) with s >
+    ``rows`` (an engine pack's: its rows, then its padding segments),
+    or, counted from ``row_ids`` when absent, (b, rows + 1)."""
+    nnz = data.shape[1]
+    slot = torch.arange(nnz, device=data.device)
+    gathered = torch.gather(X, 1, gather_index(indices))
+    prod = torch.where(slot[None, :] < valid_nnz[:, None], data * gathered,
+                       torch.zeros((), dtype=data.dtype, device=data.device))
+    if lengths is None:
+        lengths = torch.stack([_row_lengths(row_ids[i], rows)
+                               for i in range(b)])
+    out = row_sums(prod.reshape(-1), lengths.reshape(-1), serial)
+    return out.reshape(b, lengths.shape[1])[:, :rows]
+
+
+def csr_spmv(data, indices, indptr, x, rows: int,
+             serial=None) -> torch.Tensor:
     """CSR SpMV that expands the row ids on every call."""
     return csr_spmv_rowids(data, indices,
                            row_ids_from_indptr(indptr, data.shape[0]),
-                           x, rows)
+                           x, rows, lengths=indptr[1:] - indptr[:-1],
+                           serial=serial)
 
 
 def ell_within_budget(rows: int, W: int, nnz: int,
@@ -141,19 +185,32 @@ def ell_spmm(ell_data, ell_cols, ell_counts, X) -> torch.Tensor:
     return Y
 
 
-def csr_spmm_rowids(data, indices, row_ids, X, rows: int) -> torch.Tensor:
+def csr_spmm_rowids(data, indices, row_ids, X, rows: int, lengths=None,
+                    serial=None) -> torch.Tensor:
     """Y = A @ X with per-nonzero row ids precomputed: gather the rows
-    of X, scale, add per row."""
-    prod = data[:, None] * X[indices.to(torch.int64), :]
-    Y = torch.zeros((rows, X.shape[1]), dtype=prod.dtype, device=prod.device)
-    return Y.index_add_(0, row_ids, prod)
+    of X, scale, sum per row.  Floats sum each column as
+    ``csr_spmv_rowids`` sums its one (``row_sums``), so column j is bit
+    for bit the SpMV of ``X[:, j]``; integers keep ``index_add_``.  The
+    gather runs on X's transpose, one contiguous row a column: on CUDA
+    a gather of X's short rows is several times slower."""
+    Xt = X.T.contiguous()
+    prod = (data * Xt.index_select(1, gather_index(indices))).T
+    if not (prod.is_floating_point() or prod.is_complex()):
+        Y = torch.zeros((rows, X.shape[1]), dtype=prod.dtype,
+                        device=prod.device)
+        return Y.index_add_(0, row_ids, prod)
+    if lengths is None:
+        lengths = _row_lengths(row_ids, rows)[:rows]
+    return row_sums(prod, lengths, serial)
 
 
-def csr_spmm(data, indices, indptr, X, rows: int) -> torch.Tensor:
+def csr_spmm(data, indices, indptr, X, rows: int,
+             serial=None) -> torch.Tensor:
     """CSR SpMM that expands the row ids on every call."""
     return csr_spmm_rowids(data, indices,
                            row_ids_from_indptr(indptr, data.shape[0]),
-                           X, rows)
+                           X, rows, lengths=indptr[1:] - indptr[:-1],
+                           serial=serial)
 
 
 def sliced_ell_pack(data, indices, indptr, rows: int):
@@ -243,7 +300,76 @@ def _row_sum(prod: torch.Tensor) -> torch.Tensor:
 
 
 def _row_lengths(row_ids, rows: int) -> torch.Tensor:
-    return torch.bincount(row_ids.to(torch.int64), minlength=rows)
+    """``rows + 1`` segment lengths counted from sorted row ids, the
+    last the padding id ``rows``'s.  An integer ``index_add_``: no host
+    sync (``bincount`` reads its maximum back on CUDA), and the count
+    does not depend on order."""
+    ids = row_ids.to(torch.int64)
+    return torch.zeros((rows + 1,), dtype=torch.int64,
+                       device=ids.device).index_add_(
+        0, ids, torch.ones_like(ids))
+
+
+# The csr-rowids sums take one of two orders, chosen by the matrix's
+# longest row (``csr_array._serial_rows``).  Up to this many stored
+# entries a row, one thread sums each row in slot order (a 2-D
+# ``segment_reduce``, which on CUDA loops over the segment); longer rows
+# make that thread the critical path, and one segmented reduction a row
+# (the 1-D ``segment_reduce``, a CUB segmented reduce in tree order)
+# takes over.
+SERIAL_MAX_ROW = 1024
+
+# Each column of a flattened (k, stride) product starts on a multiple of
+# this many elements, so the 1-D segmented reduction meets every
+# column's segments at the alignment it meets the SpMV's: on CUDA the
+# order in which it sums a segment depends on that alignment.
+_COLUMN_ALIGN = 64
+
+
+def row_sums(prod: torch.Tensor, lengths: torch.Tensor,
+             serial=None) -> torch.Tensor:
+    """Sums of each run of ``lengths[s]`` consecutive entries of a
+    (nnz,) or (nnz, k) float product: the csr-rowids reduction.  Each
+    column of a 2-D product is summed exactly as the 1-D product of
+    that column would be.  ``serial`` (None: the longest run at most
+    ``SERIAL_MAX_ROW``, one host sync) picks the order: slot order in
+    one thread a run, or a segmented reduction a run.  On the CPU both
+    are slot order.  ``lengths`` come from ``indptr`` or a count of
+    sorted row ids, valid by construction, so ``segment_reduce`` skips
+    its check of them (a host sync on CUDA)."""
+    if serial is None:
+        serial = (lengths.numel() == 0
+                  or int(lengths.max()) <= SERIAL_MAX_ROW)
+    flat = prod.dim() == 1
+    if serial:
+        vals = prod[:, None] if flat else prod
+        if vals.is_complex():
+            out = torch.view_as_complex(torch.segment_reduce(
+                torch.view_as_real(vals), "sum", lengths=lengths,
+                unsafe=True).contiguous())
+        else:
+            out = torch.segment_reduce(vals, "sum", lengths=lengths,
+                                       unsafe=True)
+        return out[:, 0] if flat else out
+    if flat or prod.shape[1] == 1:
+        out = _segment_sum_1d(prod.reshape(-1), lengths)
+        return out if flat else out[:, None]
+    nnz, k = prod.shape
+    nseg = lengths.shape[0]
+    stride = -(-max(nnz, 1) // _COLUMN_ALIGN) * _COLUMN_ALIGN
+    cols = prod.new_zeros((k, stride))
+    cols[:, :nnz] = prod.T
+    lens = torch.nn.functional.pad(lengths, (0, 1), value=stride - nnz)
+    out = _segment_sum_1d(cols.reshape(-1), lens.repeat(k))
+    return out.reshape(k, nseg + 1)[:, :nseg].T
+
+
+def _segment_sum_1d(vals: torch.Tensor, lengths: torch.Tensor
+                    ) -> torch.Tensor:
+    if vals.is_complex():
+        # (re, im) pairs are a 2-D operand: summed in slot order.
+        return row_sums(vals, lengths, serial=True)
+    return torch.segment_reduce(vals, "sum", lengths=lengths, unsafe=True)
 
 
 def csr_spmv_rowids_f32acc(data, indices, row_ids, x,
@@ -252,7 +378,8 @@ def csr_spmv_rowids_f32acc(data, indices, row_ids, x,
     out."""
     out_dtype = torch.promote_types(data.dtype, x.dtype)
     prod = data.float() * x[gather_index(indices)].float()
-    return segment_sum(prod, _row_lengths(row_ids, rows)).to(out_dtype)
+    return segment_sum(prod, _row_lengths(row_ids, rows)[:rows]).to(
+        out_dtype)
 
 
 def csr_spmv_rowids_masked_f32acc(data, indices, row_ids, valid_nnz, x,
@@ -268,7 +395,7 @@ def csr_spmv_rowids_masked_f32acc(data, indices, row_ids, valid_nnz, x,
                        data.float() * x[gather_index(indices)].float(),
                        torch.zeros((), dtype=torch.float32,
                                    device=data.device))
-    y = segment_sum(prod, _row_lengths(row_ids, rows + 1))
+    y = segment_sum(prod, _row_lengths(row_ids, rows))
     return y[:rows].to(out_dtype)
 
 
@@ -278,7 +405,8 @@ def csr_spmm_rowids_f32acc(data, indices, row_ids, X,
     ``result_type(data, X)`` out."""
     out_dtype = torch.promote_types(data.dtype, X.dtype)
     prod = data.float()[:, None] * X[gather_index(indices), :].float()
-    return segment_sum(prod, _row_lengths(row_ids, rows)).to(out_dtype)
+    return segment_sum(prod, _row_lengths(row_ids, rows)[:rows]).to(
+        out_dtype)
 
 
 def ell_spmv_f32acc(ell_data, ell_cols, ell_counts, x) -> torch.Tensor:

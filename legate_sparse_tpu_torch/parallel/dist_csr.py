@@ -84,6 +84,7 @@ from ..obs import trace as _trace
 from ..ops import bsr as _bsr_ops
 from ..ops import dia_kernel as _dia_kernel
 from ..ops import spmv as _spmv_ops
+from ..settings import settings as _settings
 from ..utils import as_tensor, to_numpy
 from .mesh import (
     COL_AXIS, LAYOUT_1D_COL, LAYOUT_1D_ROW, LAYOUT_2D_BLOCK, LAYOUT_AUTO,
@@ -1112,6 +1113,13 @@ def dist_spmv(A: DistCSR, x, semiring=None):
     if sr is not None:
         y = _dist_spmv_semiring(A, _local(x), sr)
     else:
+        # The engine's plan ledger (JAX ``dist_csr.py:1615-1616``): with
+        # routing on, every dispatch records against its plan identity.
+        # Off (the default), one flag read.
+        if _settings.engine:
+            from ..engine import get_engine
+
+            get_engine().record_dist_plan(A)
         y = _spmv_local(A, _local(x))
     if not isinstance(x, DTensor):
         return y

@@ -39,7 +39,11 @@ with fewer than two cards.  The graph and delta layers on the card
 ``test_mutation_stream_on_card``): the semiring products and the delta
 serving are plain PyTorch, held to the same run on the CPU (min, max
 and or bit for bit; sums at 1e-12), the delta base term through the DIA
-kernel.
+kernel.  The serving path (``test_csr_rowids_repeat_exactly`` and the
+engine, executor and gateway cases after it): csr-rowids gives the same
+bits on every call, and the engine's plans, its stacked SpMM and its
+multi-matrix stack are bit for bit the unpadded csr-rowids product; the
+gateway serves banded and block matrices inline through their kernels.
 """
 
 import numpy as np
@@ -1286,3 +1290,185 @@ def test_mutation_stream_on_card(cuda):
                     gallery.mutation_stream(9, G, 200, batch=50)):
         for u, v in zip(a, b):
             np.testing.assert_array_equal(u, v)
+
+
+def engine_dist_ledger_rank(rank, world):
+    """Two banded matrices of one layout on one mesh through
+    ``Engine.dist_matvec`` on the CPU: the plan-ledger counts of the
+    pair (``test_torch_engine.py``: the second is a hit).  It lives here
+    because a rank imports the module of its function, and this one
+    imports no JAX."""
+    from legate_sparse_tpu_torch import obs, parallel, runtime
+    from legate_sparse_tpu_torch.engine import Engine
+    from legate_sparse_tpu_torch.parallel.dist_csr import shard_vector
+
+    runtime.set_device("cpu")
+    n = 1 << 10
+    mesh = parallel.make_row_mesh()
+
+    def banded(seed):
+        rng = np.random.default_rng(seed)
+        return sparse.csr_array(sp.diags(
+            [rng.standard_normal(n - 1).astype(np.float32),
+             np.full(n, 4.0, np.float32),
+             rng.standard_normal(n - 1).astype(np.float32)],
+            [-1, 0, 1], format="csr", dtype=np.float32))
+
+    dA1 = parallel.shard_csr(banded(1), mesh=mesh)
+    dA2 = parallel.shard_csr(banded(2), mesh=mesh)
+    x = shard_vector(np.ones(n, np.float32), mesh, dA1.rows_padded)
+    eng = Engine()
+    m0, h0 = (obs.counters.get("engine.plan.misses"),
+              obs.counters.get("engine.plan.hits"))
+    y1 = eng.dist_matvec(dA1, x)
+    m1 = obs.counters.get("engine.plan.misses") - m0
+    eng.dist_matvec(dA2, x)
+    return {"miss_after_first": m1,
+            "misses": obs.counters.get("engine.plan.misses") - m0,
+            "hits": obs.counters.get("engine.plan.hits") - h0,
+            "y": y1.full_tensor()[:n].numpy()}
+
+
+# ---- the serving path on the card (engine, executor, gateway) ------------
+
+
+def engine_style(n, nnz_per_row=11, seed=7):
+    """The bench's engine matrix: random columns, one heavy row of
+    ``64 * nnz_per_row`` (it breaks the ELL and BSR budgets), nnz =
+    nnz_per_row * (n + 63); seeds share one shape bucket."""
+    rng = np.random.default_rng(seed)
+    counts = np.full(n, nnz_per_row, dtype=np.int64)
+    counts[0] = min(64 * nnz_per_row, n)
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    nnz = int(indptr[-1])
+    indices = rng.integers(0, n, size=nnz).astype(np.int32)
+    order = np.lexsort((indices, np.repeat(np.arange(n), counts)))
+    data = rng.standard_normal(nnz).astype(np.float32)
+    return sp.csr_matrix((data, indices[order], indptr), shape=(n, n))
+
+
+def _card_x(n, cuda, dtype=torch.float32, seed=0, k=None):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    shape = (n,) if k is None else (n, k)
+    return torch.randn(shape, device=cuda, dtype=dtype, generator=g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["rmat", "engine-style"])
+def test_csr_rowids_repeat_exactly(cuda, case):
+    """csr-rowids sums in a fixed order on the card: ten calls give equal
+    bits, on the phase-9 R-MAT (rows past ``SERIAL_MAX_ROW``: one
+    segmented reduction a row) and on an engine-style matrix (one thread
+    a row)."""
+    from legate_sparse_tpu_torch.ops import spmv as spmv_ops
+
+    if case == "rmat":
+        A = sparse.rmat(20, nnz_per_row=8, rng=0, device=cuda)
+        x = _card_x(A.shape[1], cuda, torch.float64)
+    else:
+        A = sparse.csr_array(engine_style((1 << 20) - 91), device=cuda)
+        x = _card_x(A.shape[1], cuda)
+    assert A._serial_rows() == (case != "rmat")
+    ys = [A @ x for _ in range(10)]
+    assert A.spmv_path == "csr-rowids"
+    assert all(torch.equal(ys[0], y) for y in ys[1:])
+    X = torch.stack([x, 2 * x, -x], dim=1)
+    Ys = [A @ X for _ in range(3)]
+    assert A.spmm_path == "csr-rowids"
+    assert all(torch.equal(Ys[0], Y) for Y in Ys[1:])
+    assert torch.equal(Ys[0][:, 0], ys[0])
+    direct = spmv_ops.csr_spmv_rowids(A.data, A.indices, A._get_row_ids(),
+                                      x, A.shape[0])
+    assert torch.equal(direct, ys[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["rmat", "engine-style"])
+def test_engine_plan_bitwise_csr_rowids_on_card(cuda, case):
+    """The bucketed plan (padded pack, padding segments dropped) is bit
+    for bit the unpadded csr-rowids product, SpMV and SpMM."""
+    from legate_sparse_tpu_torch.engine import Engine
+
+    if case == "rmat":
+        A = sparse.rmat(16, nnz_per_row=8, rng=0, device=cuda)
+        dt = torch.float64
+    else:
+        A = sparse.csr_array(engine_style((1 << 16) - 91), device=cuda)
+        dt = torch.float32
+    x = _card_x(A.shape[1], cuda, dt)
+    X = _card_x(A.shape[1], cuda, dt, seed=1, k=3)
+    eng = Engine()
+    assert torch.equal(eng.matvec(A, x), A @ x)
+    assert A.spmv_path == "csr-rowids"
+    assert torch.equal(eng.matmat(A, X), A @ X)
+
+
+@pytest.mark.gpu
+def test_multi_matvec_on_card(cuda):
+    """Matrices of one bucket in one stacked dispatch: each result bit
+    for bit its own plan's."""
+    from legate_sparse_tpu_torch.engine import Engine
+
+    n = (1 << 16) - 91
+    mats = [sparse.csr_array(engine_style(n, seed=s), device=cuda)
+            for s in (7, 13, 29)]
+    mats.append(sparse.csr_array(engine_style((1 << 16) - 37), device=cuda))
+    xs = [_card_x(M.shape[1], cuda, seed=i) for i, M in enumerate(mats)]
+    eng = Engine()
+    ys = eng.multi_matvec(list(zip(mats, xs)))
+    assert ys is not None
+    for y, M, x in zip(ys, mats, xs):
+        assert torch.equal(y, eng.matvec(M, x))
+
+
+@pytest.mark.gpu
+def test_stacked_spmm_columns_on_card(cuda):
+    """Eight requests on one matrix become one stacked SpMM whose every
+    column is bit for bit the single dispatch."""
+    from legate_sparse_tpu_torch import obs
+    from legate_sparse_tpu_torch.engine import Engine, RequestExecutor
+
+    A = sparse.csr_array(engine_style((1 << 16) - 91), device=cuda)
+    eng = Engine()
+    ex = RequestExecutor(eng, max_batch=8, queue_depth=64, timeout_ms=0)
+    b0 = obs.counters.get("engine.exec.batches")
+    try:
+        xs = [_card_x(A.shape[1], cuda, seed=i) for i in range(8)]
+        futs = [ex.submit(A, x) for x in xs]
+        ys = [f.result(timeout=60) for f in futs]
+    finally:
+        ex.shutdown()
+    assert obs.counters.get("engine.exec.batches") == b0 + 1
+    for y, x in zip(ys, xs):
+        assert torch.equal(y, eng.matvec(A, x))
+
+
+@pytest.mark.gpu
+def test_gateway_inline_kernels_on_card(cuda):
+    """The gateway serves a banded and a block matrix inline through
+    ``A.dot``, which launches the DIA and BSR kernels: bit for bit."""
+    from legate_sparse_tpu_torch.engine import Engine, Gateway
+    from legate_sparse_tpu_torch.settings import settings
+
+    rng = np.random.default_rng(1)
+    S = _holey(1 << 16, rng)
+    D = sparse.csr_array(S, device=cuda)
+    R = sparse.csr_array(sp.random(4096, 4096, density=0.01, format="csr",
+                                   random_state=rng, dtype=np.float32),
+                         device=cuda)
+    saved = settings.gateway
+    settings.gateway = True
+    gw = Gateway(Engine(), max_batch=8, timeout_ms=0.0)
+    try:
+        d0, b0 = dia_kernel.dia_spmv.launches, bsr_ops.bsr_spmv.launches
+        xd, xr = _card_x(D.shape[1], cuda), _card_x(R.shape[1], cuda)
+        yd = gw.submit(D, xd, tenant="banded").result(timeout=60)
+        yr = gw.submit(R, xr, tenant="blocks").result(timeout=60)
+        assert dia_kernel.dia_spmv.launches == d0 + 1
+        assert bsr_ops.bsr_spmv.launches == b0 + 1
+    finally:
+        gw.shutdown()
+        settings.gateway = saved
+    assert torch.equal(yd, D @ xd) and D.spmv_path == "dia-kernel"
+    assert torch.equal(yr, R @ xr) and R.spmv_path == "bsr"

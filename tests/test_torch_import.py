@@ -65,6 +65,23 @@ def test_import_loads_no_jax():
         "import legate_sparse_tpu_torch.ops.bsr\n"
         "import legate_sparse_tpu_torch.ops.dia_kernel\n"
         "import legate_sparse_tpu_torch.ops.spgemm\n"
+        "import legate_sparse_tpu_torch.autotune\n"
+        "import legate_sparse_tpu_torch.autotune.fingerprint\n"
+        "import legate_sparse_tpu_torch.autotune.harness\n"
+        "import legate_sparse_tpu_torch.autotune.registry\n"
+        "import legate_sparse_tpu_torch.autotune.store\n"
+        "import legate_sparse_tpu_torch.engine\n"
+        "import legate_sparse_tpu_torch.engine.buckets\n"
+        "import legate_sparse_tpu_torch.engine.core\n"
+        "import legate_sparse_tpu_torch.engine.executor\n"
+        "import legate_sparse_tpu_torch.engine.gateway\n"
+        "import legate_sparse_tpu_torch.engine.plan_cache\n"
+        "import legate_sparse_tpu_torch.obs.context\n"
+        "import legate_sparse_tpu_torch.resilience\n"
+        "import legate_sparse_tpu_torch.resilience.deadline\n"
+        "import legate_sparse_tpu_torch.resilience.faults\n"
+        "import legate_sparse_tpu_torch.resilience.outcomes\n"
+        "import legate_sparse_tpu_torch.resilience.policy\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib',\n"
         "                                    'legate_sparse_tpu'))\n"
