@@ -278,12 +278,40 @@ Phases, each printing one JSON line:
    served inline bit for bit, an expired deadline shed at admission.
    ``engine.route.error``, ``gateway.dispatch_fallback`` and
    ``gateway.breaker_inline`` must not move in any sub-run.
+17. the resilience layer (``phase17_resilience``, ``phase17_rank``),
+   ``main_path_resilience``, with ``settings.resil`` on: (a) pde_4096
+   CG, 500 iterations at rtol 0, under a deadline scope, health
+   detection and a checkpoint every 100 iterations, bit for bit the
+   plain CG with equal iterations, host fetches and launches, ms/iter
+   of both, ``resil.ckpt.saves``/``.bytes``/``.ms``; (b) a ``nonfinite``
+   fault at ``solver.cg.conv`` raising ``SolverHealthError``
+   (``non_finite``, the partial iterate on the card), injected latency
+   past a 100 ms deadline raising ``DeadlineExceeded`` at the next
+   fetch, one injected ``error`` retried and bit for bit; (c) restart-20
+   GMRES on phase 10's convection-diffusion operator, 3 cycles, one
+   injected cycle error, bit for bit with resil off; (d) on one NCCL
+   rank: ``dist_cg`` with one injected ``dist.cg`` error bit for bit,
+   the ABFT-checked ``dist_spmv`` (one check clean; a poisoned y one
+   mismatch and one retry, bit for bit) and its ms beside the plain
+   one, a ``device_loss`` at one rank re-raised with no recovery
+   attempt, the banded 2^24 ``dist_spgemm`` with one injected error bit
+   for bit; (e) ``DeltaCSR.compact`` of phase 15's 768 updates under a
+   checkpoint scope with one injected ``delta.compact`` error, one
+   retry, bit for bit the cold rebuild; (f) ``chaos.run_drill`` (4
+   rounds, seed 7) through phase 16's gateway: engine matrix A1, a
+   background deadline storm, pde_4096 (``dia_spmv``, mutated mid-storm
+   by 100 updates and a compaction) and the 2^20 block-clustered matrix
+   (``bsr_spmv``) inline; the report ok, every tenant's ledger
+   balanced, the good tenants served whole, nothing left armed; (g)
+   with two cards or more, ``dist_cg`` at 2 NCCL ranks losing rank 1
+   (``recovery_ladder``), else the line ``{"phase": "recovery_ladder",
+   "skipped": "1 card"}``.
 
 Launch counts come from the kernel wrappers: each is set to 0 just
-before a main-path phase (in phases 10-12, 14 and 15, each run; in
+before a main-path phase (in phases 10-12, 14, 15 and 17, each run; in
 phase 16, the gateway load) drives its path and read just after; the
-``kernels`` line's launches add phases 10's, 11's, 12's, 14's, 15's and
-16's to those of phases 4-7, and its
+``kernels`` line's launches add phases 10's, 11's, 12's, 14's, 15's,
+16's and 17's to those of phases 4-7, and its
 ``max_abs_err`` is the largest over the kernel's shapes in phases 4-7,
 10-12 and 14.  Any
 failed check raises, so the script exits non-zero; it exits non-zero
@@ -1967,6 +1995,465 @@ def phase16_serving():
     rec["fallback_counters"] = f1
     rec["seconds"] = time.perf_counter() - t_phase
     return rec, timing, g_launches
+
+
+# Phase 17's full widths: pde_4096's grid (the CG, GMRES, delta and
+# distributed systems) and the banded product's rows; the chaos drill's
+# tenants take phase 16's widths.
+P17_GRID, P17_BAND_ROWS = 4096, 1 << 24
+
+
+def phase17_resilience():
+    """Phase 17 (a)-(c), (e) and (f), ``main_path_resilience``: the
+    resilience layer on pde_4096 and phase 16's tenants, in this process.
+    Returns ``(record, launches)``; any failed check raises."""
+    import numpy as np
+    import torch
+
+    import legate_sparse_tpu_torch as sparse
+    from legate_sparse_tpu_torch import gallery, linalg, obs, resilience
+    from legate_sparse_tpu_torch import runtime
+    from legate_sparse_tpu_torch.delta import DeltaCSR
+    from legate_sparse_tpu_torch.engine import Engine, Gateway
+    from legate_sparse_tpu_torch.resilience import chaos
+    from legate_sparse_tpu_torch.settings import settings
+
+    t_phase = time.perf_counter()
+    dev = runtime.default_device()
+    rec = {}
+    launches = {name: 0 for name in kernel_counters()}
+
+    def counted(fn):
+        out, counts, ms, secs = counted_run(fn)
+        for k, v in counts.items():
+            launches[k] += v
+        return out, counts, ms, secs
+
+    def bits(a, b, what):
+        check(torch.equal(a, b), f"{what}: not bit for bit")
+
+    def moved(c0, prefix):
+        c1 = obs.counters.snapshot(prefix)
+        return {k: v - c0.get(k, 0) for k, v in c1.items()
+                if v != c0.get(k, 0)}
+
+    knobs = ("resil", "resil_backoff_ms", "resil_health", "gateway",
+             "delta")
+    saved = {k: getattr(settings, k) for k in knobs}
+    grid = P17_GRID
+    n = grid * grid
+    diagonals, offsets = pde_diagonals(grid)
+    A = sparse.diags(diagonals, offsets, shape=(n, n), format="csr",
+                     dtype=torch.float32)
+    b = torch.ones(n, device=dev)
+    A.dot(b)
+    check(A.spmv_path == "dia-kernel", f"pde_4096 took {A.spmv_path}")
+    sync_key = "transfer.host_sync.cg_conv"
+
+    def cg(maxiter=500):
+        s0 = obs.counters.get(sync_key)
+        (x, it), counts, ms, _s = counted(
+            lambda: linalg.cg(A, b, rtol=0.0, maxiter=maxiter))
+        return x, it, obs.counters.get(sync_key) - s0, counts, ms
+
+    try:
+        # (a) The resilient CG against the plain one, after a warm-up
+        # (the first use of each elementwise kernel costs once).
+        linalg.cg(A, b, rtol=0.0, maxiter=2)
+        x_off, it_off, sync_off, c_off, ms_off = cg()
+        settings.resil = True
+        settings.resil_backoff_ms = 0.0
+        settings.resil_health = True
+        resilience.reset()
+        k0 = obs.counters.snapshot("resil.ckpt.")
+        with resilience.deadline.scope(600_000.0), \
+                resilience.checkpoint.scope("phase17.cg", every=100) as ck:
+            x_on, it_on, sync_on, c_on, ms_on = cg()
+        ckpt = moved(k0, "resil.ckpt.")
+        check(it_on == it_off == 500 and sync_on == sync_off
+              and c_on == c_off,
+              f"resilient CG: {it_on} iterations, {sync_on} fetches, "
+              f"{c_on} launches against {it_off}, {sync_off}, {c_off}")
+        bits(x_on, x_off, "resilient CG vs plain CG")
+        check(ck.saves == 5 and ckpt.get("resil.ckpt.saves") == 5
+              and ckpt.get("resil.ckpt.bytes") == 5 * 3 * n * 4,
+              f"checkpoint ledger {ckpt}, saves {ck.saves}")
+        # The first fetch saves, then every 100 iterations: the last
+        # snapshot is iteration 425's, whose x a plain solve of 425
+        # iterations returns.
+        settings.resil = False
+        x_snap, _it = linalg.cg(A, b, rtol=0.0, maxiter=ck.iterations)
+        settings.resil = True
+        check(ck.iterations == 425 and np.array_equal(
+            ck.arrays[0], x_snap.cpu().numpy()),
+            f"the last snapshot (iteration {ck.iterations}) is not that "
+            f"iterate")
+        del x_snap
+        rec["cg"] = {"iters": it_on, "host_fetches": sync_on,
+                     "launches": {k: v for k, v in c_on.items() if v},
+                     "ms_per_iter_resil_off": ms_off / it_off,
+                     "ms_per_iter_resil_on": ms_on / it_on,
+                     "bitwise": True, "ckpt": ckpt,
+                     "ckpt_ms_per_save": ckpt["resil.ckpt.ms"] / 5,
+                     "ckpt_bytes_per_save": ckpt["resil.ckpt.bytes"] // 5}
+
+        # (b) Typed outcomes on the same system.
+        resilience.inject("solver.cg.conv", kind="nonfinite", count=1)
+        try:
+            linalg.cg(A, b, rtol=0.0, maxiter=500)
+            check(False, "a poisoned residual raised nothing")
+        except resilience.SolverHealthError as e:
+            check(e.report.cause == "non_finite"
+                  and e.report.iterations == 25
+                  and isinstance(e.partial, torch.Tensor)
+                  and e.partial.device == A.device,
+                  f"health verdict {e.report}")
+            health = {"cause": e.report.cause,
+                      "iterations": e.report.iterations,
+                      "site": e.report.site}
+        resilience.reset()
+        settings.resil_health = False
+        resilience.inject("solver.cg.conv", kind="latency",
+                          latency_ms=200.0, count=1)
+        try:
+            with resilience.deadline.scope(100.0):
+                linalg.cg(A, b, rtol=0.0, maxiter=500)
+            check(False, "the deadline raised nothing")
+        except resilience.DeadlineExceeded as e:
+            check(e.site == "solver.cg.conv" and e.iterations == 25
+                  and e.partial is not None, f"deadline outcome {e!r}")
+            late = {"site": e.site, "iterations": e.iterations}
+        resilience.reset()
+        resilience.inject("solver.cg.conv", kind="error", count=1)
+        with resilience.deadline.scope(600_000.0):
+            x_r, it_r, _s, _c, _ms = cg()
+        retried = obs.counters.get("resil.retry.solver.cg.conv")
+        check(retried == 1 and it_r == 500, f"retried {retried}x")
+        bits(x_r, x_off, "retried CG vs the clean CG")
+        resilience.reset()
+        rec["typed"] = {"health": health, "deadline": late,
+                        "retry": {"retries": retried, "bitwise": True}}
+        del x_on, x_r, ck
+
+        # (c) Restart-20 GMRES on phase 10's convection-diffusion
+        # operator, 3 cycles, one injected cycle error.
+        hole = np.ones(n - 1, np.float32)
+        hole[np.arange(1, grid) * grid - 1] = 0.0
+        far = np.full(n - grid, -1.0, np.float32)
+        convdiff = sparse.diags(
+            [np.full(n, 5.0, np.float32), -0.5 * hole, -1.5 * hole, far,
+             far], [0, 1, -1, grid, -grid], shape=(n, n), format="csr",
+            dtype=torch.float32)
+        b_cd = convdiff @ torch.from_numpy(np.random.default_rng(17)
+                                           .standard_normal(n)
+                                           .astype(np.float32)).to(dev)
+        settings.resil = False
+        linalg.gmres(convdiff, b_cd, restart=2, maxiter=2)      # warm-up
+        (xg0, itg0), cg0, msg0, _s = counted(lambda: linalg.gmres(
+            convdiff, b_cd, restart=20, maxiter=60, rtol=0.0))
+        settings.resil = True
+        resilience.inject("solver.gmres.conv", kind="error", count=1)
+        (xg1, itg1), cg1, msg1, _s = counted(lambda: linalg.gmres(
+            convdiff, b_cd, restart=20, maxiter=60, rtol=0.0))
+        gretry = obs.counters.get("resil.retry.solver.gmres.conv")
+        check(itg0 == itg1 == 60 and gretry == 1,
+              f"GMRES: {itg0}, {itg1} iterations, {gretry} retries")
+        bits(xg1, xg0, "retried GMRES vs resil off")
+        resilience.reset()
+        rec["gmres"] = {"iters": itg1, "retries": gretry, "bitwise": True,
+                        "launches_resil_off": {k: v for k, v in cg0.items()
+                                               if v},
+                        "launches_resil_on": {k: v for k, v in cg1.items()
+                                              if v},
+                        "ms_per_cycle_resil_off": msg0 / 3,
+                        "ms_per_cycle_resil_on_with_retry": msg1 / 3}
+        del convdiff, b_cd, xg0, xg1
+
+        # (e) Compaction of phase 15's 768 updates under a checkpoint
+        # scope, one injected delta.compact error.
+        settings.delta = True
+        D = DeltaCSR(A)
+        targets = {}
+        for rows, cols, vals in gallery.mutation_stream(23, A, 768,
+                                                        batch=64):
+            D.update(rows, cols, vals)
+            for r, c, v in zip(rows.tolist(), cols.tolist(), vals.tolist()):
+                targets[(r, c)] = v
+        pending = D.pending
+        resilience.inject("delta.compact", kind="error", count=1)
+        with resilience.checkpoint.scope("delta.compact", every=1) as ck:
+            merged, _c, _ms, compact_s = counted(D.compact)
+        cretry = obs.counters.get("resil.retry.delta.compact")
+        check(merged == pending and cretry == 1 and ck.saves == 1
+              and ck.arrays[0].shape == (pending,),
+              f"compaction merged {merged} of {pending}, {cretry} "
+              f"retries, {ck.saves} snapshots")
+        cold = chaos._cold_rebuild(A, targets)
+        for name in ("data", "indices", "indptr"):
+            bits(getattr(D.base, name), getattr(cold, name),
+                 f"compacted base {name} vs the cold rebuild")
+        rec["delta_compact"] = {"updates": 768, "merged": merged,
+                                "retries": cretry, "host_s": compact_s,
+                                "snapshot_entries": pending,
+                                "bitwise_vs_cold": True}
+        resilience.reset()
+        del D, cold, ck
+
+        # (f) The chaos drill through phase 16's gateway: its engine
+        # tenant, a background deadline storm, the two inline tenants
+        # (the banded one mutated mid-storm).
+        S1 = engine_matrix(P16_ROWS - 91, seed=7)
+        S2 = engine_matrix(P16_ROWS - 91, seed=13)
+        A1 = sparse.csr_array(S1, device=dev)
+        A2 = sparse.csr_array(S2, device=dev)
+        rng = np.random.default_rng(0)
+        d, i, p = block_clustered_arrays(rng, P16_IRR_ROWS, 8, 2)
+        Irr = sparse.csr_array((d, i, p), shape=(P16_IRR_ROWS,) * 2,
+                               device=dev)
+        g = torch.Generator(device=dev).manual_seed(17)
+
+        def xs(m, k):
+            return [torch.randn(m, device=dev, generator=g)
+                    for _ in range(k)]
+
+        tenants = [
+            {"name": "a1", "qos": "interactive", "A": A1,
+             "xs": xs(A1.shape[1], 2)},
+            {"name": "background", "qos": "background", "A": A2,
+             "xs": xs(A2.shape[1], 2), "deadline_ms": 0.0},
+            {"name": "banded", "qos": "interactive", "A": A,
+             "xs": xs(n, 2)},
+            {"name": "blocks", "qos": "interactive", "A": Irr,
+             "xs": xs(P16_IRR_ROWS, 2)}]
+        Irr.dot(tenants[3]["xs"][0])
+        check(Irr.spmv_path == "bsr", f"blocks tenant took {Irr.spmv_path}")
+        settings.gateway = True
+        gw = Gateway(Engine(), max_batch=8, queue_depth=128,
+                     tenant_quota=64, rate=0.0, burst=16.0, slack_ms=5.0,
+                     timeout_ms=0.0)
+        try:
+            report, drill_counts, _ms, drill_s = counted(
+                lambda: chaos.run_drill(
+                    gw, tenants, rounds=4, seed=7,
+                    mutation={"tenant": "banded", "updates": 100,
+                              "seed": 11}))
+        finally:
+            gw.shutdown()
+        check(report.ok(), f"chaos drill violations {report.violations}")
+        for name, t in report.per_tenant.items():
+            check(t["submitted"] == t["served"] + t["shed"] + t["error"],
+                  f"tenant {name} ledger {t}")
+            if name != "background":
+                check(t["served"] == t["submitted"] == 8,
+                      f"good tenant {name} lost requests: {t}")
+        check(report.submitted == 32 and report.mutations == 10
+              and report.compactions == 1,
+              f"drill report {report}")
+        check(not resilience.faults.armed(), "a fault stayed armed")
+        check(drill_counts["dia_spmv"] > 0 and drill_counts["bsr_spmv"] > 0,
+              f"the drill's launches {drill_counts}")
+        rec["chaos"] = {"rounds": report.rounds, "seed": 7,
+                        "submitted": report.submitted,
+                        "served": report.served, "shed": report.shed,
+                        "errors": report.errors,
+                        "faults_armed": report.faults_armed,
+                        "faults_fired": report.faults_fired,
+                        "mutations": report.mutations,
+                        "compactions": report.compactions,
+                        "per_tenant": report.per_tenant,
+                        "launches": {k: v for k, v in drill_counts.items()
+                                     if v},
+                        "host_s": drill_s}
+        del tenants, A1, A2, Irr, S1, S2
+    finally:
+        for k, v in saved.items():
+            setattr(settings, k, v)
+        resilience.reset()
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec, launches
+
+
+def phase17_rank(rank, world):
+    """Phase 17 (d) on one NCCL rank: ``dist_cg`` on pde_4096 with one
+    injected ``dist.cg`` error, the ABFT-checked ``dist_spmv`` (a clean
+    pass, a poisoned y retried) and its ms beside the plain one, a
+    ``device_loss`` at one rank re-raised, and the banded 2^24
+    ``dist_spgemm`` with one injected ``dist.spgemm`` error.  Returns
+    the record; any failed check raises."""
+    import numpy as np
+    import torch
+
+    import legate_sparse_tpu_torch as sparse
+    from legate_sparse_tpu_torch import obs, resilience
+    from legate_sparse_tpu_torch import parallel as P
+    from legate_sparse_tpu_torch.parallel import dist_csr as D
+    from legate_sparse_tpu_torch.settings import settings
+
+    t_phase = time.perf_counter()
+    launches = {name: 0 for name in kernel_counters()}
+
+    def counted(fn):
+        out, counts, ms, secs = counted_run(fn)
+        for k, v in counts.items():
+            launches[k] += v
+        return out, counts, ms, secs
+
+    def bits(a, b, what):
+        check(torch.equal(a, b), f"{what}: not bit for bit")
+
+    mesh = P.make_row_mesh()
+    dev = D.mesh_device(mesh)
+    grid = P17_GRID
+    n = grid * grid
+    diagonals, offsets = pde_diagonals(grid)
+    dA = P.shard_csr(sparse.diags(diagonals, offsets, shape=(n, n),
+                                  format="csr", dtype=torch.float32), mesh)
+    b = np.ones(n, np.float32)
+    saved = {k: getattr(settings, k) for k in ("resil", "resil_backoff_ms",
+                                                "resil_abft")}
+    rec = {}
+    try:
+        settings.resil = True
+        settings.resil_backoff_ms = 0.0
+        resilience.reset()
+        P.dist_cg(dA, b, rtol=0.0, maxiter=2)       # the first collectives
+        (x0, it0), c0, ms0, _s = counted(
+            lambda: P.dist_cg(dA, b, rtol=0.0, maxiter=200))
+        resilience.inject("dist.cg", kind="error", count=1)
+        (x1, it1), c1, ms1, _s = counted(
+            lambda: P.dist_cg(dA, b, rtol=0.0, maxiter=200))
+        r_cg = obs.counters.get("resil.retry.dist.cg")
+        check(it0 == it1 == 200 and r_cg == 1 and dA.spmv_path
+              == "dia-kernel", f"dist_cg: {it0}, {it1}, {r_cg} retries, "
+              f"{dA.spmv_path}")
+        bits(x1.to_local(), x0.to_local(), "retried dist_cg")
+        rec["dist_cg"] = {"iters": it1, "retries": r_cg, "bitwise": True,
+                          "ms_per_iter": ms0 / it0,
+                          "launches": {k: v for k, v in c1.items() if v}}
+        resilience.reset()
+        del x0, x1
+
+        x = D.shard_vector(torch.from_numpy(
+            np.random.default_rng(17).standard_normal(n).astype(
+                np.float32)).to(dev), mesh, dA.rows_padded)
+        y_plain = P.dist_spmv(dA, x).to_local().clone()
+        plain_ms = time_ms(lambda: P.dist_spmv(dA, x))
+        settings.resil_abft = True
+        a0 = obs.counters.snapshot("resil.")
+        y, ca, _ms, _s = counted(lambda: P.dist_spmv(dA, x))
+        a1 = obs.counters.snapshot("resil.")
+        resilience.inject("dist.spmv.abft", kind="nonfinite", count=1)
+        y2, cb, _ms, _s = counted(lambda: P.dist_spmv(dA, x))
+        a2 = obs.counters.snapshot("resil.")
+
+        def d(c0, c1, k):
+            return c1.get(k, 0) - c0.get(k, 0)
+
+        abft = {"checks_clean": d(a0, a1, "resil.abft.checks"),
+                "mismatch": d(a1, a2, "resil.abft.mismatch"),
+                "retries": d(a1, a2, "resil.retry.dist.spmv"),
+                "launches_clean": {k: v for k, v in ca.items() if v},
+                "launches_poisoned": {k: v for k, v in cb.items() if v}}
+        check(abft["checks_clean"] == 1 and abft["mismatch"] == 1
+              and abft["retries"] == 1, f"ABFT ledger {abft}")
+        bits(y.to_local(), y_plain, "ABFT dist_spmv vs plain")
+        bits(y2.to_local(), y_plain, "retried ABFT dist_spmv vs plain")
+        resilience.reset()
+        abft["ms"] = time_ms(lambda: P.dist_spmv(dA, x))
+        abft["plain_ms"] = plain_ms
+        settings.resil_abft = False
+        rec["abft"] = abft
+
+        a0 = obs.counters.get("resil.recovery.attempts")
+        resilience.inject("solver.cg.conv", "device_loss", after=1)
+        try:
+            with resilience.checkpoint.scope("dist.cg", every=25):
+                P.dist_cg(dA, b, rtol=0.0, maxiter=100)
+            check(False, "a device loss at one rank returned")
+        except resilience.DeviceLost as e:
+            attempts = obs.counters.get("resil.recovery.attempts") - a0
+            check(attempts == 0, f"{attempts} recovery attempts")
+            rec["device_loss"] = {"reraised": True, "attempts": attempts,
+                                  "site": e.site}
+        resilience.reset()
+        del dA, x, y, y2, y_plain
+        torch.cuda.empty_cache()
+
+        band_rows = P17_BAND_ROWS
+        boffs = [-2, -1, 0, 1, 2]
+        bdiags = [np.ones(band_rows - abs(o), np.float32) for o in boffs]
+        dB = P.dist_diags(bdiags, boffs, shape=(band_rows, band_rows),
+                          mesh=mesh, dtype=np.float32)
+        del bdiags
+        C0, cs0, msb0, _s = counted(lambda: P.dist_spgemm(dB, dB))
+        resilience.inject("dist.spgemm", kind="error", count=1)
+        C1, cs1, msb1, _s = counted(lambda: P.dist_spgemm(dB, dB))
+        r_sg = obs.counters.get("resil.retry.dist.spgemm")
+        check(r_sg == 1, f"dist.spgemm retried {r_sg}x")
+        for name in ("dia_data", "dia_mask", "counts", "data", "cols"):
+            u, v = getattr(C0, name), getattr(C1, name)
+            check((u is None) == (v is None)
+                  and (u is None or torch.equal(u, v)),
+                  f"retried dist_spgemm {name}")
+        check(C1.dia_offsets == C0.dia_offsets, "dist_spgemm offsets")
+        rec["dist_spgemm"] = {"rows": band_rows, "retries": r_sg,
+                              "bitwise": True, "card_ms": msb0,
+                              "card_ms_with_retry": msb1}
+        resilience.reset()
+        del dB, C0, C1
+    finally:
+        for k, v in saved.items():
+            setattr(settings, k, v)
+        resilience.reset()
+    torch.cuda.empty_cache()
+    rec["launches"] = launches
+    rec["seconds_in_rank"] = time.perf_counter() - t_phase
+    return rec
+
+
+def phase17_ladder_rank(rank, world):
+    """Phase 17 (g) on 2 NCCL ranks: ``dist_cg`` on pde_4096 under a
+    checkpoint scope (every 25 iterations) loses rank 1 at its third
+    fetch; rank 0 recovers alone (50 iterations restored, 200 in all,
+    the iterate finite) and rank 1 leaves with ``DeviceLost``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import legate_sparse_tpu_torch as sparse
+    from legate_sparse_tpu_torch import obs, resilience
+    from legate_sparse_tpu_torch import parallel as P
+    from legate_sparse_tpu_torch.settings import settings
+
+    n = P17_GRID * P17_GRID
+    diagonals, offsets = pde_diagonals(P17_GRID)
+    dA = P.shard_csr(sparse.diags(diagonals, offsets, shape=(n, n),
+                                  format="csr", dtype=torch.float32))
+    settings.resil = True
+    settings.resil_backoff_ms = 0.0
+    resilience.inject("solver.cg.conv", "device_loss", after=2, device=1)
+    c0 = obs.counters.snapshot("resil.recovery.")
+    try:
+        with resilience.checkpoint.scope("dist.cg", every=25):
+            x, it = P.dist_cg(dA, np.ones(n, np.float32), rtol=0.0,
+                              maxiter=200)
+        moved = {k: v - c0.get(k, 0) for k, v in
+                 obs.counters.snapshot("resil.recovery.").items()}
+        check(it == 200 and moved["resil.recovery.succeeded"] == 1
+              and moved["resil.recovery.restored_iters"] == 50
+              and bool(torch.isfinite(x.to_local()).all()),
+              f"the survivor's recovery: {it} iterations, {moved}")
+        out = {"iters": it, "moved": moved,
+               "shards_after": x.device_mesh.size()}
+    except resilience.DeviceLost:
+        out = {"lost": True}
+    finally:
+        settings.resil = False
+        resilience.reset()
+    torch.cuda.synchronize()
+    dist.barrier()
+    return out
 
 
 def main() -> int:
@@ -4757,11 +5244,32 @@ def main() -> int:
     log({"phase": "timing_serving", "nvidia_smi": smi_line, **s_timing})
     torch.cuda.empty_cache()
 
+    # ---- 17. the resilience layer -------------------------------------------
+    r_rec, r_launches = phase17_resilience()
+    t0 = time.perf_counter()
+    p17 = run_ranks(phase17_rank, 1, backend="nccl", timeout=900,
+                    init_timeout=120)[0]
+    phase17 = {k: r_launches[k] + p17["launches"][k] for k in r_launches}
+    log({"phase": "main_path_resilience", "nvidia_smi": smi_line, **r_rec,
+         "one_rank": p17, "one_rank_seconds": time.perf_counter() - t0,
+         "launches": phase17})
+    if torch.cuda.device_count() >= 2:
+        ladder = run_ranks(phase17_ladder_rank, 2, backend="nccl",
+                           timeout=600, init_timeout=120)
+        check(ladder[1] == {"lost": True}, f"rank 1: {ladder[1]}")
+        log({"phase": "recovery_ladder", "ranks": 2, **ladder[0]})
+    else:
+        log({"phase": "recovery_ladder", "skipped": "1 card"})
+    check(phase17["dia_spmv"] > 0 and phase17["bsr_spmv"] > 0,
+          f"phase 17 launches {phase17}")
+    torch.cuda.empty_cache()
+
     for row in (dia_row, bsr_row, dia_spmm_row, bsr_spmm_row,
                 dia_spgemm_row):
         row["launches"] += (phase10[row["name"]] + phase11[row["name"]]
                             + phase12[row["name"]] + phase14[row["name"]]
-                            + phase15[row["name"]] + phase16[row["name"]])
+                            + phase15[row["name"]] + phase16[row["name"]]
+                            + phase17[row["name"]])
         row["max_abs_err"] = max([row["max_abs_err"]] + [
             h["max_abs_err"] for h in (list(kernel_vs_plain.values())
                                        + list(spec_vs_plain.values())

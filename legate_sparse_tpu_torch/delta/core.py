@@ -33,9 +33,9 @@ no ``delta.*`` counter moves.  Counters ``delta.updates``,
 ``delta.watermark.exceeded``, ``delta.worker.errors``; events
 ``delta.update``, ``delta.compaction``, ``delta.watermark``,
 ``delta.worker.error``; histograms ``lat.delta.update`` and
-``lat.delta.compaction``.  The resilience arm of ``compact`` (the
-JAX package's ``settings.resil`` branch: a checkpoint of the buffer and
-a retried merge) waits for the port's resilience layer.
+``lat.delta.compaction``.  With ``settings.resil`` the merge of
+``compact`` is the ``delta.compact`` fault/retry site, and an active
+checkpoint scope first saves the resolved buffer to the host.
 """
 
 from __future__ import annotations
@@ -258,6 +258,15 @@ class _Buffer:
             self.entries[key] = (float(v), float(v) - float(bv))
         return new_slots, overwrites
 
+    def snapshot_arrays(self):
+        """Host numpy triple of the resolved buffer (rows, cols, targets
+        in f64), sorted by coordinate: the checkpoint payload."""
+        keys = sorted(self.entries)
+        return (np.asarray([k[0] for k in keys], dtype=np.int64),
+                np.asarray([k[1] for k in keys], dtype=np.int64),
+                np.asarray([self.entries[k][0] for k in keys],
+                           dtype=np.float64))
+
     def device_image(self, dtype: torch.dtype, device, sentinel_row: int,
                      start: int = 0, stop: Optional[int] = None):
         """``(row_ids, col_ids, additive_vals, valid)`` of the entries
@@ -447,13 +456,33 @@ class DeltaCSR:
             merged = self._buffer.pending
             if merged == 0:
                 return 0
-            new_base = merged_csr(view.base, self._buffer.entries)
+            if _settings.resil:
+                new_base = self._resilient_merge(view)
+            else:
+                new_base = merged_csr(view.base, self._buffer.entries)
             self._buffer.entries.clear()
             self._publish(new_base, view.version + 1)
             version = self._view.version
         _record_compaction(t0, merged, version, new_base.nnz,
                            _nbytes(new_base))
         return merged
+
+    def _resilient_merge(self, view):
+        """The merge under the ``delta.compact`` site (JAX
+        ``delta/core.py:384-397``): an active checkpoint scope first
+        saves the buffer's host triple (rows, cols, targets; sorted by
+        coordinate), so a loss mid-compaction re-merges from host
+        truth; the merge then retries from the untouched buffer and
+        base (callers hold the lock)."""
+        from ..resilience import checkpoint as _ckpt
+        from ..resilience import guarded_call
+
+        ck = _ckpt.current()
+        if ck is not None:
+            ck.save(view.version, self._buffer.snapshot_arrays())
+        return guarded_call(
+            "delta.compact",
+            lambda: merged_csr(view.base, self._buffer.entries))
 
     def _publish(self, base, version: int) -> None:
         """Swap in a fresh immutable view (callers hold the lock): one

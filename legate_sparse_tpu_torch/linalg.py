@@ -45,8 +45,22 @@ With ``settings.engine`` on, an operator over an engine-eligible
 ``csr_array`` builds the engine's matvec closure when it is made
 (``_SparseMatrixLinearOperator._engine_mv``), so the solver loops run
 their products through the bucketed plan, bit for bit the plain
-csr-rowids product.  The JAX package's solver resilience hooks
-(deadlines, health, checkpoints) wait for a later slice.
+csr-rowids product.
+
+Resilience (``settings.resil``, ``resilience/``), at the fetches the
+solvers make anyway, adding no host sync: ``cg`` runs in stretches of
+``conv_test_iters`` iterations (``_cg_loop(..., site=...)``, the JAX
+package's chunked ``_cg_loop_resil``) when a deadline scope, health
+detection or a checkpoint scope asks for it (``_resil_solver_active``).
+Each stretch is the ``solver.cg.conv`` fault/retry site and re-runs
+from its entry state, bit for bit; before it the deadline is checked,
+after it the fetched residual feeds the health monitor and the
+checkpoint takes ``(x, r, p)`` to the host.  A GMRES restart cycle is
+the ``solver.gmres.conv`` site with the same three hooks (the
+checkpoint takes ``x``), and ``refine=`` checks the monitor and the
+deadline at its refinement fetch.  In a distributed solve a
+checkpoint gathers the blocks into whole vectors first, and the ranks
+agree on a deadline's expiry.
 """
 
 from __future__ import annotations
@@ -62,6 +76,12 @@ import torch
 
 from .csr import csr_array
 from .obs import counters as _obs_counters
+from .resilience import checkpoint as _rckpt
+from .resilience import deadline as _rdeadline
+from .resilience import faults as _rfaults
+from .resilience import health as _rhealth
+from .resilience import policy as _rpolicy
+from .settings import settings as _settings
 from .obs import latency as _lat
 from .obs import trace as _trace
 from .runtime import resolve_device
@@ -487,8 +507,12 @@ def _refined_solve(solver: str, inner_solve: Callable, A_op, A_in,
     refined solve meets the ``atol`` the unrefined solve would.
 
     One host fetch a cycle (``_host_fetch`` of ``|r|``), counted as
-    ``transfer.host_sync.<solver>_refine``.  Returns ``(x, total inner
+    ``transfer.host_sync.<solver>_refine``; with ``settings.resil`` the
+    health monitor and the deadline ride it (site
+    ``solver.<solver>.refine``).  Returns ``(x, total inner
     iterations)``."""
+    site = f"solver.{solver}.refine"
+    monitor = _rhealth.Monitor(site) if _settings.resil else None
     inner_dt = torch.float32 if b.dtype == torch.float64 else b.dtype
     total = 0
     rn = None
@@ -499,6 +523,9 @@ def _refined_solve(solver: str, inner_solve: Callable, A_op, A_in,
             r = b - A_op.matvec(x)
             rn = _host_fetch(_norm(r))[0]
             _obs_counters.inc(f"transfer.host_sync.{solver}_refine")
+            if monitor is not None:
+                monitor.observe(rn, total, partial=x)
+                _deadline_check(site, total, rn, x)
             if rn < atol or total >= maxiter:
                 break
             d, it = inner_solve(A_in, r.to(inner_dt),
@@ -519,20 +546,22 @@ def _refine_args_ok(solver: str, M, callback) -> None:
             "outer preconditioner/observer")
 
 
-def _cg_loop(A_mv: Callable, M_mv: Callable, b: torch.Tensor,
-             x: torch.Tensor, atol, maxiter: int, conv_test_iters: int,
-             callback: Optional[Callable] = None):
-    """Preconditioned CG (the body of the JAX package's ``_cg_builders``,
-    ``:430-469``).  ``atol`` is a float or a 0-d tensor on the device;
-    the threshold is squared in the working precision, as the JAX loop
-    does, so both stop at the same iteration."""
-    real_dt = b.dtype.to_real()
-    atol2 = torch.as_tensor(atol, dtype=real_dt, device=b.device) ** 2
-    r = b - A_mv(x)
-    p = torch.zeros_like(b)
-    rho_old = torch.ones((), dtype=b.dtype, device=b.device)
-    iters = 0
-    while iters < maxiter:
+def _cg_stretch(A_mv: Callable, M_mv: Callable, state, limit: int,
+                maxiter: int, conv_test_iters: int, atol2: torch.Tensor,
+                callback: Optional[Callable] = None, hold: bool = False):
+    """CG iterations from ``state = (x, r, p, rho_old, iters)`` up to
+    iteration ``limit``: the JAX package's CG body (``linalg.py:430-469``),
+    shared by the plain solve and the stretches of the
+    resilient one.  At each convergence test (``iters % conv_test_iters
+    == 0`` or ``iters == maxiter - 1``) one host fetch decides.  With
+    ``hold`` the fetch takes ``[converged, |r|²]`` and the test at
+    ``limit`` itself is left unfetched, for the caller.  Nothing is
+    updated in place, so ``state`` can be run again.  Returns ``(state,
+    held stats or None, fetched [converged, |r|²] or None)``."""
+    x, r, p, rho_old, iters = state
+    real_dt = atol2.dtype
+    stats = fetched = None
+    while iters < limit:
         z = M_mv(r)
         rho = _vdot(r, z)
         if iters == 0:
@@ -550,11 +579,139 @@ def _cg_loop(A_mv: Callable, M_mv: Callable, b: torch.Tensor,
             callback(x)
         if iters % conv_test_iters == 0 or iters == maxiter - 1:
             rnorm2 = _vdot(r, r).real
-            converged = _host_fetch(rnorm2 < atol2)[0]
-            _obs_counters.handle("transfer.host_sync.cg_conv").inc()
-            if converged:
+            if not hold:
+                converged = _host_fetch(rnorm2 < atol2)[0]
+                _obs_counters.handle("transfer.host_sync.cg_conv").inc()
+                if converged:
+                    break
+                continue
+            stats = torch.stack([(rnorm2 < atol2).to(real_dt), rnorm2])
+            if iters == limit:
                 break
-    return x, iters
+            fetched = _host_fetch(stats)
+            _obs_counters.handle("transfer.host_sync.cg_conv").inc()
+            stats = None
+            if fetched[0]:
+                break
+    return (x, r, p, rho_old, iters), stats, fetched
+
+
+def _cg_loop(A_mv: Callable, M_mv: Callable, b: torch.Tensor,
+             x: torch.Tensor, atol, maxiter: int, conv_test_iters: int,
+             callback: Optional[Callable] = None,
+             site: Optional[str] = None, r0_mv: Optional[Callable] = None):
+    """Preconditioned CG from ``x`` (the JAX package's ``_cg_loop`` and,
+    with ``site``, its chunked ``_cg_loop_resil``, ``:514-575``).
+    ``atol`` is a float or a 0-d tensor on the device; the threshold is
+    squared in the working precision, as the JAX loop does, so both stop
+    at the same iteration.  ``r0_mv`` computes the first residual's
+    product (the distributed solver's goes through the ``dist.spmv``
+    site).
+
+    With ``site`` the iterations run in stretches of ``conv_test_iters``
+    (the JAX package's chunks), each ``site``'s fault/retry unit
+    (``policy.run``), re-run from its entry state on a retry, so a
+    retried solve is bit for bit the clean one: the deadline is checked
+    before a stretch, its test's ``[converged, |r|²]`` passes
+    ``fault_point(site)`` (a ``nonfinite`` fault poisons ``|r|²``) and is
+    fetched once, the residual feeds the health monitor, and a
+    checkpoint scope snapshots ``(x, r, p)``.  The fetches, and so the
+    host syncs, are the plain loop's."""
+    real_dt = b.dtype.to_real()
+    atol2 = torch.as_tensor(atol, dtype=real_dt, device=b.device) ** 2
+    r = b - (A_mv if r0_mv is None else r0_mv)(x)
+    p = torch.zeros_like(b)
+    rho_old = torch.ones((), dtype=b.dtype, device=b.device)
+    state = (x, r, p, rho_old, 0)
+    if site is None:
+        state, _, _ = _cg_stretch(A_mv, M_mv, state, maxiter, maxiter,
+                                  conv_test_iters, atol2, callback)
+        return state[0], state[4]
+    step = max(int(conv_test_iters), 1)
+    monitor = _rhealth.Monitor(site)
+    ckpt = _rckpt.current()
+    lat_name = "lat.cg.chunk." + _lat.shape_bucket(b.shape[0])
+    it, resid = 0, None
+    while it < maxiter:
+        _deadline_check(site, it, resid, state[0])
+        limit = min(it + step, maxiter)
+
+        def attempt(state=state, limit=limit):
+            st, stats, fetched = _cg_stretch(
+                A_mv, M_mv, state, limit, maxiter, conv_test_iters, atol2,
+                callback, hold=True)
+            return st, _rfaults.fault_point(site, stats), fetched
+
+        with _lat.timer(lat_name):
+            state, stats, fetched = _rpolicy.run(site, attempt)
+        if stats is not None:
+            fetched = _host_fetch(stats)
+            _obs_counters.handle("transfer.host_sync.cg_conv").inc()
+        it = state[4]
+        done = False
+        if fetched is not None:
+            done = bool(fetched[0])
+            # A poisoned (NaN) |r|² stays NaN for the monitor.
+            resid = math.sqrt(fetched[1]) if fetched[1] >= 0 else fetched[1]
+            monitor.observe(resid, it, partial=state[0])
+        if ckpt is not None and not done:
+            _ckpt_save(ckpt, it, state[:3])
+        if done:
+            break
+    return state[0], state[4]
+
+
+def _resil_solver_active() -> bool:
+    """Run ``cg`` in its resilient stretches?  The master switch AND
+    something that needs a host decision at the fetches: a deadline
+    scope, health detection, or a checkpoint scope (JAX
+    ``linalg.py:502``).  With ``settings.resil`` off, one flag read."""
+    return _settings.resil and (
+        _rdeadline.current() is not None or _rhealth.active()
+        or _rckpt.active())
+
+
+def _deadline_check(site: str, iterations: int, residual, partial) -> None:
+    """``deadline.raise_if_expired`` at a solver's cadence point.  In a
+    distributed solve the ranks agree first (one all-reduce of the
+    verdict): a rank whose own clock ran out alone must not leave the
+    others in a collective."""
+    d = _rdeadline.current()
+    if d is None:
+        return
+    scope = _REDUCE.get()
+    if scope is None:
+        _rdeadline.raise_if_expired(site, iterations, residual, partial)
+        return
+    import torch.distributed as dist
+
+    flag = torch.tensor([float(d.expired())], device=partial.device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=scope[0])
+    if _host_fetch(flag)[0]:
+        _rdeadline.expire(site, iterations, residual, partial)
+
+
+def _ckpt_save(ckpt, iterations: int, arrays) -> None:
+    """Hand ``arrays`` to the checkpoint when its cadence says so; in a
+    distributed solve each is first all-gathered into the whole padded
+    vector, so any survivor of a lost rank holds the full iterate."""
+    if not ckpt.due(iterations):
+        return
+    scope = _REDUCE.get()
+    if scope is not None:
+        import torch.distributed as dist
+
+        group = scope[0]
+        size = dist.get_world_size(group)
+        gather = (getattr(dist, "all_gather_single", None)
+                  or dist.all_gather_into_tensor)
+        gathered = []
+        for a in arrays:
+            out = a.new_empty((size * a.shape[0],) + tuple(a.shape[1:]))
+            gather(out, a.contiguous(), group=group)
+            gathered.append(out)
+        arrays = gathered
+    ckpt.save(iterations, arrays)
 
 
 def cg(A, b, x0=None, tol=None, maxiter=None, M=None,
@@ -595,8 +752,10 @@ def cg(A, b, x0=None, tol=None, maxiter=None, M=None,
                         int(conv_test_iters), callback)
     with _lat.timer("lat.cg.solve." + _lat.shape_bucket(n)), \
             _trace.span("cg", n=n, maxiter=int(maxiter)) as sp:
-        x, iters = _cg_loop(A_op.matvec, M_op.matvec, b, x, atol,
-                            int(maxiter), int(conv_test_iters))
+        x, iters = _cg_loop(
+            A_op.matvec, M_op.matvec, b, x, atol, int(maxiter),
+            int(conv_test_iters),
+            site="solver.cg.conv" if _resil_solver_active() else None)
         if sp is not None:
             sp.set(iters=iters)
             src = getattr(A_op, "A", None)
@@ -724,21 +883,48 @@ def _gmres_loop(A_mv: Callable, M_mv: Callable, b: torch.Tensor,
                 bnrm2: float = 1.0):
     """The restart cycles of ``gmres`` from ``x`` (reference
     ``linalg.py:807-951``), one fetch of ``[beta, resid]`` a cycle.
-    Returns ``(x, iters)``."""
+    With ``settings.resil`` a cycle is the ``solver.gmres.conv``
+    fault/retry site (re-run from its entry ``x``, bit for bit), the
+    deadline is checked before it, the fetch feeds the health monitor,
+    and a checkpoint scope snapshots ``x`` after it (JAX
+    ``linalg.py:890-937``).  Returns ``(x, iters)``."""
+    site = "solver.gmres.conv"
     conv = _obs_counters.handle("transfer.host_sync.gmres_conv")
     lat_name = "lat.gmres.cycle." + _lat.shape_bucket(b.shape[0])
+    resil = _settings.resil
+    monitor = _rhealth.Monitor(site) if resil else None
+    ckpt = _rckpt.current() if resil else None
+    resid_f = None
     iters = 0
     while iters < maxiter:
+        if resil:
+            _deadline_check(site, iters, resid_f, x)
         with _lat.timer(lat_name), \
                 _trace.span("gmres.cycle", restart=restart,
                             iters_done=iters):
-            x_new, stats = _gmres_cycle(A_mv, M_mv, x, b, restart)
+            if resil:
+                def cycle(x=x):
+                    xn, st = _gmres_cycle(A_mv, M_mv, x, b, restart)
+                    return xn, _rfaults.fault_point(site, st)
+
+                x_new, stats = _rpolicy.run(site, cycle)
+            else:
+                x_new, stats = _gmres_cycle(A_mv, M_mv, x, b, restart)
             beta_f, resid_f = _host_fetch(stats)
             conv.inc()
+            if monitor is not None:
+                # A non-finite cycle-start norm is the earliest sign;
+                # else the cycle-end least-squares residual is judged.
+                monitor.observe(beta_f if not math.isfinite(beta_f)
+                                else resid_f, iters + restart,
+                                partial=x_new)
         if beta_f < atol:
             break                  # converged at the cycle's start: keep x
         x = x_new
         iters += restart
+        if ckpt is not None:
+            # x alone restarts GMRES: the Arnoldi seed is its state.
+            _ckpt_save(ckpt, iters, (x,))
         if callback is not None:
             if callback_type == "pr_norm":
                 callback(_host_fetch(_norm(b - A_mv(x)))[0] / bnrm2)

@@ -19,8 +19,8 @@ through NCCL (``cuda``) or gloo (the CPU)::
     x, iters = P.dist_cg(A, b, rtol=1e-5)   # x: a sharded DTensor
 
 ``launch.run_ranks`` starts N ranks of a fresh group from a process
-that holds none.  ``survivor_mesh`` (a mesh without a lost rank) waits
-for the resilience layer, and with it ``reshard`` onto fewer ranks.
+that holds none.  ``survivor_mesh`` is the mesh without a lost rank,
+onto which the solvers' recovery ladder ``reshard``s.
 """
 
 from .mesh import (  # noqa: F401
@@ -35,6 +35,7 @@ from .mesh import (  # noqa: F401
     make_row_mesh,
     resolve_layout,
     row_spec,
+    survivor_mesh,
 )
 from .dist_csr import (  # noqa: F401
     DistCSR,

@@ -61,8 +61,19 @@ partial rows are all-reduced along mesh columns by the semiring's add
 (``ReduceOp.MIN``/``MAX``) where plus-times reduce-scatters a sum.
 NCCL and gloo reduce no ``torch.bool``: an or-and frontier travels as
 its ``uint8`` view and is or-ed as a ``MAX``.  Counters
-``graph.dist_spmv.<name>``/``graph.dist_spmm.<name>``.  The resilience
-and engine arms (queue 1 item 10) wait for a later slice.
+``graph.dist_spmv.<name>``/``graph.dist_spmm.<name>``.
+
+Resilience (``settings.resil``, ``dist_csr.py:1531-1605``, ``:2133-2235``):
+``dist_spmv`` (both arms) is the ``dist.spmv`` fault/retry site, and with
+``settings.resil_abft`` its plus-times product is checked against the
+column checksum (``_dist_spmv_abft``: ``sum(y) = <w, x>``, one stacked
+fetch).  The solvers' loop products (``matvec_fn``) bypass the site, as
+the JAX package's traced loops do; ``dist_cg``'s first residual goes
+through it.  ``dist_cg`` is the ``dist.cg`` site, and both ``dist_cg`` and
+``dist_gmres`` run under the recovery ladder (``_solve_with_recovery``):
+on a ``DeviceLost`` every rank builds the survivor mesh, the lost rank
+leaves the solve raising ``DeviceLost``, and the survivors reshard from
+the kept source, restore the last checkpoint and resume.
 """
 
 from __future__ import annotations
@@ -84,12 +95,17 @@ from ..obs import trace as _trace
 from ..ops import bsr as _bsr_ops
 from ..ops import dia_kernel as _dia_kernel
 from ..ops import spmv as _spmv_ops
+from ..resilience import checkpoint as _rckpt
+from ..resilience import faults as _rfaults
+from ..resilience import guarded_call as _resil_guarded
+from ..resilience.outcomes import ChecksumError, DeviceLost
 from ..settings import settings as _settings
 from ..utils import as_tensor, to_numpy
 from .mesh import (
     COL_AXIS, LAYOUT_1D_COL, LAYOUT_1D_ROW, LAYOUT_2D_BLOCK, LAYOUT_AUTO,
-    ROW_AXIS, factor_grid, flat_mesh, job_cache, make_grid_mesh,
-    make_row_mesh, mesh_device, resolve_layout, row_sharding,
+    ROW_AXIS, _mesh, factor_grid, flat_mesh, job_cache, make_row_mesh,
+    mesh_device, mesh_position, mesh_ranks, resolve_layout, row_sharding,
+    survivor_mesh,
 )
 
 _LOWP = (torch.bfloat16, torch.float16)
@@ -155,9 +171,10 @@ class DistCSR:
 
     @property
     def shard(self) -> int:
-        """This rank's row block (1d-row) or flat chunk (2-d)."""
+        """This rank's row block (1d-row) or flat chunk (2-d): its
+        position in the mesh."""
         if self.grid is not None:
-            return dist.get_rank()
+            return mesh_position(self.mesh)
         return self.mesh.get_local_rank(ROW_AXIS)
 
     @property
@@ -192,9 +209,9 @@ class DistCSR:
     def vector_group(self):
         """The group a vector's blocks are spread over: "rows" for the
         1d-row layout (replicas over "cols" hold the same block), every
-        rank for the 2-d layouts."""
+        rank of the mesh for the 2-d layouts."""
         if self.grid is not None:
-            return dist.group.WORLD
+            return flat_mesh(self.mesh).get_group(0)
         return self.mesh.get_group(ROW_AXIS)
 
     @property
@@ -224,7 +241,7 @@ class DistCSR:
             return self._dia_coo()
         if self.grid is not None:
             Rc = self.grid[1]
-            i, j = divmod(dist.get_rank(), Rc)
+            i, j = divmod(mesh_position(self.mesh), Rc)
             ln = int(self.counts)
             return (to_numpy(self.row_ids[:ln]).astype(np.int64) + i * rps,
                     to_numpy(self.cols[:ln]).astype(np.int64)
@@ -397,10 +414,13 @@ def _grid_of(mesh, layout: str) -> Tuple[int, int]:
 
 
 def _grid_mesh_for(mesh, grid: Tuple[int, int]):
+    """``mesh`` when it is the (rows, cols) grid ``grid``, else that grid
+    over ``mesh``'s ranks (every rank when None)."""
     if (mesh is not None and mesh.mesh_dim_names == (ROW_AXIS, COL_AXIS)
             and tuple(mesh.shape) == tuple(grid)):
         return mesh
-    return make_grid_mesh(shape=grid)
+    ranks = None if mesh is None else mesh_ranks(mesh)
+    return _mesh(tuple(grid), (ROW_AXIS, COL_AXIS), ranks)
 
 
 def _predict_1d_spmv_bytes(rows: int, cols: int, indptr, indices,
@@ -643,13 +663,13 @@ def _vector_mesh(mesh, layout: str):
     from torch.distributed.tensor import Shard
 
     if layout in (LAYOUT_2D_BLOCK, LAYOUT_1D_COL):
-        return flat_mesh(), (Shard(0),)
+        return flat_mesh(mesh), (Shard(0),)
     return mesh, row_sharding(mesh)
 
 
 def _chunk_index(mesh, layout: str) -> int:
     if layout in (LAYOUT_2D_BLOCK, LAYOUT_1D_COL):
-        return dist.get_rank()
+        return mesh_position(mesh)
     return mesh.get_local_rank(ROW_AXIS)
 
 
@@ -828,17 +848,19 @@ def _realize(A: DistCSR, x_local: torch.Tensor) -> torch.Tensor:
 
 def _transpose_chunks(A: DistCSR, x_local: torch.Tensor) -> torch.Tensor:
     """The chunk transpose of the 2-d SpMV's input (``dist_csr.py:1148``):
-    rank i Rc + j gets chunk j Rr + i.  No message on a 1-D grid."""
+    the rank at mesh position i Rc + j gets chunk j Rr + i.  No message
+    on a 1-D grid."""
     Rr, Rc = A.grid
-    me = dist.get_rank()
+    ranks = mesh_ranks(A.mesh)
+    me = mesh_position(A.mesh)
     i, j = divmod(me, Rc)
     src = j * Rr + i
     dst = (me % Rr) * Rc + me // Rr
     if src == me and dst == me:
         return x_local
     buf = torch.empty_like(x_local)
-    ops = [dist.P2POp(dist.isend, x_local.contiguous(), dst),
-           dist.P2POp(dist.irecv, buf, src)]
+    ops = [dist.P2POp(dist.isend, x_local.contiguous(), ranks[dst]),
+           dist.P2POp(dist.irecv, buf, ranks[src])]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return buf
@@ -1106,24 +1128,109 @@ def dist_spmv(A: DistCSR, x, semiring=None):
     (``shard_vector``), and so is the result; given this rank's local
     block (a plain tensor), the result is this rank's block of y.
     ``semiring`` (a catalog name or ``graph.Semiring``) generalises the
-    product; None and ``"plus-times"`` run the ordinary dispatch."""
+    product; None and ``"plus-times"`` run the ordinary dispatch.
+
+    With ``settings.resil`` the call is the ``dist.spmv`` site (retried
+    from its intact operands), and with ``settings.resil_abft`` a
+    plus-times product is checksum-verified (``_dist_spmv_abft``)."""
     from torch.distributed.tensor import DTensor
 
     sr = _resolve_semiring_arg(semiring)
+    x_local = _local(x)
     if sr is not None:
-        y = _dist_spmv_semiring(A, _local(x), sr)
+        # The checksum identity sum(y) = <w, x> is plus-times algebra:
+        # a semiring product retries under the site but runs unchecked.
+        if _settings.resil:
+            y = _resil_guarded(
+                "dist.spmv", lambda: _dist_spmv_semiring(A, x_local, sr))
+        else:
+            y = _dist_spmv_semiring(A, x_local, sr)
     else:
-        # The engine's plan ledger (JAX ``dist_csr.py:1615-1616``): with
-        # routing on, every dispatch records against its plan identity.
-        # Off (the default), one flag read.
-        if _settings.engine:
-            from ..engine import get_engine
-
-            get_engine().record_dist_plan(A)
-        y = _spmv_local(A, _local(x))
+        y = _guarded_spmv(A, x_local)
     if not isinstance(x, DTensor):
         return y
     return _global_vector(A, y, A.rows_padded)
+
+
+def _plus_times_spmv(A: DistCSR, x_local: torch.Tensor) -> torch.Tensor:
+    # The engine's plan ledger (JAX ``dist_csr.py:1615-1616``): with
+    # routing on, every dispatch records against its plan identity.
+    # Off (the default), one flag read.
+    if _settings.engine:
+        from ..engine import get_engine
+
+        get_engine().record_dist_plan(A)
+    return _spmv_local(A, x_local)
+
+
+def _guarded_spmv(A: DistCSR, x_local: torch.Tensor) -> torch.Tensor:
+    """The plus-times ``dist_spmv`` of this rank's block: the
+    ``dist.spmv`` site when ``settings.resil`` is on (ABFT-checked under
+    ``settings.resil_abft``), else the product alone."""
+    if not _settings.resil:
+        return _plus_times_spmv(A, x_local)
+    if _settings.resil_abft:
+        return _resil_guarded("dist.spmv",
+                              lambda: _dist_spmv_abft(A, x_local))
+    return _resil_guarded("dist.spmv",
+                          lambda: _plus_times_spmv(A, x_local))
+
+
+def _abft_checksum_vector(A: DistCSR, xlen: int):
+    """This rank's block of the column-checksum vector w (``w_j =
+    sum_i A_ij``) an ABFT-checked SpMV dots against x
+    (``dist_csr.py:1549``): built once from the kept source matrix on
+    the host in f64 (``np.bincount`` sums each column in storage order,
+    as ``np.add.at`` does), cast to the matrix's dtype and cached on
+    ``A``.  None when the matrix cannot carry one (no kept source, or
+    not square: x and y then have no shared partition)."""
+    cached = getattr(A, "_abft_w", None)
+    if cached is not None and cached[0] == xlen:
+        return cached[1]
+    src = A._src_csr
+    rows, cols = A.shape
+    if src is None or rows != cols:
+        return None
+    wv = np.bincount(to_numpy(src.indices).astype(np.int64),
+                     weights=to_numpy(src.data).astype(np.float64),
+                     minlength=cols)
+    w = torch.from_numpy(wv).to(device=A.device, dtype=A.dtype)
+    w = _local_rows(w, xlen, _chunk_index(A.mesh, A.layout), A.rows_padded)
+    A._abft_w = (xlen, w)
+    return w
+
+
+def _dist_spmv_abft(A: DistCSR, x_local: torch.Tensor) -> torch.Tensor:
+    """The ABFT-checked SpMV (``settings.resil_abft``,
+    ``dist_csr.py:1575-1605``): y, then ``sum(y)`` against ``<w, x>``
+    with ``<|w|, |x|>`` as the scale, the three partial sums all-reduced
+    over the vector group in one call and fetched in one sync.  The
+    tolerance is ``64 eps (scale + 1)``, and the NaN-safe ``not (diff <=
+    tol)`` makes a poisoned y a detection.  A mismatch raises the
+    retryable ``ChecksumError``, which the ``dist.spmv`` site re-runs
+    from the intact operands.  A matrix without a checksum vector runs
+    unchecked."""
+    w = _abft_checksum_vector(A, int(x_local.shape[0]))
+    y = _plus_times_spmv(A, x_local)
+    if w is None:
+        return y
+    # A value site: a nonfinite fault poisons y as a corrupted
+    # collective would.
+    y = _rfaults.fault_point("dist.spmv.abft", y)
+    dt = torch.promote_types(A.dtype, x_local.dtype)
+    xw = x_local.to(dt)
+    stats = torch.stack([y.to(dt).sum(), torch.dot(w.to(dt), xw),
+                         torch.dot(w.to(dt).abs(), xw.abs())])
+    dist.all_reduce(stats, group=A.vector_group)
+    observed, expected, scale = stats.tolist()
+    tol = 64.0 * torch.finfo(dt).eps * (abs(scale) + 1.0)
+    _obs_counters.inc("resil.abft.checks")
+    if not abs(observed - expected) <= tol:
+        _obs_counters.inc("resil.abft.mismatch")
+        _trace.event("resil.abft.mismatch", observed=observed,
+                     expected=expected, tol=tol)
+        raise ChecksumError("dist.spmv.abft", observed, expected)
+    return y
 
 
 def _spmm_local(A: DistCSR, X_local: torch.Tensor):
@@ -1275,6 +1382,131 @@ def _identity(r):
     return r
 
 
+@contextlib.contextmanager
+def _maybe_ckpt_scope(site: str):
+    """A checkpoint scope for a distributed solve when the knob asks for
+    one (``settings.resil_ckpt_iters > 0``) and the caller bound none
+    (``dist_csr.py:2133``): the caller's scope always wins."""
+    if (_settings.resil and _rckpt.current() is None
+            and _settings.resil_ckpt_iters > 0):
+        with _rckpt.scope(site) as ck:
+            yield ck
+    else:
+        yield _rckpt.current()
+
+
+def _block_bytes(A: DistCSR) -> int:
+    """Bytes of this rank's blocks of ``A`` on its device (the DIA
+    kernel pack adds its int8 mask; its band is ``dia_data``)."""
+    parts = [getattr(A, name) for name in (
+        "data", "cols", "counts", "row_ids", "gather_idx",
+        "gather_globals", "dia_data", "dia_mask")]
+    if A.dia_pack is not None:
+        parts.append(A.dia_pack.rmask)
+    return int(sum(t.numel() * t.element_size() for t in parts
+                   if t is not None))
+
+
+def _solve_with_recovery(site: str, A: DistCSR, b_glob: torch.Tensor,
+                         x0_glob: torch.Tensor, maxiter: int, solve_fn,
+                         guard: bool = True):
+    """The device-loss recovery ladder around a distributed solve
+    (``dist_csr.py:2146-2235``): **detect** (a ``DeviceLost`` escapes
+    the retry policy unretried, at a convergence fetch) -> **shrink**
+    (``survivor_mesh`` drops the lost ordinal) -> **reshard** (the kept
+    source repartitioned onto the survivors) -> **restore** (the last
+    checkpoint's iterate, else the original ``x0``) -> **resume** with
+    the rest of the iteration budget.
+
+    ``solve_fn(A_cur, b_local, x0_local, miter) -> (x_local, iters)``
+    solves over ``A_cur``'s blocks; ``b_glob``/``x0_glob`` are the whole
+    vectors (length ``rows``), from which the ladder cuts each new
+    partition's blocks.  ``guard`` makes each attempt the ``site``
+    fault/retry site (``dist_gmres`` passes False: its cycles are the
+    ``solver.gmres.conv`` site).
+
+    SPMD: every rank armed the same schedule, so every rank sees the
+    loss at the same fetch.  All build the survivor mesh (a collective
+    of the whole job); the lost rank then leaves the solve raising
+    ``DeviceLost`` and takes part in no later collective of it, as a
+    lost device could not.  A single-shard solve re-raises at once.
+    On the survivors, per recovery: one each of
+    ``resil.recovery.attempts``, ``.device_loss`` and ``.mesh_shrink``,
+    ``.restored_iters`` by the snapshot's iterations, ``.reshard_bytes``
+    by the bytes of the survivors' new blocks (summed over them), one
+    ``resil.recovery`` event; ``.succeeded`` once when a recovered solve
+    completes.  Returns ``(x_local, total iterations, A_fin)``."""
+    from .reshard import reshard
+
+    rows = A.shape[0]
+    ck = _rckpt.current()
+    A_cur = A
+    b_cur = _local_rows(b_glob, A.local_len, _chunk_index(A.mesh, A.layout),
+                        A.rows_padded)
+    x0_cur = _local_rows(x0_glob, A.local_len,
+                         _chunk_index(A.mesh, A.layout), A.rows_padded)
+    miter = int(maxiter)
+    base = 0          # iterations credited from restored snapshots
+    recovered = 0
+    while True:
+        try:
+            if guard:
+                x, iters = _resil_guarded(
+                    site, lambda: solve_fn(A_cur, b_cur, x0_cur, miter))
+            else:
+                x, iters = solve_fn(A_cur, b_cur, x0_cur, miter)
+            if recovered:
+                _obs_counters.inc("resil.recovery.succeeded")
+            return x, base + int(iters), A_cur
+        except DeviceLost as e:
+            if A_cur.num_shards <= 1:
+                raise
+            survivors = survivor_mesh(A_cur.mesh, int(e.device))
+            if dist.get_rank() not in mesh_ranks(survivors):
+                raise
+            recovered += 1
+            _obs_counters.inc("resil.recovery.attempts")
+            _obs_counters.inc("resil.recovery.device_loss")
+            before = int(A_cur.num_shards)
+            A_cur = reshard(A_cur, mesh=survivors, layout=A_cur.layout)
+            moved = torch.tensor([_block_bytes(A_cur)], dtype=torch.int64,
+                                 device=A_cur.device)
+            dist.all_reduce(moved, group=A_cur.vector_group)
+            moved = int(moved.item())
+            _obs_counters.inc("resil.recovery.mesh_shrink")
+            _obs_counters.inc("resil.recovery.reshard_bytes", moved)
+            k = _chunk_index(A_cur.mesh, A_cur.layout)
+            b_cur = _local_rows(b_glob, A_cur.local_len, k,
+                                A_cur.rows_padded)
+            snap = ck.restore() if ck is not None else None
+            if snap is not None:
+                it0, arrays = snap
+                # A plain restart from the snapshot's x: r and p are
+                # derived afresh (convergence to tolerance is kept, the
+                # exact iterate sequence is not).
+                x_host = as_tensor(arrays[0], A_cur.device)[:rows].to(
+                    b_cur.dtype)
+                base += int(it0)
+                _obs_counters.inc("resil.recovery.restored_iters", int(it0))
+                ck.rebase()
+            else:
+                x_host = x0_glob
+            x0_cur = _local_rows(x_host, A_cur.local_len, k,
+                                 A_cur.rows_padded)
+            miter = max(int(maxiter) - base, 1)
+            _trace.event("resil.recovery", site=site,
+                         device=int(e.device), shards_before=before,
+                         shards_after=int(A_cur.num_shards),
+                         restored_iters=(int(snap[0]) if snap else 0),
+                         reshard_bytes=moved)
+
+
+def _whole(A: DistCSR, v, dtype) -> torch.Tensor:
+    """A vector argument (array-like, or a DTensor, gathered) as the
+    whole vector of the true row count on this rank's device."""
+    return _global_host(v, A.device).to(dtype).reshape(-1)[:A.shape[0]]
+
+
 def dist_cg(A: DistCSR, b, x0=None, tol=None, maxiter: Optional[int] = None,
             M=None, callback=None, atol: float = 0.0, rtol: float = 1e-5,
             conv_test_iters: int = 25):
@@ -1284,8 +1516,18 @@ def dist_cg(A: DistCSR, b, x0=None, tol=None, maxiter: Optional[int] = None,
     block of a vector, run outside the solve's reductions (a solve
     inside it stays on the rank); ``callback(x)`` sees every iterate as a sharded
     vector.  Returns the solution as a sharded vector of the true row
-    count, and the iteration count."""
+    count, and the iteration count.
+
+    With ``settings.resil`` (and no callback) the solve is the
+    ``dist.cg`` site, runs in ``linalg.cg``'s resilient stretches when a
+    deadline, health detection or a checkpoint asks for them, and a
+    ``DeviceLost`` takes the recovery ladder (``_solve_with_recovery``):
+    the result is then a sharded vector over the survivor mesh, and on
+    the lost rank the call raises ``DeviceLost``.  After a shrink ``M``
+    is applied to the survivors' blocks, so a preconditioner bound to
+    the old partition does not recover."""
     from ..linalg import _cg_loop, _get_atol_rtol, _norm
+    from ..linalg import _resil_solver_active
 
     _obs_counters.handle("op.dist_cg").inc()
     rows, b_loc, x0_loc, maxiter, cb, M_loc = _shard_system(
@@ -1294,17 +1536,31 @@ def dist_cg(A: DistCSR, b, x0=None, tol=None, maxiter: Optional[int] = None,
         x0_loc = torch.zeros_like(b_loc)
     with _reductions(A, "dist_cg"):
         bnrm2 = float(_norm(b_loc))
-        atol, _ = _get_atol_rtol(bnrm2, tol, atol, rtol)
-        with _lat.timer("lat.dist_cg.solve." + _lat.shape_bucket(rows)), \
-                _trace.span("dist_cg", n=rows, shards=A.num_shards,
-                            maxiter=maxiter,
-                            preconditioned=M is not None) as sp:
-            x, iters = _cg_loop(A.matvec_fn(), M_loc, b_loc,
-                                x0_loc, atol, maxiter, int(conv_test_iters),
-                                cb)
-            if sp is not None:
-                sp.set(iters=iters)
-    return _global_vector(A, x, rows), iters
+    atol, _ = _get_atol_rtol(bnrm2, tol, atol, rtol)
+
+    def solve(A_cur, b_cur, x0_cur, miter):
+        site = "solver.cg.conv" if (
+            cb is None and _resil_solver_active()) else None
+        with _reductions(A_cur, "dist_cg"):
+            return _cg_loop(A_cur.matvec_fn(), M_loc, b_cur, x0_cur, atol,
+                            miter, int(conv_test_iters), cb, site=site,
+                            r0_mv=lambda v: _guarded_spmv(A_cur, v))
+
+    with _lat.timer("lat.dist_cg.solve." + _lat.shape_bucket(rows)), \
+            _trace.span("dist_cg", n=rows, shards=A.num_shards,
+                        maxiter=maxiter, preconditioned=M is not None) as sp:
+        if _settings.resil and cb is None:
+            with _maybe_ckpt_scope("dist.cg"):
+                x, iters, A_fin = _solve_with_recovery(
+                    "dist.cg", A, _whole(A, b, b_loc.dtype),
+                    _whole(A, x0 if x0 is not None else torch.zeros(rows),
+                           b_loc.dtype), maxiter, solve)
+        else:
+            x, iters = solve(A, b_loc, x0_loc, maxiter)
+            A_fin = A
+        if sp is not None:
+            sp.set(iters=iters)
+    return _global_vector(A_fin, x, rows), iters
 
 
 def dist_gmres(A: DistCSR, b, x0=None, tol=None, restart=None,
@@ -1313,7 +1569,10 @@ def dist_gmres(A: DistCSR, b, x0=None, tol=None, restart=None,
     """Distributed restarted GMRES (``dist_csr.py:2237``): the
     single-device cycle loop (``linalg._gmres_loop``) over this rank's
     blocks, one host fetch a cycle.  Padding rows are zero rows with a
-    zero right-hand side, so the Krylov space keeps them at 0."""
+    zero right-hand side, so the Krylov space keeps them at 0.  With
+    ``settings.resil`` a ``DeviceLost`` takes the recovery ladder, which
+    re-seeds the Arnoldi process from the last snapshot on the
+    survivors (the cycles are the ``solver.gmres.conv`` site)."""
     from ..linalg import (_get_atol_rtol, _gmres_loop, _norm,
                           outside_reductions)
 
@@ -1323,17 +1582,30 @@ def dist_gmres(A: DistCSR, b, x0=None, tol=None, restart=None,
         cb = outside_reductions(callback)
     restart_eff = min(int(restart) if restart else 20, A.rows_padded)
     x = x0_loc if x0_loc is not None else torch.zeros_like(b_loc)
-    with _reductions(A, "dist_gmres"), \
-            _trace.span("dist_gmres", n=rows, shards=A.num_shards,
-                        restart=restart_eff) as sp:
+    with _reductions(A, "dist_gmres"):
         bnrm2 = float(_norm(b_loc))
-        atol, _ = _get_atol_rtol(bnrm2, tol, atol, rtol)
-        x, iters = _gmres_loop(A.matvec_fn(), M_loc, b_loc, x,
-                               atol, restart_eff, maxiter, cb,
+    atol, _ = _get_atol_rtol(bnrm2, tol, atol, rtol)
+
+    def solve(A_cur, b_cur, x0_cur, miter):
+        with _reductions(A_cur, "dist_gmres"):
+            return _gmres_loop(A_cur.matvec_fn(), M_loc, b_cur, x0_cur,
+                               atol, restart_eff, miter, cb,
                                callback_type, bnrm2)
+
+    with _trace.span("dist_gmres", n=rows, shards=A.num_shards,
+                     restart=restart_eff) as sp:
+        if _settings.resil:
+            with _maybe_ckpt_scope("dist.gmres"):
+                x, iters, A_fin = _solve_with_recovery(
+                    "dist.gmres", A, _whole(A, b, b_loc.dtype),
+                    _whole(A, x0 if x0 is not None else torch.zeros(rows),
+                           b_loc.dtype), maxiter, solve, guard=False)
+        else:
+            x, iters = solve(A, b_loc, x, maxiter)
+            A_fin = A
         if sp is not None:
             sp.set(iters=iters)
-    return _global_vector(A, x, rows), iters
+    return _global_vector(A_fin, x, rows), iters
 
 
 def dist_bicgstab(A: DistCSR, b, x0=None, tol=None, maxiter=None, M=None,

@@ -40,8 +40,10 @@ the product, group totals as ``obs.comm`` counts them).  The JAX
 package's prediction of its own three padded phases
 (``_b_realization_volumes``, ``_summa_volumes_2d``) is the
 ``dist_spgemm.realization`` event's ``predicted_*`` bytes, as there.
-The ``resil`` guard (``:1063-1070``) belongs to the resilience layer,
-not yet ported; ``obs.memory`` has no ``watermark`` here, so the
+With ``settings.resil`` the whole multiply is the ``dist.spgemm``
+fault/retry site (``:1063-1070``): a sequence of collective phases with
+host syncs between them, retried from its immutable operands, bit for
+bit on success.  ``obs.memory`` has no ``watermark`` here, so the
 phase's memory event is not emitted.
 """
 
@@ -564,7 +566,17 @@ def dist_spgemm(A: DistCSR, B: DistCSR) -> DistCSR:
     result in halo mode, consumable by the DIA kernel's distributed
     SpMV); 2-d-block operands on one grid take SUMMA (a 2-d-block
     result); everything else the 1-d ESC (a padded-CSR row-block result
-    with global columns)."""
+    with global columns).  With ``settings.resil`` the call is the
+    ``dist.spgemm`` site."""
+    from ..resilience import guarded_call
+    from ..settings import settings
+
+    if settings.resil:
+        return guarded_call("dist.spgemm", lambda: _dist_spgemm(A, B))
+    return _dist_spgemm(A, B)
+
+
+def _dist_spgemm(A: DistCSR, B: DistCSR) -> DistCSR:
     if A.shape[1] != B.shape[0]:
         raise ValueError(f"dimension mismatch: {A.shape} @ {B.shape}")
     if A.mesh is not B.mesh and A.mesh != B.mesh:

@@ -7,17 +7,23 @@ Counterpart of ``legate_sparse_tpu/parallel/mesh.py`` (``:1-203``) on
 driven by one controller; here every rank is a process that holds one
 device, and a mesh is a ``torch.distributed.device_mesh.DeviceMesh``
 over the ranks: 1-D ``("rows",)`` from ``make_row_mesh``, 2-D
-``("rows", "cols")`` from ``make_grid_mesh``.  A mesh covers every rank
-of the job (each rank is one shard; there is no idle rank), so the
-default process group is the whole mesh's group.
+``("rows", "cols")`` from ``make_grid_mesh``.  A mesh the constructors
+build covers every rank of the job (each rank is one shard; there is no
+idle rank), so the default process group is the whole mesh's group.
 
 A sharded vector is a ``DTensor``: ``row_sharding(mesh)`` (``Shard(0)``
 over "rows", replicated over "cols") for the 1d-row layout.  The
 ``row_spec``/``row_sharding``/``replicated`` placements take the place
 of the JAX package's ``PartitionSpec``/``NamedSharding``.
 
-``survivor_mesh`` (the recovery ladder's mesh shrink) waits for the
-next slice of the port.
+``survivor_mesh`` (the recovery ladder's mesh shrink,
+``mesh.py:131-160``) is the one mesh over fewer ranks: the source
+mesh's ranks in its flat order less the lost ones.  A shard's index is
+its rank's position in its mesh (``mesh_position``), which on a mesh
+over every rank is the rank itself.  Creating a mesh or a process
+group is a collective of the whole job, so every rank calls
+``survivor_mesh``, the lost one too, and it builds there every group
+the survivors use afterwards (a grid's flat mesh and its (1, n) grid).
 """
 
 from __future__ import annotations
@@ -154,17 +160,41 @@ def job_cache() -> dict:
     return _JOB["cache"]
 
 
-def _mesh(shape: Tuple[int, ...], names: Tuple[str, ...]):
-    """One ``DeviceMesh`` per shape and job (creating one creates its
-    process groups, a collective every rank must join)."""
+def _mesh(shape: Tuple[int, ...], names: Tuple[str, ...],
+          ranks: Optional[Sequence[int]] = None):
+    """One ``DeviceMesh`` per shape, rank list (default ``0..n-1``) and
+    job (creating one creates its process groups, a collective every
+    rank of the job must join)."""
     from torch.distributed.device_mesh import DeviceMesh
 
-    key = ("mesh", device_type(), shape, names)
+    n = 1
+    for s in shape:
+        n *= int(s)
+    ranks = tuple(range(n)) if ranks is None else tuple(int(r)
+                                                        for r in ranks)
+    key = ("mesh", device_type(), tuple(shape), names, ranks)
     cache = job_cache()
     if key not in cache:
-        ranks = torch.arange(int(torch.tensor(shape).prod())).reshape(shape)
-        cache[key] = DeviceMesh(key[1], ranks, mesh_dim_names=names)
+        cache[key] = DeviceMesh(key[1], torch.tensor(ranks).reshape(shape),
+                                mesh_dim_names=names)
     return cache[key]
+
+
+def mesh_ranks(mesh) -> list:
+    """The global ranks of ``mesh`` in its flat (row-major) order."""
+    return [int(r) for r in mesh.mesh.reshape(-1).tolist()]
+
+
+def mesh_position(mesh) -> int:
+    """This rank's position in ``mesh``'s flat order: the shard index of
+    the 2-d layouts and of a vector's chunk (the rank itself on a mesh
+    over every rank)."""
+    ranks = mesh_ranks(mesh)
+    me = dist.get_rank()
+    if me not in ranks:
+        raise ValueError(f"rank {me} is not a member of the mesh over "
+                         f"ranks {ranks}")
+    return ranks.index(me)
 
 
 def make_row_mesh(devices: Optional[Union[int, Sequence[int]]] = None):
@@ -188,10 +218,57 @@ def make_grid_mesh(devices: Optional[Union[int, Sequence[int]]] = None,
     return _mesh((int(r), int(c)), (ROW_AXIS, COL_AXIS))
 
 
-def flat_mesh():
-    """The 1-D mesh over every rank in order: the mesh of the 2-d
-    layouts' vectors, whose chunk ``k`` lives on rank ``k``."""
-    return _mesh((dist.get_world_size(),), ("flat",))
+def flat_mesh(mesh=None):
+    """The 1-D mesh over ``mesh``'s ranks in its flat order (default:
+    every rank in order): the mesh of the 2-d layouts' vectors, whose
+    chunk ``k`` lives on the mesh's ``k``-th rank."""
+    ranks = (list(range(dist.get_world_size())) if mesh is None
+             else mesh_ranks(mesh))
+    return _mesh((len(ranks),), ("flat",), ranks)
+
+
+def survivor_mesh(mesh, lost: Union[int, Sequence[int]]):
+    """The shrunken mesh after losing the rank(s) at flat ordinal(s)
+    ``lost`` of ``mesh``: the recovery ladder's mesh-shrink step
+    (``mesh.py:131-160``).
+
+    Survivors keep the source mesh's flat order less the lost ordinals,
+    so row blocks stay contiguous.  A 1-D mesh shrinks to a 1-D mesh of
+    the same axis name; a 2-D (rows, cols) grid re-factors the survivor
+    count through ``factor_grid``.  Raises rather than return an empty
+    mesh when every rank is lost.
+
+    A collective of the whole job: every rank calls it with the same
+    arguments, the lost ones too (their coordinate in the result is
+    None), and it creates every group the survivors need afterwards:
+    for a grid, also its flat mesh and the (1, n) grid over the
+    survivors (a 1d-col matrix's)."""
+    flat = mesh_ranks(mesh)
+    lost_set = ({int(lost)} if isinstance(lost, int)
+                else {int(i) for i in lost})
+    bad = sorted(i for i in lost_set if not 0 <= i < len(flat))
+    if bad:
+        raise ValueError(
+            f"survivor_mesh: lost ordinal(s) {bad} outside flat mesh of "
+            f"{len(flat)} ranks")
+    survivors = [r for i, r in enumerate(flat) if i not in lost_set]
+    if not survivors:
+        raise ValueError("survivor_mesh: no ranks survive")
+    names = tuple(mesh.mesh_dim_names)
+    if mesh.ndim == 1:
+        out = _mesh((len(survivors),), names, survivors)
+    else:
+        out = _mesh(factor_grid(len(survivors)), names, survivors)
+        flat_mesh(out)
+        _mesh((1, len(survivors)), names, survivors)
+    cache = job_cache()
+    cache.setdefault("survivors", set()).add(id(out))
+    return out
+
+
+def is_survivor_mesh(mesh) -> bool:
+    """True for a mesh ``survivor_mesh`` made in this job."""
+    return id(mesh) in job_cache().get("survivors", ())
 
 
 def row_spec():

@@ -23,10 +23,12 @@ and ``reshard`` (``:188``), which hands a ``delta.DistDeltaCSR`` to its
   destination with the source's ``mesh_fingerprint(mesh, layout)``
   returns ``A`` itself.
 
-A mesh of the port covers every rank of the job (``mesh.py``), so a
-destination over fewer ranks, the recovery ladder's shrink, raises a
-typed ``ValueError`` naming both fingerprints until a survivor mesh
-exists.  The port's matrices live on rank-ordered meshes (their ring
+A destination over fewer ranks is the recovery ladder's shrink: onto a
+``mesh.survivor_mesh`` (the survivors in the source's order), where
+every surviving rank still holds the source matrix, so the survivors
+rebuild the lost rank's rows too (only the survivors call it).  Any
+other mesh over fewer ranks raises a typed ``ValueError`` naming both
+fingerprints.  The port's matrices live on rank-ordered meshes (their ring
 and gather collectives follow the group's rank order); a mesh whose
 flat order permutes the ranks is a placement for vectors only, and
 there a chunk is read with ``to_local()`` (a ``DeviceMesh`` builds its
@@ -47,14 +49,11 @@ from ..obs import trace as _trace
 from .dist_csr import _dtensor, mesh_fingerprint, shard_csr
 from .mesh import (
     LAYOUT_1D_COL, LAYOUT_1D_ROW, LAYOUT_2D_BLOCK, flat_mesh,
-    make_grid_mesh, make_row_mesh, resolve_layout,
+    is_survivor_mesh, make_grid_mesh, make_row_mesh, mesh_ranks,
+    resolve_layout,
 )
 
 __all__ = ["reshard", "reshard_vector", "chunk_permute_plan"]
-
-
-def _flat_ranks(mesh) -> list:
-    return [int(r) for r in mesh.mesh.reshape(-1).tolist()]
 
 
 def chunk_permute_plan(src_mesh, dst_mesh) -> Tuple[Tuple[Tuple[int, int],
@@ -64,7 +63,7 @@ def chunk_permute_plan(src_mesh, dst_mesh) -> Tuple[Tuple[Tuple[int, int],
     must end on ``dst[c]``, flat ordinal ``src.index(dst[c])`` of the
     source, so the pair is ``(c, src.index(dst[c]))``; identity pairs
     are kept and move nothing."""
-    src, dst = _flat_ranks(src_mesh), _flat_ranks(dst_mesh)
+    src, dst = mesh_ranks(src_mesh), mesh_ranks(dst_mesh)
     if len(src) != len(dst) or set(src) != set(dst):
         raise ValueError(
             "chunk_permute_plan: src and dst meshes must cover the "
@@ -78,7 +77,7 @@ def _vector_target(mesh):
     """The 1-D mesh a vector takes on ``mesh``: the mesh itself, or for
     a 2-d grid the flat mesh of every rank (chunk ``k`` on rank ``k``,
     the grid's row-major order)."""
-    return mesh if mesh.ndim == 1 else flat_mesh()
+    return mesh if mesh.ndim == 1 else flat_mesh(mesh)
 
 
 def reshard_vector(x, mesh, layout: str = LAYOUT_1D_ROW):
@@ -112,7 +111,7 @@ def reshard_vector(x, mesh, layout: str = LAYOUT_1D_ROW):
                                  itemsize=x.dtype.itemsize, shards=G)
     comm_bytes = _comm.record("dist_reshard", vols, calls={"ppermute": 1},
                               layout=layout)
-    src, dst = _flat_ranks(src_mesh), _flat_ranks(dst_mesh)
+    src, dst = mesh_ranks(src_mesh), mesh_ranks(dst_mesh)
     me = dist.get_rank()
     chunk = x.to_local()
     with _trace.span("dist_reshard", shards=G, moved=moved,
@@ -145,9 +144,11 @@ def reshard(A, mesh=None, layout: Optional[str] = None):
     the source's layout and a mesh over every rank (``reshard.py:188``):
     ``A`` itself where the destination's ``mesh_fingerprint(mesh,
     layout)`` is the source's, else ``shard_csr`` of the ``csr_array``
-    ``A`` kept.  A matrix without one (not built by ``shard_csr``), a
-    destination over fewer ranks, or one whose order permutes the
-    ranks raises ``ValueError``.  A ``delta.DistDeltaCSR`` carries its
+    ``A`` kept.  A destination over fewer ranks must be a
+    ``survivor_mesh`` (the recovery ladder's shrink; only its ranks call
+    this).  A matrix without a kept source (not built by ``shard_csr``),
+    another destination over fewer ranks, or one whose order permutes
+    the ranks raises ``ValueError``.  A ``delta.DistDeltaCSR`` carries its
     pending updates across (``_delta_reshard_carry``, ``reshard.py:204``)."""
     carry = getattr(A, "_delta_reshard_carry", None)
     if carry is not None:
@@ -162,13 +163,15 @@ def reshard(A, mesh=None, layout: Optional[str] = None):
                      shards=A.num_shards)
         return A
     world = dist.get_world_size()
-    if dst_mesh.size() != world:
+    shrink = dst_mesh.size() != world
+    if shrink and not is_survivor_mesh(dst_mesh):
         raise ValueError(
             f"reshard: the destination mesh covers {dst_mesh.size()} of "
             f"{world} ranks (src mesh {mesh_fingerprint(A.mesh)} -> dst "
-            f"mesh {mesh_fingerprint(dst_mesh)}); a mesh over fewer ranks "
-            "waits for the recovery path's survivor mesh")
-    if _flat_ranks(dst_mesh) != list(range(world)):
+            f"mesh {mesh_fingerprint(dst_mesh)}) and is no survivor mesh; "
+            "a mesh over fewer ranks comes from parallel.survivor_mesh")
+    ranks = mesh_ranks(dst_mesh)
+    if ranks != (sorted(ranks) if shrink else list(range(world))):
         raise ValueError(
             f"reshard: the destination mesh {mesh_fingerprint(dst_mesh)} "
             "permutes the ranks; "

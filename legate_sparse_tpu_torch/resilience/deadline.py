@@ -17,11 +17,11 @@ need.  This module carries the deadline down the stack as a
   still sheds against the *request's* deadline, not its own) and sheds
   expired requests with a typed :class:`..outcomes.Rejected` Future
   result instead of dispatching them.
-- The **solvers** of the JAX package check ``deadline.expired()`` at
-  their one-fetch-per-cycle convergence cadence and raise
-  :class:`..outcomes.DeadlineExceeded` with the partial iterate; the
-  port's solver hooks wait for the solver half of the resilience
-  layer.
+- The **solvers** check the deadline at their convergence cadence
+  (``raise_if_expired``: CG before each stretch of ``conv_test_iters``
+  iterations, GMRES before each restart cycle, ``refine=`` at each
+  refinement fetch) and raise :class:`..outcomes.DeadlineExceeded`
+  with the partial iterate; the check adds no host sync.
 
 Nested scopes compose by *sooner wins*: an inner ``scope(1000)``
 under an outer 50 ms budget still expires at the outer deadline.
@@ -37,6 +37,8 @@ import time
 from dataclasses import dataclass
 from typing import Iterator, Optional
 
+from .. import obs as _obs
+from .outcomes import DeadlineExceeded
 from .outcomes import Rejected  # noqa: F401  (re-export convenience)
 
 
@@ -86,7 +88,42 @@ def current() -> Optional[Deadline]:
     return _var.get()
 
 
+def remaining_ms() -> Optional[float]:
+    """Milliseconds left on the active deadline (None without one)."""
+    d = _var.get()
+    return None if d is None else d.remaining_ms()
+
+
 def expired() -> bool:
     """True iff a deadline is active AND has passed."""
     d = _var.get()
     return d is not None and d.expired()
+
+
+def raise_if_expired(site: str, iterations: int = 0,
+                     residual: Optional[float] = None,
+                     partial=None) -> None:
+    """The shared solver-side enforcement point: when the active
+    deadline has passed, account it (``resil.deadline.solver`` +
+    per-site counter, ``resil.deadline`` event) and raise
+    :class:`DeadlineExceeded` carrying the solve's progress.  Checked
+    BEFORE each cycle dispatch, so an expired budget buys no further
+    device work.  No-op without an active, expired deadline."""
+    d = _var.get()
+    if d is None or not d.expired():
+        return
+    expire(site, iterations, residual, partial)
+
+
+def expire(site: str, iterations: int = 0,
+           residual: Optional[float] = None, partial=None) -> None:
+    """Account an expired deadline at ``site`` and raise
+    :class:`DeadlineExceeded` (``raise_if_expired``'s verdict; a
+    distributed solve calls it on every rank once the ranks agree that
+    the deadline has passed)."""
+    _obs.inc("resil.deadline.solver")
+    _obs.inc(f"resil.deadline.{site}")
+    _obs.event("resil.deadline", site=site, iterations=iterations,
+               residual=residual)
+    raise DeadlineExceeded(site, iterations=iterations,
+                           residual=residual, partial=partial)

@@ -15,11 +15,13 @@ drills are deterministic ("fail calls 1..count, then succeed"), and
 optionally probabilistic through a seeded LCG (no global RNG state).
 
 Site names form a closed catalog (:data:`CATALOG`, the JAX package's
-whole catalog).  This package wires the ``engine.*``, ``csr.dot`` and
-``gateway.*`` sites; the ``dist.*``, ``solver.*`` and ``delta.compact``
-sites are catalogued and wait for the solver and distribution half of
-the resilience layer.  A ``fault_point`` with an unknown name raises
-while the subsystem is on.
+whole catalog), and every site has a call in the port: the ``engine.*``,
+``csr.dot`` and ``gateway.*`` sites on the serving path, the ``dist.*``
+sites in ``parallel/``, the ``solver.*`` sites at the solvers'
+convergence fetches and ``delta.compact`` in the delta layer
+(``tests/test_torch_resilience_solvers.py`` holds the catalog to the
+source).  A ``fault_point`` with an unknown name raises while the
+subsystem is on.
 
 Kinds
 -----

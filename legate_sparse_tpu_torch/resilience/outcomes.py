@@ -19,17 +19,18 @@ re-queueing, and reporting.
   converged solution and is not getting one; the exception carries the
   partial iterate so a caller with laxer requirements can still use
   it.
+- :class:`ChecksumError` — an ABFT checksum mismatch of a distributed
+  SpMV: retryable, so the ``dist.spmv`` site re-dispatches it.
+- :class:`HealthReport` — the structured verdict an unhealthy solve
+  raises with (``health.SolverHealthError``).
 - :class:`ResilienceError` — base class of every exception this layer
   raises (``policy.CircuitOpenError`` included), so one ``except``
   clause covers the whole contract.
-
-The JAX package's ``ChecksumError`` and ``HealthReport`` wait for the
-checkpoint and health half of the layer.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Optional
 
 
@@ -118,8 +119,7 @@ class DeviceLost(FinalOutcomeError):
     mesh.  ``policy.run`` re-raises immediately; the recovery ladder
     in ``dist_cg`` / ``dist_gmres`` catches it, shrinks the mesh to
     the survivor grid, reshards, restores the last checkpoint, and
-    resumes (that ladder waits for the distribution half of the
-    resilience layer)."""
+    resumes (``parallel/dist_csr.py::_solve_with_recovery``)."""
 
     def __init__(self, site: str, ordinal: int = 0,
                  device: int = 0):
@@ -128,3 +128,35 @@ class DeviceLost(FinalOutcomeError):
         self.device = int(device)
         super().__init__(
             f"device {device} lost at {site} (ordinal {ordinal})")
+
+
+class ChecksumError(ResilienceError):
+    """An ABFT checksum mismatch: the y-checksum of a distributed SpMV
+    disagreed with the column-checksum prediction, i.e. a collective
+    (or the kernel feeding it) corrupted data in flight.  Retryable —
+    ``policy.run`` at the ``dist.spmv`` site re-dispatches the SpMV,
+    which recomputes from the (intact) operands — unlike the final
+    verdicts above."""
+
+    def __init__(self, site: str, observed: float, expected: float):
+        self.site = site
+        self.observed = float(observed)
+        self.expected = float(expected)
+        super().__init__(
+            f"ABFT checksum mismatch at {site}: observed "
+            f"{observed!r}, expected {expected!r}")
+
+
+@dataclass(frozen=True)
+class HealthReport:
+    """Structured description of an unhealthy solve (see
+    ``health.SolverHealthError``): which sync point saw it, why
+    (``non_finite`` / ``stagnation`` / ``divergence``), how far the
+    solve got, and the residual that triggered the verdict."""
+
+    site: str
+    cause: str
+    iterations: int
+    residual: Optional[float] = None
+    detail: str = ""
+    extra: dict = field(default_factory=dict)

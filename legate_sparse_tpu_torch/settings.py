@@ -80,6 +80,13 @@ attribute read at its dispatch site, and nothing else):
     Fault injection, retries, breakers and deadlines
     (``legate_sparse_tpu_torch.resilience``), each under
     ``LEGATE_SPARSE_TPU_<NAME>``.
+``resil_health`` (off), ``resil_stagnation_cycles`` (0: off),
+``resil_divergence_mult`` (1e8), ``resil_ckpt_iters`` (0: no
+snapshots), ``resil_abft`` (off), each under
+``LEGATE_SPARSE_TPU_<NAME>``
+    Solver health verdicts at the convergence fetches, the
+    distributed solvers' default checkpoint cadence, and the
+    ABFT-checked distributed SpMV; all need ``resil`` on.
 ``gateway`` (``LEGATE_SPARSE_TPU_GATEWAY``, off) and
 ``gateway_max_batch`` (``_BATCH``, 8), ``gateway_queue_depth``
 (``_QUEUE``, 128), ``gateway_tenant_quota`` (``_TENANT_QUOTA``, 32),
@@ -192,6 +199,16 @@ class Settings:
             env("LEGATE_SPARSE_TPU_RESIL_BREAKER_K", "3"))
         self.resil_breaker_cooldown_ms: float = float(
             env("LEGATE_SPARSE_TPU_RESIL_BREAKER_COOLDOWN_MS", "100.0"))
+        self.resil_health: bool = _env_bool(
+            "LEGATE_SPARSE_TPU_RESIL_HEALTH", False)
+        self.resil_stagnation_cycles: int = int(
+            env("LEGATE_SPARSE_TPU_RESIL_STAGNATION_CYCLES", "0"))
+        self.resil_divergence_mult: float = float(
+            env("LEGATE_SPARSE_TPU_RESIL_DIVERGENCE_MULT", "1e8"))
+        self.resil_ckpt_iters: int = int(
+            env("LEGATE_SPARSE_TPU_RESIL_CKPT_ITERS", "0"))
+        self.resil_abft: bool = _env_bool(
+            "LEGATE_SPARSE_TPU_RESIL_ABFT", False)
         self.gateway: bool = _env_bool("LEGATE_SPARSE_TPU_GATEWAY", False)
         self.gateway_max_batch: int = int(
             env("LEGATE_SPARSE_TPU_GATEWAY_BATCH", "8"))
@@ -230,7 +247,9 @@ class Settings:
         "resil", "resil_retries", "resil_backoff_ms",
         "resil_backoff_mult", "resil_backoff_max_ms",
         "resil_retry_budget", "resil_breaker_k",
-        "resil_breaker_cooldown_ms",
+        "resil_breaker_cooldown_ms", "resil_health",
+        "resil_stagnation_cycles", "resil_divergence_mult",
+        "resil_ckpt_iters", "resil_abft",
         "gateway", "gateway_max_batch", "gateway_queue_depth",
         "gateway_tenant_quota", "gateway_rate", "gateway_burst",
         "gateway_slack_ms", "gateway_timeout_ms",

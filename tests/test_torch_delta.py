@@ -22,10 +22,11 @@ the graph algorithms on one device of it (as ``test_torch_graph.py``
 runs them).  This module imports no
 JAX at its top: the ranks import it to find their function.
 
-Not ported: the retrace-count test (``test_delta.py:264``: the port
-compiles nothing), and the checkpoint, fault-injection, gateway, chaos,
-report and doctor tests, which wait for the port's serving and
-operations layers.
+Not ported here: the retrace-count test (``test_delta.py:264``: the
+port compiles nothing); the checkpoint, fault-injection and chaos tests
+are in ``test_torch_chaos.py``, the gateway one in
+``test_torch_gateway.py``; the report and doctor tests wait for the
+port's operations layer.
 """
 
 import threading

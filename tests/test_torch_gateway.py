@@ -4,8 +4,8 @@
 (``legate_sparse_tpu_torch/engine/gateway.py``) against the JAX
 package's on the CPU.
 
-Mirrors ``tests/test_gateway.py`` (its chaos drills wait for the port of
-``resilience/chaos``), the bench's two-stage three-tenant gateway load
+Mirrors ``tests/test_gateway.py`` (its chaos drills are in
+``test_torch_chaos.py``), the bench's two-stage three-tenant gateway load
 (``bench.py``'s gateway phase) and the gateway case of
 ``tests/test_delta.py``.  Each drill is written once against an adapter
 (``Pkg``) and run on both packages with the same scipy matrices and

@@ -44,6 +44,13 @@ engine, executor and gateway cases after it): csr-rowids gives the same
 bits on every call, and the engine's plans, its stacked SpMM and its
 multi-matrix stack are bit for bit the unpadded csr-rowids product; the
 gateway serves banded and block matrices inline through their kernels.
+The resilience layer (``test_resilient_cg_bitwise_on_card`` and the
+cases after it): CG in its resilient stretches bit for bit the plain CG
+with equal fetches and DIA launches, a retried stretch too; on one NCCL
+rank the ABFT-checked ``dist_spmv`` through the DIA kernel (a clean
+check; a poisoned y detected, retried, bit for bit) and a device loss
+re-raised; ``test_recovery_ladder_nccl_ranks`` (two cards or more) the
+survivor of a 2-rank ``dist_cg`` recovering alone.
 """
 
 import numpy as np
@@ -1472,3 +1479,209 @@ def test_gateway_inline_kernels_on_card(cuda):
         settings.gateway = saved
     assert torch.equal(yd, D @ xd) and D.spmv_path == "dia-kernel"
     assert torch.equal(yr, R @ xr) and R.spmv_path == "bsr"
+
+
+# ------------------------------------------------------------ resilience --
+
+def _poisson_card(grid, device):
+    n = grid * grid
+    p1 = np.full(n - 1, -1.0, np.float32)
+    p1[np.arange(1, grid) * grid - 1] = 0.0
+    pN = np.full(n - grid, -1.0, np.float32)
+    return sparse.diags([np.full(n, 4.0, np.float32), p1, p1, pN, pN],
+                        [0, 1, -1, grid, -grid], shape=(n, n), format="csr",
+                        dtype=torch.float32, device=device)
+
+
+def _resil_on(settings):
+    saved = {k: getattr(settings, k) for k in (
+        "resil", "resil_backoff_ms", "resil_health", "resil_abft")}
+    settings.resil = True
+    settings.resil_backoff_ms = 0.0
+    return saved
+
+
+@pytest.mark.gpu
+def test_resilient_cg_bitwise_on_card(cuda):
+    """CG in its resilient stretches (deadline, health and a checkpoint
+    scope) is bit for bit the plain CG on the card: the same iterate,
+    iterations, host fetches and DIA launches; one injected error at
+    ``solver.cg.conv`` is retried and still bit for bit."""
+    from legate_sparse_tpu_torch import linalg, obs, resilience
+    from legate_sparse_tpu_torch.settings import settings
+
+    A = _poisson_card(128, cuda)
+    b = torch.ones(A.shape[0], device=cuda)
+    key = "transfer.host_sync.cg_conv"
+
+    def solve():
+        s0, d0 = obs.counters.get(key), dia_kernel.dia_spmv.launches
+        x, it = linalg.cg(A, b, rtol=0.0, maxiter=100)
+        return x, it, obs.counters.get(key) - s0, \
+            dia_kernel.dia_spmv.launches - d0
+
+    x0, it0, s0, d0 = solve()
+    assert A.spmv_path == "dia-kernel" and d0 == it0 + 1
+    saved = _resil_on(settings)
+    settings.resil_health = True
+    resilience.reset()
+    try:
+        with resilience.deadline.scope(600_000.0), \
+                resilience.checkpoint.scope("t", every=25) as ck:
+            x1, it1, s1, d1 = solve()
+        assert ck.saves == 4 and isinstance(ck.arrays[0], np.ndarray)
+        resilience.inject("solver.cg.conv", kind="error", count=1)
+        with resilience.deadline.scope(600_000.0):
+            x2, it2, _s2, _d2 = solve()
+        assert resilience.faults.fired("solver.cg.conv") == 1
+    finally:
+        for k, v in saved.items():
+            setattr(settings, k, v)
+        resilience.reset()
+    assert (it1, s1, d1) == (it0, s0, d0)
+    assert it2 == it0
+    assert torch.equal(x1, x0) and torch.equal(x2, x0)
+
+
+def _resil_rank(rank, world):
+    from legate_sparse_tpu_torch import obs, parallel as P, resilience
+    from legate_sparse_tpu_torch.parallel.dist_csr import shard_vector
+    from legate_sparse_tpu_torch.settings import settings
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dA = P.shard_csr(_poisson_card(128, dev))
+    x = shard_vector(torch.randn(dA.shape[0], device=dev,
+                                 generator=torch.Generator(dev)
+                                 .manual_seed(7)), dA.mesh, dA.rows_padded)
+    plain = P.dist_spmv(dA, x).to_local().clone()
+    saved = _resil_on(settings)
+    settings.resil_abft = True
+    resilience.reset()
+    out = {}
+    try:
+        c0 = obs.counters.snapshot("resil.")
+        d0 = dia_kernel.dia_spmv.launches
+        y = P.dist_spmv(dA, x).to_local()
+        c1 = obs.counters.snapshot("resil.")
+        resilience.inject("dist.spmv.abft", kind="nonfinite", count=1)
+        y2 = P.dist_spmv(dA, x).to_local()
+        c2 = obs.counters.snapshot("resil.")
+        out["abft"] = {
+            "path": dA.spmv_path, "launches": dia_kernel.dia_spmv.launches
+            - d0, "clean": bool(torch.equal(y, plain)),
+            "retried": bool(torch.equal(y2, plain)),
+            "checks": c1.get("resil.abft.checks", 0)
+            - c0.get("resil.abft.checks", 0),
+            "mismatch": c2.get("resil.abft.mismatch", 0)
+            - c1.get("resil.abft.mismatch", 0),
+            "retries": c2.get("resil.retry.dist.spmv", 0)
+            - c1.get("resil.retry.dist.spmv", 0)}
+        resilience.reset()
+        a0 = obs.counters.get("resil.recovery.attempts")
+        resilience.inject("solver.cg.conv", "device_loss", after=1)
+        try:
+            with resilience.checkpoint.scope("dist.cg", every=25):
+                P.dist_cg(dA, np.ones(dA.shape[0], np.float32), rtol=0.0,
+                          maxiter=100)
+            out["loss"] = "returned"
+        except resilience.DeviceLost:
+            out["loss"] = ("raised",
+                           obs.counters.get("resil.recovery.attempts") - a0)
+    finally:
+        for k, v in saved.items():
+            setattr(settings, k, v)
+        resilience.reset()
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.fixture(scope="module")
+def resil_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from legate_sparse_tpu_torch.parallel.launch import run_ranks
+
+    return run_ranks(_resil_rank, 1, backend="nccl", timeout=300)[0]
+
+
+@pytest.mark.gpu
+def test_abft_on_card(resil_card):
+    """The ABFT-checked ``dist_spmv`` through the DIA kernel on the
+    window: a clean pass counts one check; a poisoned y is one
+    mismatch and one retry, and the result the clean one bit for bit."""
+    a = resil_card["abft"]
+    assert a["path"] == "dia-kernel" and a["launches"] == 3
+    assert a["clean"] and a["retried"]
+    assert (a["checks"], a["mismatch"], a["retries"]) == (1, 1, 1)
+
+
+@pytest.mark.gpu
+def test_device_loss_at_one_rank_reraises_on_card(resil_card):
+    assert resil_card["loss"] == ("raised", 0)
+
+
+def _ladder_rank(rank, world):
+    import torch.distributed as dist
+
+    from legate_sparse_tpu_torch import obs, parallel as P, resilience
+    from legate_sparse_tpu_torch.settings import settings
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dA = P.shard_csr(_poisson_card(64, dev))
+    b = np.ones(dA.shape[0], np.float32)
+    saved = _resil_on(settings)
+    resilience.reset()
+    out = {"rank": rank}
+    try:
+        resilience.inject("solver.cg.conv", "device_loss", after=2,
+                          device=1)
+        c0 = obs.counters.snapshot("resil.")
+        try:
+            with resilience.checkpoint.scope("dist.cg", every=25):
+                x, it = P.dist_cg(dA, b, rtol=0.0, maxiter=200)
+            out["iters"] = int(it)
+            out["x"] = x.full_tensor().cpu().numpy()
+            out["path"] = dA.spmv_path
+        except resilience.DeviceLost:
+            out["lost"] = True
+        c1 = obs.counters.snapshot("resil.")
+        out["moved"] = {k: c1[k] - c0.get(k, 0) for k in c1
+                        if k.startswith("resil.recovery.")
+                        and c1[k] != c0.get(k, 0)}
+    finally:
+        for k, v in saved.items():
+            setattr(settings, k, v)
+        resilience.reset()
+    torch.cuda.synchronize()
+    dist.barrier()
+    return out
+
+
+@pytest.mark.gpu
+def test_recovery_ladder_nccl_ranks():
+    """``dist_cg`` at 2 NCCL ranks loses rank 1 at its third fetch: rank
+    0 recovers alone (one recovery, 50 iterations restored, 200 in all)
+    and matches scipy; rank 1 leaves with ``DeviceLost``."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices or more (one NCCL rank a card)")
+    import scipy.sparse.linalg as spla
+
+    from legate_sparse_tpu_torch.ops import _build
+    from legate_sparse_tpu_torch.parallel.launch import run_ranks
+
+    _build.build_all()
+    r0, r1 = run_ranks(_ladder_rank, 2, backend="nccl", timeout=300)
+    assert r1.get("lost") and not r1["moved"]
+    assert r0["iters"] == 200
+    assert r0["moved"]["resil.recovery.attempts"] == 1
+    assert r0["moved"]["resil.recovery.restored_iters"] == 50
+    assert r0["moved"]["resil.recovery.succeeded"] == 1
+    grid = 64
+    n = grid * grid
+    p1 = np.full(n - 1, -1.0)
+    p1[np.arange(1, grid) * grid - 1] = 0.0
+    S = sp.diags([np.full(n, 4.0), p1, p1, np.full(n - grid, -1.0),
+                  np.full(n - grid, -1.0)], [0, 1, -1, grid, -grid],
+                 format="csc")
+    ref = spla.spsolve(S, np.ones(n))
+    assert np.linalg.norm(r0["x"] - ref) <= 1e-4 * np.linalg.norm(ref)

@@ -78,8 +78,11 @@ def test_import_loads_no_jax():
         "import legate_sparse_tpu_torch.engine.plan_cache\n"
         "import legate_sparse_tpu_torch.obs.context\n"
         "import legate_sparse_tpu_torch.resilience\n"
+        "import legate_sparse_tpu_torch.resilience.chaos\n"
+        "import legate_sparse_tpu_torch.resilience.checkpoint\n"
         "import legate_sparse_tpu_torch.resilience.deadline\n"
         "import legate_sparse_tpu_torch.resilience.faults\n"
+        "import legate_sparse_tpu_torch.resilience.health\n"
         "import legate_sparse_tpu_torch.resilience.outcomes\n"
         "import legate_sparse_tpu_torch.resilience.policy\n"
         "bad = sorted(m for m in sys.modules\n"
