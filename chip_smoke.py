@@ -306,12 +306,35 @@ Phases, each printing one JSON line:
    with two cards or more, ``dist_cg`` at 2 NCCL ranks losing rank 1
    (``recovery_ladder``), else the line ``{"phase": "recovery_ladder",
    "skipped": "1 card"}``.
+18. the operations layer (``phase18_operations``),
+   ``main_path_operations``, on phase 16's tenants at its widths: (a)
+   phase 16's two-stage gateway load with its two inline kernel tenants,
+   three times with ``obs_attrib``/``obs_slo`` off and three times on
+   (spans on in both), every result bit for bit between the two,
+   the per-tenant ``wall_ns`` equal to the dispatch spans' summed
+   durations and the ``comm_bytes`` to ``comm.total_bytes`` exactly,
+   requests/s and p99 of each run and the host us a span close that
+   attribution adds; (b) ``slo.evaluate()``'s verdicts, an OpenMetrics
+   scrape carrying ``slo.*`` and parsing back, ``capacity_report`` and
+   its ``capacity.recommendation`` event; (c) pde_4096 and the 2^20
+   block-clustered matrix placed, their gateway requests bit for bit
+   the unplaced ``A.dot``, a ``migrate_to`` each (priced == recorded
+   bytes, the version swap, ``lat.placement.migration``), one controller
+   step, and ``chaos.run_drill`` (4 rounds, seed 7) with the banded
+   tenant live-migrated mid-storm; (d) with two cards or more, a tenant
+   on a 2-rank NCCL submesh bit for bit the one-card product with no
+   collective outside the slice (``phase18_submesh_rank``), else
+   ``{"phase": "placement_submesh", "skipped": "1 card"}``; (e) the
+   phase's Chrome trace and OpenMetrics snapshot through
+   ``python -m legate_sparse_tpu_torch.obs.doctor --check`` in a
+   subprocess (exit 2 or a crash fails the phase; findings are logged);
+   (f) its ``dia_spmv`` and ``bsr_spmv`` launches.
 
 Launch counts come from the kernel wrappers: each is set to 0 just
-before a main-path phase (in phases 10-12, 14, 15 and 17, each run; in
-phase 16, the gateway load) drives its path and read just after; the
+before a main-path phase (in phases 10-12, 14, 15, 17 and 18, each run;
+in phase 16, the gateway load) drives its path and read just after; the
 ``kernels`` line's launches add phases 10's, 11's, 12's, 14's, 15's,
-16's and 17's to those of phases 4-7, and its
+16's, 17's and 18's to those of phases 4-7, and its
 ``max_abs_err`` is the largest over the kernel's shapes in phases 4-7,
 10-12 and 14.  Any
 failed check raises, so the script exits non-zero; it exits non-zero
@@ -2452,6 +2475,457 @@ def phase17_ladder_rank(rank, world):
         settings.resil = False
         resilience.reset()
     torch.cuda.synchronize()
+    dist.barrier()
+    return out
+
+
+# Phase 18 runs on phase 16's tenants at phase 16's widths; its doctor
+# artifacts land under the build directory.
+P18_REPEATS = 7
+P18_SPAN_CLOSES = 20_000
+
+
+def phase18_load(tenants, sub, reset_counts_too=False):
+    """Phase 16's two-stage gateway load (``sub``: the engine tenants
+    A1-A3 and the inline "banded"/"blocks" tenants' matrices and
+    operands) through fresh gateways: ``(ys, stages)``, every served y in
+    submission order and each stage's requests/s and latency
+    percentiles to completion."""
+    import numpy as np
+
+    from legate_sparse_tpu_torch import resilience
+    from legate_sparse_tpu_torch.engine import Engine, Gateway
+
+    A1, A2, A3, ones, Pde, xp, Irr, xi = sub
+    ys, stages = [], []
+    for stage, kw in (("A", dict(max_batch=4, tenant_quota=64)),
+                      ("B", dict(max_batch=32, tenant_quota=8))):
+        gw = Gateway(Engine(), queue_depth=128, rate=0.0, burst=16.0,
+                     slack_ms=5.0, timeout_ms=0.0, **kw)
+        submitted, done_at, futs = [], {}, []
+
+        def stamp(f, i):
+            sync()
+            done_at[i] = time.perf_counter()
+
+        def submit(M, x, tenant, qos):
+            i = len(futs)
+            submitted.append(time.perf_counter())
+            f = gw.submit(M, x, tenant=tenant, qos=qos)
+            f.add_done_callback(lambda f, i=i: stamp(f, i))
+            futs.append(f)
+
+        t0 = time.perf_counter()
+        try:
+            for j in range(8):
+                submit(A1 if j % 2 == 0 else A2, ones, "interactive",
+                       "interactive")
+            for _ in range(8):
+                submit(A3, ones, "batch", "batch")
+            for _ in range(32):
+                submit(A1, ones, "background", "background")
+            for _ in range(8):
+                submit(Pde, xp, tenants[0], "interactive")
+            for _ in range(8):
+                submit(Irr, xi, tenants[1], "interactive")
+            gw.flush()
+            for f in futs:
+                f.result(timeout=300)
+        finally:
+            gw.shutdown()
+        sync()
+        wall = time.perf_counter() - t0
+        served = [i for i, f in enumerate(futs)
+                  if not isinstance(f.result(), resilience.Rejected)]
+        lat = np.array([(done_at[i] - submitted[i]) * 1e3 for i in served])
+        stages.append({"stage": stage, "served": len(served),
+                       "wall_s": wall, "requests_per_s": len(served) / wall,
+                       "p50_ms": float(np.percentile(lat, 50)),
+                       "p99_ms": float(np.percentile(lat, 99))})
+        ys += [futs[i].result() for i in served]
+    return ys, stages
+
+
+def phase18_operations():
+    """Phase 18 (a)-(c), (e) and (f), ``main_path_operations``: the
+    operations layer (attribution, SLOs, capacity, placement, the
+    doctor) on phase 16's tenants, in this process.  Returns ``(record,
+    launches)``; any failed check raises."""
+    import numpy as np
+    import torch
+
+    import legate_sparse_tpu_torch as sparse
+    from legate_sparse_tpu_torch import obs, placement, resilience, runtime
+    from legate_sparse_tpu_torch.engine import Engine, Gateway
+    from legate_sparse_tpu_torch.obs import attrib, capacity, export, slo
+    from legate_sparse_tpu_torch.placement import submesh as psub
+    from legate_sparse_tpu_torch.resilience import chaos
+    from legate_sparse_tpu_torch.settings import settings
+
+    t_phase = time.perf_counter()
+    dev = runtime.default_device()
+    g = torch.Generator(device=dev).manual_seed(18)
+    rec = {}
+    launches = {name: 0 for name in kernel_counters()}
+    knobs = ("gateway", "resil", "resil_backoff_ms", "obs_attrib",
+             "obs_slo", "obs_slo_watchdog_ms", "placement")
+    saved = {k: getattr(settings, k) for k in knobs}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    def bits(a, b, what):
+        check(torch.equal(a, b), f"{what}: not bit for bit")
+
+    def randx(m):
+        return torch.randn(m, device=dev, generator=g)
+
+    def moved(c0, name):
+        return obs.counters.get(name) - c0.get(name, 0)
+
+    n = P16_ROWS - 91
+    t0 = time.perf_counter()
+    A1, A2, A3 = (sparse.csr_array(engine_matrix(n, seed=s), device=dev)
+                  for s in (7, 13, 29))
+    Pd, offsets = pde_diagonals(P16_GRID)
+    Pde = sparse.diags(Pd, offsets, shape=(P16_GRID ** 2,) * 2,
+                       format="csr", dtype=np.float32, device=dev)
+    rng = np.random.default_rng(0)
+    d, i, p = block_clustered_arrays(rng, P16_IRR_ROWS, 8, 2)
+    Irr = sparse.csr_array((d, i, p), shape=(P16_IRR_ROWS,) * 2,
+                           device=dev)
+    xp, xi = randx(Pde.shape[1]), randx(P16_IRR_ROWS)
+    ones = torch.ones(n, device=dev)
+    yp_ref, yi_ref = Pde.dot(xp), Irr.dot(xi)
+    check(Pde.spmv_path == "dia-kernel" and Irr.spmv_path == "bsr",
+          f"inline tenants took {Pde.spmv_path}, {Irr.spmv_path}")
+    for M in (A1, A2, A3):
+        M.dot(ones)
+    rec["build_s"] = time.perf_counter() - t0
+    sub = (A1, A2, A3, ones, Pde, xp, Irr, xi)
+    obs.reset_all()
+    obs.enable()
+    try:
+        # (a) The attributed load against the unattributed one, in turns
+        # (spans on in both: the difference is attribution and SLOs).
+        settings.gateway = True
+        runs = {"off": [], "on": []}
+        phase18_load(("banded", "blocks"), sub)     # warm-up, not kept
+        y_off = None
+        for _ in range(P18_REPEATS):
+            for label in ("off", "on"):
+                settings.obs_attrib = settings.obs_slo = label == "on"
+                obs.reset_all()
+                sync()
+                reset_counts()
+                ys, stages = phase18_load(("banded", "blocks"), sub)
+                counts = read_counts()
+                add(counts)
+                check(counts["dia_spmv"] == 16 and counts["bsr_spmv"] == 16,
+                      f"the load's inline launches {counts}")
+                if y_off is None:
+                    y_off = ys
+                check(len(ys) == len(y_off), "served counts differ")
+                for a, b in zip(ys, y_off):
+                    bits(a, b, f"attribution {label}: a served y")
+                wall = sum(s["wall_s"] for s in stages)
+                served = sum(s["served"] for s in stages)
+                run = {"requests_per_s": served / wall,
+                       "p99_ms": max(s["p99_ms"] for s in stages),
+                       "host_us_per_request": wall * 1e6 / served,
+                       "stages": stages}
+                if label == "on":
+                    spans = sum(r["dur_ns"] for r in obs.records()
+                                if r.get("type") == "span"
+                                and r["name"] in attrib.DISPATCH_SPANS)
+                    snap = obs.counters.snapshot("")
+                    tw = sum(v for k, v in snap.items()
+                             if k.startswith("attrib.tenant.")
+                             and k.endswith(".wall_ns"))
+                    tb = sum(v for k, v in snap.items()
+                             if k.startswith("attrib.tenant.")
+                             and k.endswith(".comm_bytes"))
+                    check(spans > 0 and tw == spans
+                          == snap.get("attrib.total.wall_ns"),
+                          f"wall conservation: tenants {tw}, spans {spans}")
+                    check(tb == snap.get("comm.total_bytes", 0) == 0,
+                          f"byte conservation: tenants {tb}")
+                    run["conservation"] = {"wall_ns": tw, "span_ns": spans,
+                                           "comm_bytes": tb}
+                    run["tenants"] = {t: v.get("wall_ns", 0) for t, v in
+                                      attrib.tenant_snapshot().items()}
+                else:
+                    check(not obs.counters.snapshot("attrib."),
+                          "attribution off moved attrib.* counters")
+                runs[label].append(run)
+        med = {lbl: {k: float(np.median([r[k] for r in runs[lbl]]))
+                     for k in ("requests_per_s", "p99_ms",
+                               "host_us_per_request")} for lbl in runs}
+
+        # The host cost of one dispatch span's close, attribution off
+        # and on (a one-member scope, as the inline tenants').
+        def span_close_us(on):
+            settings.obs_attrib = on
+            obs.reset_all()
+            with attrib.scope([("banded", "interactive")]):
+                t0 = time.perf_counter_ns()
+                for _ in range(P18_SPAN_CLOSES):
+                    with obs.span("gateway.inline"):
+                        pass
+                dt = time.perf_counter_ns() - t0
+            return dt / P18_SPAN_CLOSES / 1e3
+
+        closes = {"off": [], "on": []}
+        for _ in range(P18_REPEATS):
+            for label in ("off", "on"):
+                closes[label].append(span_close_us(label == "on"))
+        close_med = {k: float(np.median(v)) for k, v in closes.items()}
+        rec["attributed_load"] = {
+            "runs": runs, "median": med,
+            "throughput_share": (med["on"]["requests_per_s"]
+                                 / med["off"]["requests_per_s"]),
+            "added_host_us_per_request": (
+                med["on"]["host_us_per_request"]
+                - med["off"]["host_us_per_request"]),
+            "span_close_us": close_med,
+            "span_close_added_us": close_med["on"] - close_med["off"],
+            "bitwise_on_off": True}
+
+        # (b) SLOs and capacity over the last attributed load's ledger.
+        settings.obs_attrib = settings.obs_slo = True
+        obs.reset_all()
+        ys, _st = phase18_load(("banded", "blocks"), sub)
+        verdicts = slo.evaluate()
+        check(len(verdicts) == len(slo.registered()),
+              "a verdict per registered SLO")
+        text = export.snapshot_openmetrics()
+        parsed, _hists = export.parse_openmetrics(text)
+        check('name="slo.evaluations"' in text
+              and parsed.get("slo.evaluations") == 2,
+              f"the scrape's slo.* counters: {parsed.get('slo.evaluations')}")
+        for name, val in obs.counters.snapshot("").items():
+            check(parsed.get(name) == val, f"scrape round trip: {name}")
+        crep = capacity.capacity_report(devices=1)
+        evs = [r for r in obs.records()
+               if r["name"] == "capacity.recommendation"]
+        check(crep is not None and len(evs) == 1
+              and obs.counters.get("capacity.reports") == 1
+              and evs[0]["attrs"]["devices"] == 1,
+              f"capacity report {crep}, events {len(evs)}")
+        rec["slo"] = {"verdicts": [
+            {k: v for k, v in vv._asdict().items()
+             if k in ("slo", "status", "fast_total", "fast_bad",
+                      "fast_burn")} for vv in verdicts],
+            "scrape_bytes": len(text)}
+        rec["capacity"] = crep
+
+        # (c) Placement on one card: the two kernel tenants placed,
+        # served through the gateway, migrated, a controller step, the
+        # drill with a mid-storm migration.
+        settings.placement = True
+        placement.place("banded", Pde)
+        placement.place("blocks", Irr)
+        c0 = obs.counters.snapshot("")
+        reset_counts()
+        gw = Gateway(Engine(), max_batch=8, queue_depth=128,
+                     tenant_quota=64, rate=0.0, burst=16.0, slack_ms=5.0,
+                     timeout_ms=0.0)
+        try:
+            yb = gw.submit(Pde, xp, tenant="banded").result(timeout=60)
+            yk = gw.submit(Irr, xi, tenant="blocks").result(timeout=60)
+        finally:
+            gw.shutdown()
+        counts = read_counts()
+        add(counts)
+        check(counts["dia_spmv"] == 1 and counts["bsr_spmv"] == 1,
+              f"placed requests' launches {counts}")
+        bits(yb, yp_ref, "placed banded tenant vs A.dot")
+        bits(yk, yi_ref, "placed blocks tenant vs A.dot")
+        check(moved(c0, "placement.routes") == 2,
+              "placement.routes must move twice")
+        migr = {}
+        reg = placement.registry()
+        for name, M, x, ref in (("banded", Pde, xp, yp_ref),
+                                ("blocks", Irr, xi, yi_ref)):
+            h0 = placement.route(M, name)
+            c0 = obs.counters.snapshot("")
+            moved_b = placement.migrate_to(name, 1)
+            priced = psub.priced_bytes(psub.price_migration(
+                reg.payload_bytes()[name], 1))
+            check(moved_b == priced == moved(
+                c0, "comm.dist_reshard.ppermute_bytes")
+                == moved(c0, "placement.migration.bytes"),
+                f"{name}: recorded {moved_b} bytes, priced {priced}")
+            h1 = placement.route(M, name)
+            check(h0.version == 0 and h1.version == 1
+                  and reg.slices()[name] == (0, 1),
+                  f"{name}: versions {h0.version} -> {h1.version}")
+            reset_counts()
+            bits(h1.dot(x), ref, f"{name} after the migration")
+            bits(h0.dot(x), ref, f"{name}'s drained handle")
+            add(read_counts())
+            migr[name] = {"priced_bytes": priced, "recorded_bytes": moved_b,
+                          "payload_bytes": reg.payload_bytes()[name]}
+        hist = obs.latency.get("lat.placement.migration")
+        check(hist is not None and hist.count == 2,
+              "lat.placement.migration")
+        migr["lat_ms"] = {"count": hist.count, "mean": hist.mean,
+                          "max": hist.max()}
+        rec["migration"] = migr
+        ctl = placement.PlacementController(devices=[0])
+        decision = ctl.step()
+        check(decision is not None
+              and obs.counters.get("placement.steps") == 1,
+              f"controller step {decision}")
+        rec["controller"] = {
+            "act": decision.act, "reason": decision.reason,
+            "allocation": decision.allocation,
+            "total_priced_bytes": decision.total_priced_bytes,
+            "step_ms": obs.latency.get("lat.placement.step").max()}
+        placement.reset()
+
+        settings.resil = True
+        settings.resil_backoff_ms = 0.0
+        resilience.reset()
+
+        def xs(m, k):
+            return [randx(m) for _ in range(k)]
+
+        tenants = [
+            {"name": "a1", "qos": "interactive", "A": A1, "xs": xs(n, 2)},
+            {"name": "background", "qos": "background", "A": A2,
+             "xs": xs(n, 2), "deadline_ms": 0.0},
+            {"name": "banded", "qos": "interactive", "A": Pde,
+             "xs": xs(Pde.shape[1], 2)},
+            {"name": "blocks", "qos": "interactive", "A": Irr,
+             "xs": xs(P16_IRR_ROWS, 2)}]
+        gw = Gateway(Engine(), max_batch=8, queue_depth=128,
+                     tenant_quota=64, rate=0.0, burst=16.0, slack_ms=5.0,
+                     timeout_ms=0.0)
+        try:
+            report, drill_counts, _ms, drill_s = counted_run(
+                lambda: chaos.run_drill(
+                    gw, tenants, rounds=4, seed=7,
+                    migration={"tenant": "banded", "devices": (1, 1)}))
+        finally:
+            gw.shutdown()
+            resilience.reset()
+            placement.reset()
+        add(drill_counts)
+        check(report.ok(), f"chaos drill violations {report.violations}")
+        for name, t in report.per_tenant.items():
+            check(t["submitted"] == t["served"] + t["shed"] + t["error"],
+                  f"tenant {name} ledger {t}")
+            if name != "background":
+                check(t["served"] == t["submitted"] == 8,
+                      f"good tenant {name} lost requests: {t}")
+        check(report.migrations == 2 and report.submitted == 32,
+              f"drill report {report}")
+        check(drill_counts["dia_spmv"] > 0 and drill_counts["bsr_spmv"] > 0,
+              f"the drill's launches {drill_counts}")
+        rec["chaos"] = {"rounds": report.rounds, "seed": 7,
+                        "submitted": report.submitted,
+                        "served": report.served, "shed": report.shed,
+                        "migrations": report.migrations,
+                        "faults_fired": report.faults_fired,
+                        "per_tenant": report.per_tenant,
+                        "launches": {k: v for k, v in drill_counts.items()
+                                     if v},
+                        "host_s": drill_s}
+
+        # (e) The doctor over this phase's artifacts, in a subprocess.
+        out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "build", "phase18")
+        os.makedirs(out_dir, exist_ok=True)
+        trace_path = os.path.join(out_dir, "operations.trace.json")
+        prom_path = os.path.join(out_dir, "operations.prom")
+        obs.write_chrome_trace(trace_path)
+        export.write_openmetrics(prom_path)
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.abspath(__file__)))
+        res = subprocess.run(
+            [sys.executable, "-m", "legate_sparse_tpu_torch.obs.doctor",
+             "--check", "--json", trace_path, prom_path],
+            capture_output=True, text=True, env=env, timeout=120)
+        check(res.returncode in (0, 1),
+              f"doctor exit {res.returncode}: {res.stderr[-2000:]}")
+        findings = json.loads(res.stdout)
+        rec["doctor"] = {"exit": res.returncode,
+                         "read": res.stderr.strip().splitlines(),
+                         "findings": [{k: f[k] for k in ("severity", "code",
+                                                          "value")}
+                                      for f in findings]}
+    finally:
+        for k, v in saved.items():
+            setattr(settings, k, v)
+        obs.disable()
+        obs.reset_all()
+        placement.reset()
+        resilience.reset()
+    check(launches["dia_spmv"] > 0 and launches["bsr_spmv"] > 0,
+          f"phase 18 launches {launches}")
+    del A1, A2, A3, Pde, Irr, sub, tenants
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec, launches
+
+
+def phase18_submesh_rank(rank, world):
+    """Phase 18 (d) on ``world`` NCCL ranks (one a card): pde_4096
+    placed and migrated onto ranks 0-1; the slice's ranks serve through
+    ``dist_spmv`` (the DIA kernel on each window) bit for bit the
+    one-card product, and a rank outside the slice serves its local
+    product with no collective."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+
+    import legate_sparse_tpu_torch as sparse
+    from legate_sparse_tpu_torch import placement
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    Pd, offsets = pde_diagonals(P16_GRID)
+    A = sparse.diags(Pd, offsets, shape=(P16_GRID ** 2,) * 2, format="csr",
+                     dtype=np.float32, device=dev)
+    x = torch.randn(A.shape[1], device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(18))
+    ref = A.dot(x)
+    placement.place("banded", A)
+    moved_b = placement.migrate_to("banded", 2)
+    h = placement.route(A, "banded")
+    calls = [0]
+    patched = []
+    for mod, names in ((dist, ("all_reduce", "all_gather",
+                               "all_gather_into_tensor", "broadcast",
+                               "batch_isend_irecv", "all_to_all_single",
+                               "barrier", "send", "recv")),
+                       (funcol, ("all_gather_tensor", "all_reduce",
+                                 "reduce_scatter_tensor"))):
+        for name in names:
+            real = getattr(mod, name, None)
+            if real is None:
+                continue
+
+            def counted(*a, _real=real, **k):
+                calls[0] += 1
+                return _real(*a, **k)
+
+            patched.append((mod, name, real))
+            setattr(mod, name, counted)
+    d0 = kernel_counters()["dia_spmv"].launches
+    try:
+        y = h.dot(x)
+        sync()
+    finally:
+        for mod, name, real in patched:
+            setattr(mod, name, real)
+    out = {"rank": rank, "member": h._dist is not None,
+           "collectives": calls[0], "bitwise": bool(torch.equal(y, ref)),
+           "dia_spmv": kernel_counters()["dia_spmv"].launches - d0,
+           "migration_bytes": moved_b}
+    placement.reset()
     dist.barrier()
     return out
 
@@ -5264,12 +5738,29 @@ def main() -> int:
           f"phase 17 launches {phase17}")
     torch.cuda.empty_cache()
 
+    # ---- 18. the operations layer -------------------------------------------
+    o_rec, phase18 = phase18_operations()
+    log({"phase": "main_path_operations", "nvidia_smi": smi_line, **o_rec,
+         "launches": phase18})
+    if torch.cuda.device_count() >= 2:
+        world = min(torch.cuda.device_count(), 4)
+        sub = run_ranks(phase18_submesh_rank, world, backend="nccl",
+                        timeout=600, init_timeout=120)
+        for r in sub:
+            check(r["bitwise"] and r["member"] == (r["rank"] < 2)
+                  and (r["collectives"] > 0) == (r["rank"] < 2),
+                  f"placement submesh rank {r}")
+        log({"phase": "placement_submesh", "ranks": world, "per_rank": sub})
+    else:
+        log({"phase": "placement_submesh", "skipped": "1 card"})
+    torch.cuda.empty_cache()
+
     for row in (dia_row, bsr_row, dia_spmm_row, bsr_spmm_row,
                 dia_spgemm_row):
         row["launches"] += (phase10[row["name"]] + phase11[row["name"]]
                             + phase12[row["name"]] + phase14[row["name"]]
                             + phase15[row["name"]] + phase16[row["name"]]
-                            + phase17[row["name"]])
+                            + phase17[row["name"]] + phase18[row["name"]])
         row["max_abs_err"] = max([row["max_abs_err"]] + [
             h["max_abs_err"] for h in (list(kernel_vs_plain.values())
                                        + list(spec_vs_plain.values())

@@ -47,8 +47,10 @@ request gets an id and one ``engine.request`` span at resolution
 an ``engine.exec.outcome.<outcome>`` counter, and the histograms
 ``lat.engine.wait.<outcome>`` (every outcome) and
 ``lat.engine.request.<shape-bucket>`` (served requests);
-``lat.engine.batch_occupancy`` records every batch's width.  The JAX
-package's per-tenant attribution calls wait for the attribution slice.
+``lat.engine.batch_occupancy`` records every batch's width.  With
+``settings.obs_attrib`` on, every outcome attributes its queue wait to
+the request's ``(tenant, qos)`` and the ``engine.batch`` span its wall
+time to the batch's members (``obs.attrib``).
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from .. import obs as _obs
+from ..obs import attrib as _attrib
 from ..obs import context as _context
 from ..obs import latency as _latency
 from ..obs import trace as _trace
@@ -150,7 +153,11 @@ class _Request:
                        if t_dispatch is not None else 0.0)
         _obs.inc(f"engine.exec.outcome.{outcome}")
         # Queue wait for EVERY outcome (the shed and served waits stay
-        # comparable); end-to-end latency for requests served.
+        # comparable); end-to-end latency for requests served.  The
+        # attribution ledger charges the same wait to the request's
+        # (tenant, qos): shed requests attribute wait only.
+        _attrib.on_wait(self.tctx.tenant, self.tctx.qos,
+                        t_pop - self.t_ns)
         _latency.observe(f"lat.engine.wait.{outcome}", queue_ms)
         if outcome in ("resolved", "inline", "fallback"):
             _latency.observe(
@@ -459,10 +466,12 @@ class RequestExecutor:
             # The batch span names every member's trace id, joining
             # each request's flow arc to the batch that served it; a
             # one-request batch also activates that request's context.
-            with _obs.span("engine.batch", reqs=k, rows=A.shape[0],
-                           nnz=A.nnz,
-                           trace_ids=[r.tctx.trace_id for r in group]
-                           ) as sp:
+            with _attrib.scope([(r.tctx.tenant, r.tctx.qos)
+                                for r in group]), \
+                    _obs.span("engine.batch", reqs=k, rows=A.shape[0],
+                              nnz=A.nnz,
+                              trace_ids=[r.tctx.trace_id for r in group]
+                              ) as sp:
                 # Eligibility was checked at submit (_checked=True):
                 # re-checking would rebuild structure caches per batch
                 # for nothing; mutation-in-flight is out of contract.

@@ -51,8 +51,13 @@ the port of ``resilience/chaos``.)
 Matrices the engine declines (banded, block) are served inline through
 ``A.dot``, which launches their CUDA kernels.  With ``settings.delta``
 on, a submitted ``DeltaCSR`` is pinned to its current view at
-admission.  Not ported yet: the JAX package's per-tenant attribution
-calls and its ``placement`` branches (each gated on its own setting).
+admission.  With ``settings.placement`` on, a placed tenant's own
+matrix is swapped at admission for a handle pinning its current
+placement (served inline, on its slice), and while the dispatch breaker
+is open such a tenant keeps serving and is flagged for a slice shrink.
+With ``settings.obs_attrib`` on, every outcome attributes its queue
+wait, and the ``gateway.inline``/``gateway.batch`` dispatch spans
+attribute their wall time to their members (``obs.attrib``).
 
 Inert by default: with ``LEGATE_SPARSE_TPU_GATEWAY`` unset no call
 path routes through the gateway, and ``Gateway.submit`` itself
@@ -83,6 +88,7 @@ from typing import Dict, List, Optional
 import torch
 
 from .. import obs as _obs
+from ..obs import attrib as _attrib
 from ..obs import context as _context
 from ..obs import latency as _latency
 from ..resilience import deadline as _rdeadline
@@ -186,8 +192,12 @@ class _GwRequest:
         if self._finished:
             return False
         self._finished = True
-        wait_ms = (time.perf_counter_ns() - self.t_ns) / 1e6
+        wait_ns = time.perf_counter_ns() - self.t_ns
+        wait_ms = wait_ns / 1e6
         _obs.inc(f"gateway.outcome.{outcome}")
+        # Every outcome attributes its queue wait: shed and errored
+        # requests show wait but zero dispatch cost.
+        _attrib.on_wait(self.tenant, self.qos, wait_ns)
         _latency.observe(f"lat.gateway.wait.{self.qos}", wait_ms)
         if outcome == "served":
             _latency.observe(f"lat.gateway.request.{self.qos}",
@@ -310,6 +320,15 @@ class Gateway:
             except BaseException as e:  # noqa: BLE001 - future contract
                 fut.set_exception(e)
             return fut
+        if _rsettings.placement:
+            # Per-tenant placement: a placed tenant's own matrix swaps
+            # for a handle pinning the placement version current NOW,
+            # so in-flight requests drain on their admitted placement
+            # while later admissions follow a migration.  One flag read
+            # while placement is off.
+            from ..placement import migrate as _placement
+
+            A = _placement.route(A, str(tenant))
         if _rsettings.delta:
             # Versioned mutation serving: a submitted DeltaCSR swaps
             # for its current immutable view (the version pinned NOW),
@@ -344,6 +363,18 @@ class Gateway:
                     req.shed("gateway.admit", "deadline_shed")
                     return req.future
                 if _rpolicy.breaker("gateway.dispatch").state == "open":
+                    if _rsettings.placement:
+                        from ..placement import migrate as _placement
+
+                        if _placement.is_placed_handle(req.A):
+                            # A placed tenant's traffic never touched
+                            # the tripped shared dispatch: keep serving
+                            # it on its own slice and flag the tenant
+                            # for a slice shrink instead of shedding.
+                            _obs.inc("placement.degraded_serve")
+                            _placement.flag_shrink(req.tenant)
+                            self._serve_inline(req)
+                            return req.future
                     # Degraded mode: the dispatch path is tripped —
                     # shed deferrable classes instead of queueing onto
                     # a broken path; interactive traffic is served
@@ -559,9 +590,13 @@ class Gateway:
     def _serve_inline(self, req: _GwRequest) -> None:
         """Serve one request through the plain ``A.dot`` dispatch
         (ineligible matrices, fault degradation, fallback) — errors
-        resolve THIS request's future only, never a batchmate's."""
+        resolve THIS request's future only, never a batchmate's.  The
+        ``gateway.inline`` span is an attribution dispatch span: placed
+        tenants serve only on this path, and their busy time is the
+        placement controller's demand signal."""
         try:
             with _context.use(req.tctx), \
+                    _attrib.scope([(req.tenant, req.qos)]), \
                     _obs.span("gateway.inline", rid=req.rid,
                               tenant=req.tenant, qos=req.qos):
                 y = req.A.dot(req.x)
@@ -606,9 +641,13 @@ class Gateway:
                     self._serve_inline(r)
                 return
         try:
-            with _obs.span("gateway.batch", reqs=k,
-                           trace_ids=[r.tctx.trace_id for r in live]
-                           ) as sp:
+            # The batch span's wall time apportions across its members;
+            # the per-group scopes in _dispatch_engine narrow comm
+            # attribution to the members dispatched together.
+            with _attrib.scope([(r.tenant, r.qos) for r in live]), \
+                    _obs.span("gateway.batch", reqs=k,
+                              trace_ids=[r.tctx.trace_id for r in live]
+                              ) as sp:
                 self._dispatch_engine(live, sp)
         except Exception:
             # Engine-side failure: the gateway inherits the executor's
@@ -657,13 +696,16 @@ class Gateway:
             g = groups[token]
             A = g[0].A
             if len(g) == 1:
-                # One member: its context tags the dispatch spans.
-                with _context.use(g[0].tctx):
+                # One member: its context tags the dispatch spans, and
+                # its scope narrows attribution to it.
+                with _attrib.scope([(g[0].tenant, g[0].qos)]), \
+                        _context.use(g[0].tctx):
                     y = self._engine.matvec(A, g[0].x, _checked=True)
                 g[0].serve(y)
             else:
                 X = torch.stack([r.x.to(A.dtype) for r in g], dim=1)
-                Y = self._engine.matmat(A, X, _checked=True)
+                with _attrib.scope([(r.tenant, r.qos) for r in g]):
+                    Y = self._engine.matmat(A, X, _checked=True)
                 for i, r in enumerate(g):
                     r.serve(Y[:, i])
 

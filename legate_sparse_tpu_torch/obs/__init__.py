@@ -19,7 +19,18 @@ JAX package's names, so one dashboard or test reads both packages:
   bytes);
 - ``comm`` — the collective byte formulas of the distribution layer;
 - ``context`` — request-scoped trace ids that tag spans and draw the
-  Chrome trace's flow arcs.
+  Chrome trace's flow arcs;
+- ``attrib`` — per-tenant cost attribution (wall time, comm bytes,
+  wait, dispatch and compile counts, watermark growth), conserving
+  exactly; inert without ``LEGATE_SPARSE_TPU_OBS_ATTRIB``;
+- ``capacity`` — the utilization window and the advisory capacity
+  report;
+- ``slo`` — per-(op, QoS) latency objectives evaluated as burn rates
+  over the ``lat.*`` histograms; inert without
+  ``LEGATE_SPARSE_TPU_OBS_SLO``;
+- ``report`` / ``regress`` — the ledger tables and the bench-trajectory
+  comparator; ``doctor`` (``python -m legate_sparse_tpu_torch.obs.doctor``)
+  diagnoses saved artifacts.
 
 Enable tracing with ``LEGATE_SPARSE_TPU_OBS=1`` (read once at import),
 ``settings.obs = True`` or programmatically::
@@ -35,7 +46,8 @@ span, timer or counter synchronises with the card.
 """
 
 from . import (  # noqa: F401
-    comm, context, counters, export, latency, memory, trace,
+    attrib, capacity, comm, context, counters, export, latency, memory,
+    regress, report, slo, trace,
 )
 from .counters import inc, snapshot  # noqa: F401
 from .export import snapshot_openmetrics, write_openmetrics  # noqa: F401
@@ -46,8 +58,8 @@ from .trace import (  # noqa: F401
 )
 
 __all__ = [
-    "comm", "context", "counters", "export", "latency", "memory",
-    "trace",
+    "attrib", "capacity", "comm", "context", "counters", "export",
+    "latency", "memory", "regress", "report", "slo", "trace",
     "inc", "snapshot", "observe",
     "snapshot_openmetrics", "write_openmetrics",
     "complete_span", "enable", "disable", "enabled", "event", "records",
@@ -58,7 +70,11 @@ __all__ = [
 
 def reset_all() -> None:
     """Drop buffered trace records and zero counters and histograms
-    (test isolation, between phases)."""
+    (test isolation, between phases); the SLO window baselines, the
+    seen tenant labels and the utilization window reset with them."""
     trace.reset()
     counters.reset()
     latency.reset()
+    slo.reset()
+    attrib.reset()
+    capacity.reset()

@@ -51,6 +51,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+from . import attrib as _attrib
 from . import counters as _counters
 
 Volumes = Dict[str, int]     # collective kind -> predicted bytes
@@ -210,6 +211,9 @@ def record(op: str, vols: Volumes,
         _counters.handle("comm.total_bytes").inc(total_b)
         _counters.handle(f"comm.layout.{layout}.{op}").inc(total_c)
         _counters.handle(f"comm.layout.{layout}.{op}_bytes").inc(total_b)
+        # Same gating as comm.total_bytes, so the per-tenant attributed
+        # sums conserve against it exactly (obs/attrib.py).
+        _attrib.on_comm(op, total_b, total_c)
     return total_b
 
 

@@ -28,8 +28,8 @@ import contextvars
 import itertools
 from typing import Iterator, Optional
 
-__all__ = ["TraceContext", "mint", "current_trace_id", "use",
-           "profiler_scope"]
+__all__ = ["TraceContext", "mint", "current", "current_trace_id", "use",
+           "profiler_scope", "reset_ids"]
 
 # ``next()`` on an itertools.count is atomic under the GIL.
 _IDS = itertools.count(1)
@@ -72,6 +72,11 @@ def mint(rid: Optional[int] = None, kind: str = "req",
     return TraceContext(f"{kind}-{next(_IDS):06d}", rid, tenant, qos)
 
 
+def current() -> Optional[TraceContext]:
+    """The active context on this thread, or None."""
+    return _var.get()
+
+
 def current_trace_id() -> Optional[str]:
     """The active trace id, or None."""
     ctx = _var.get()
@@ -101,3 +106,10 @@ def profiler_scope(op: str):
     import torch
 
     return torch.profiler.record_function(f"{op}[{ctx.trace_id}]")
+
+
+def reset_ids() -> None:
+    """Restart the mint counter (test isolation only: requests in flight
+    keep the ids they were minted)."""
+    global _IDS
+    _IDS = itertools.count(1)

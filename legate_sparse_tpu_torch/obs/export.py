@@ -27,8 +27,9 @@ API::
 (best effort: a failed write must never mask the process's real exit)
 and a chaining SIGTERM handler that flushes the snapshot, restores the
 prior disposition and re-raises, so a killed process still leaves the
-artifact.  The JAX package's SLO evaluation on the scrape path waits
-for the serving layers.
+artifact.  ``snapshot_openmetrics`` runs ``obs.slo.evaluate()`` first,
+so an armed process publishes fresh ``slo.*`` counters with every
+scrape; :func:`parse_openmetrics` is the inverse the doctor reads.
 """
 
 from __future__ import annotations
@@ -112,7 +113,12 @@ def render_openmetrics(
 
 def snapshot_openmetrics() -> str:
     """Live snapshot of all counters + histograms as OpenMetrics text
-    (the scrape-path API)."""
+    (the scrape-path API).  Runs SLO evaluation first, so the text
+    carries this scrape's ``slo.*`` verdict counters; one flag read
+    while ``LEGATE_SPARSE_TPU_OBS_SLO`` is unset."""
+    from . import slo as _slo
+
+    _slo.evaluate()
     return render_openmetrics()
 
 

@@ -32,6 +32,7 @@ from typing import Any, Dict, Optional
 
 import threading
 
+from . import attrib as _attrib
 from . import trace as _trace
 
 _TRACEMALLOC_ENV = "LEGATE_SPARSE_TPU_OBS_TRACEMALLOC"
@@ -161,6 +162,9 @@ class watermark:
         if "rss_mb" in before and "rss_mb" in after:
             ev["rss_delta_mb"] = round(after["rss_mb"] - before["rss_mb"],
                                        2)
+            # Per-tenant attribution: watermark growth charges to the
+            # active tenant members (obs/attrib.py).
+            _attrib.on_mem(self.name, ev["rss_delta_mb"])
         if exc_type is not None:
             # An OOM-adjacent failure is exactly when the watermark
             # matters most: record the error class with the numbers.

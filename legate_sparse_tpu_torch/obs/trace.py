@@ -31,9 +31,10 @@ builds it with nvcc), later occurrences are steady state.
 
 Spans and events closed while a request's trace context is active
 (``obs.context``) carry its ``trace_id``; the Chrome trace binds the
-tagged slices of one request into a flow arc.  Not ported yet: the JAX
-package's tenant attribution hook (``attrib.on_span_close``, its obs
-v5).
+tagged slices of one request into a flow arc.  A closing span also
+calls ``attrib.on_span_close`` (one flag read while
+``settings.obs_attrib`` is off): the dispatch spans charge their wall
+time to the active tenant members, on the host, with no device read.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional
 
+from . import attrib as _attrib
 from . import context as _context
 from . import counters as _counters
 
@@ -171,6 +173,9 @@ class Span:
             val = self.attrs.get(key)
             if isinstance(val, (int, float)) and not isinstance(val, bool):
                 _counters.inc(counter, val)
+        # Per-tenant attribution: dispatch busy spans charge their wall
+        # time to the active tenant members.
+        _attrib.on_span_close(self.name, dur, seq == 0)
 
 
 class _NullSpan:

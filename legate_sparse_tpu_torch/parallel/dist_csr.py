@@ -89,6 +89,7 @@ import torch
 import torch.distributed as dist
 
 from ..obs import comm as _comm
+from ..obs import context as _tctx
 from ..obs import counters as _obs_counters
 from ..obs import latency as _lat
 from ..obs import trace as _trace
@@ -980,7 +981,8 @@ def _spmv_local(A: DistCSR, x_local: torch.Tensor) -> torch.Tensor:
     vols = spmv_comm_volumes(A, int(x_local.shape[0]),
                              x_local.element_size())
     comm_bytes = _comm.record("dist_spmv", vols, layout=A.layout)
-    with _lat.timer("lat.dist_spmv." + _lat.shape_bucket(A.shape[0])), \
+    with _tctx.profiler_scope("dist_spmv"), \
+            _lat.timer("lat.dist_spmv." + _lat.shape_bucket(A.shape[0])), \
             _trace.span("dist_spmv", shards=A.num_shards, halo=A.halo,
                         comm_bytes=comm_bytes,
                         comm_calls=sum(1 for b in vols.values() if b > 0)
@@ -1086,7 +1088,8 @@ def _dist_spmv_semiring(A: DistCSR, x_local: torch.Tensor, sr):
                                       sr.collective)
     comm_bytes = _comm.record("dist_spmv", vols, layout=A.layout)
     precise = A.gather_idx is not None
-    with _lat.timer("lat.dist_spmv." + _lat.shape_bucket(A.shape[0])), \
+    with _tctx.profiler_scope("dist_spmv"), \
+            _lat.timer("lat.dist_spmv." + _lat.shape_bucket(A.shape[0])), \
             _trace.span("dist_spmv", shards=A.num_shards, halo=A.halo,
                         comm_bytes=comm_bytes,
                         comm_calls=sum(1 for b in vols.values() if b > 0)
@@ -1546,7 +1549,8 @@ def dist_cg(A: DistCSR, b, x0=None, tol=None, maxiter: Optional[int] = None,
                             miter, int(conv_test_iters), cb, site=site,
                             r0_mv=lambda v: _guarded_spmv(A_cur, v))
 
-    with _lat.timer("lat.dist_cg.solve." + _lat.shape_bucket(rows)), \
+    with _tctx.profiler_scope("dist_cg"), \
+            _lat.timer("lat.dist_cg.solve." + _lat.shape_bucket(rows)), \
             _trace.span("dist_cg", n=rows, shards=A.num_shards,
                         maxiter=maxiter, preconditioned=M is not None) as sp:
         if _settings.resil and cb is None:
@@ -1592,8 +1596,9 @@ def dist_gmres(A: DistCSR, b, x0=None, tol=None, restart=None,
                                atol, restart_eff, miter, cb,
                                callback_type, bnrm2)
 
-    with _trace.span("dist_gmres", n=rows, shards=A.num_shards,
-                     restart=restart_eff) as sp:
+    with _tctx.profiler_scope("dist_gmres"), \
+            _trace.span("dist_gmres", n=rows, shards=A.num_shards,
+                        restart=restart_eff) as sp:
         if _settings.resil:
             with _maybe_ckpt_scope("dist.gmres"):
                 x, iters, A_fin = _solve_with_recovery(

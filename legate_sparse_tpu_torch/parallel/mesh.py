@@ -17,8 +17,9 @@ over "rows", replicated over "cols") for the 1d-row layout.  The
 of the JAX package's ``PartitionSpec``/``NamedSharding``.
 
 ``survivor_mesh`` (the recovery ladder's mesh shrink,
-``mesh.py:131-160``) is the one mesh over fewer ranks: the source
-mesh's ranks in its flat order less the lost ones.  A shard's index is
+``mesh.py:131-160``) and ``row_submesh`` (a placed tenant's slice of
+the ranks) are the meshes over fewer ranks: the source mesh's ranks in
+its flat order less the lost ones, or a contiguous run of ranks.  A shard's index is
 its rank's position in its mesh (``mesh_position``), which on a mesh
 over every rank is the rank itself.  Creating a mesh or a process
 group is a collective of the whole job, so every rank calls
@@ -261,14 +262,30 @@ def survivor_mesh(mesh, lost: Union[int, Sequence[int]]):
         out = _mesh(factor_grid(len(survivors)), names, survivors)
         flat_mesh(out)
         _mesh((1, len(survivors)), names, survivors)
-    cache = job_cache()
-    cache.setdefault("survivors", set()).add(id(out))
+    job_cache().setdefault("subsets", set()).add(id(out))
     return out
 
 
-def is_survivor_mesh(mesh) -> bool:
-    """True for a mesh ``survivor_mesh`` made in this job."""
-    return id(mesh) in job_cache().get("survivors", ())
+def row_submesh(ranks: Sequence[int]):
+    """The 1-D ``("rows",)`` mesh over ``ranks`` (ascending): a placed
+    tenant's slice.  One mesh per rank list and job, so equal slices
+    give the same mesh (and fingerprint) and a controller epoch creates
+    no new group.  A collective of the whole job the first time a rank
+    list is asked for: every rank calls it, those outside the slice
+    too."""
+    ranks = [int(r) for r in ranks]
+    if ranks != sorted(set(ranks)):
+        raise ValueError(f"row_submesh: ranks {ranks} must ascend without "
+                         "repeats")
+    out = _mesh((len(ranks),), (ROW_AXIS,), ranks)
+    job_cache().setdefault("subsets", set()).add(id(out))
+    return out
+
+
+def is_subset_mesh(mesh) -> bool:
+    """True for a mesh that ``survivor_mesh`` or ``row_submesh`` made in
+    this job: a mesh over fewer ranks ``reshard`` may target."""
+    return id(mesh) in job_cache().get("subsets", ())
 
 
 def row_spec():

@@ -23,11 +23,12 @@ and ``reshard`` (``:188``), which hands a ``delta.DistDeltaCSR`` to its
   destination with the source's ``mesh_fingerprint(mesh, layout)``
   returns ``A`` itself.
 
-A destination over fewer ranks is the recovery ladder's shrink: onto a
-``mesh.survivor_mesh`` (the survivors in the source's order), where
-every surviving rank still holds the source matrix, so the survivors
-rebuild the lost rank's rows too (only the survivors call it).  Any
-other mesh over fewer ranks raises a typed ``ValueError`` naming both
+A destination over fewer ranks is the recovery ladder's shrink onto a
+``mesh.survivor_mesh`` (the survivors in the source's order), or a
+placed tenant's move onto a ``mesh.row_submesh``.  Every rank of the
+destination holds the source matrix, so its ranks build their blocks
+from it (only the destination's ranks call it).  Any other mesh over
+fewer ranks raises a typed ``ValueError`` naming both
 fingerprints.  The port's matrices live on rank-ordered meshes (their ring
 and gather collectives follow the group's rank order); a mesh whose
 flat order permutes the ranks is a placement for vectors only, and
@@ -49,7 +50,7 @@ from ..obs import trace as _trace
 from .dist_csr import _dtensor, mesh_fingerprint, shard_csr
 from .mesh import (
     LAYOUT_1D_COL, LAYOUT_1D_ROW, LAYOUT_2D_BLOCK, flat_mesh,
-    is_survivor_mesh, make_grid_mesh, make_row_mesh, mesh_ranks,
+    is_subset_mesh, make_grid_mesh, make_row_mesh, mesh_ranks,
     resolve_layout,
 )
 
@@ -145,8 +146,7 @@ def reshard(A, mesh=None, layout: Optional[str] = None):
     ``A`` itself where the destination's ``mesh_fingerprint(mesh,
     layout)`` is the source's, else ``shard_csr`` of the ``csr_array``
     ``A`` kept.  A destination over fewer ranks must be a
-    ``survivor_mesh`` (the recovery ladder's shrink; only its ranks call
-    this).  A matrix without a kept source (not built by ``shard_csr``),
+    ``survivor_mesh`` or a ``row_submesh`` (only its ranks call this).  A matrix without a kept source (not built by ``shard_csr``),
     another destination over fewer ranks, or one whose order permutes
     the ranks raises ``ValueError``.  A ``delta.DistDeltaCSR`` carries its
     pending updates across (``_delta_reshard_carry``, ``reshard.py:204``)."""
@@ -164,12 +164,13 @@ def reshard(A, mesh=None, layout: Optional[str] = None):
         return A
     world = dist.get_world_size()
     shrink = dst_mesh.size() != world
-    if shrink and not is_survivor_mesh(dst_mesh):
+    if shrink and not is_subset_mesh(dst_mesh):
         raise ValueError(
             f"reshard: the destination mesh covers {dst_mesh.size()} of "
             f"{world} ranks (src mesh {mesh_fingerprint(A.mesh)} -> dst "
             f"mesh {mesh_fingerprint(dst_mesh)}) and is no survivor mesh; "
-            "a mesh over fewer ranks comes from parallel.survivor_mesh")
+            "a mesh over fewer ranks comes from parallel.survivor_mesh "
+            "or parallel.mesh.row_submesh")
     ranks = mesh_ranks(dst_mesh)
     if ranks != (sorted(ranks) if shrink else list(range(world))):
         raise ValueError(

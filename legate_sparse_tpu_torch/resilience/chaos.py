@@ -36,8 +36,11 @@ Scenarios:
   violation; the survivors are held to the recovery accounting and to
   scipy's solution.
 - ``mutation=`` — the serve-while-mutating drill on the delta layer.
-- ``migration=`` needs the placement layer, which the port does not
-  have yet: it raises ``RuntimeError``.
+- ``migration=`` — a placed tenant live-migrated mid-storm (needs
+  ``settings.placement``).  On a job of several ranks every rank runs
+  the drill with the same seed and applies the same migrations; a rank
+  outside the tenant's slice serves it through the plain local product
+  (``placement.migrate``).
 
 Requires ``settings.gateway`` and ``settings.resil`` on.
 """
@@ -187,6 +190,87 @@ def _run_device_loss_scenario(rng: random.Random, spec: dict,
         report.violations.append(
             "device_loss: recovered solution diverged from the scipy "
             "reference")
+
+
+def _setup_migration_scenario(spec: dict, tenants: Sequence[dict],
+                              placed_refs: Dict[str, List],
+                              report: ChaosReport) -> dict:
+    """Arm the live-migration scenario before the first round: place
+    the target tenant's matrix and carve it onto its ``before`` slice
+    so the mid-storm migration has a placement to move off of.  The
+    pre-migration handle is pinned as a parity reference."""
+    from .. import placement as _placement
+
+    name = str(spec["tenant"])
+    spec_t = next((t for t in tenants if str(t["name"]) == name), None)
+    if spec_t is None:
+        raise ValueError(
+            f"chaos migration scenario: tenant {name!r} is not in the "
+            f"drill tenant list")
+    before, after = (int(spec["devices"][0]), int(spec["devices"][1]))
+    A = spec_t["A"]
+    _placement.place(name, A)
+    _placement.migrate_to(name, before)
+    report.migrations += 1
+    placed_refs[name] = [_placement.route(A, name)]
+    return {"tenant": name, "A": A, "after": after,
+            "payload": _placement.registry().payload_bytes()[name]}
+
+
+def _run_migration_scenario(state: dict,
+                            placed_refs: Dict[str, List],
+                            report: ChaosReport) -> None:
+    """Fire one live migration while the round's gateway submissions
+    are in flight, and hold it to the placement invariants:
+
+    1. **Exactly-once execution** — exactly one migration's worth of
+       ``placement.migration.*`` counter movement.
+    2. **Exact pricing** — the recorded ``comm.dist_reshard.*`` bytes
+       equal the ``price_migration`` prediction (one predictor on
+       both sides, so the equality is exact).
+    3. **Version drain** — requests admitted before the swap drain on
+       the old placement; the post-migration handle joins the parity
+       reference set, so every served value must still match a clean
+       dispatch on whichever placement served it."""
+    from .. import placement as _placement
+    from ..placement import submesh as _submesh
+
+    c0p = _obs.counters.snapshot("placement.")
+    c0r = _obs.counters.snapshot("comm.dist_reshard.")
+    moved = _placement.migrate_to(state["tenant"], state["after"])
+    report.migrations += 1
+    c1p = _obs.counters.snapshot("placement.")
+    c1r = _obs.counters.snapshot("comm.dist_reshard.")
+
+    def delta(c0, c1, name: str) -> int:
+        return int(c1.get(name, 0)) - int(c0.get(name, 0))
+
+    priced = _submesh.priced_bytes(_submesh.price_migration(
+        state["payload"], state["after"]))
+    if delta(c0p, c1p, "placement.migrations") != 1:
+        report.violations.append(
+            f"migration accounting: placement.migrations moved "
+            f"{delta(c0p, c1p, 'placement.migrations')} != 1")
+    if delta(c0p, c1p, "placement.migration.bytes") != moved:
+        report.violations.append(
+            f"migration accounting: placement.migration.bytes moved "
+            f"{delta(c0p, c1p, 'placement.migration.bytes')} != "
+            f"{moved} returned")
+    if delta(c0r, c1r, "comm.dist_reshard.ppermute") != 1:
+        report.violations.append(
+            f"migration accounting: comm.dist_reshard.ppermute moved "
+            f"{delta(c0r, c1r, 'comm.dist_reshard.ppermute')} != 1")
+    if delta(c0r, c1r, "comm.dist_reshard.ppermute_bytes") != priced:
+        report.violations.append(
+            f"migration pricing: comm.dist_reshard.ppermute_bytes "
+            f"moved {delta(c0r, c1r, 'comm.dist_reshard.ppermute_bytes')}"
+            f" != priced {priced}")
+    if moved != priced:
+        report.violations.append(
+            f"migration pricing: recorded {moved} bytes != priced "
+            f"{priced}")
+    placed_refs[state["tenant"]].append(
+        _placement.route(state["A"], state["tenant"]))
 
 
 def _setup_mutation_scenario(spec: dict, tenants: Sequence[dict],
@@ -365,17 +449,22 @@ def run_drill(gateway, tenants: Sequence[dict], *, rounds: int = 4,
     ``capacity``; at the midpoint round the seeded update storm streams
     in and a compaction fires (:func:`_run_mutation_scenario`).
 
-    ``migration`` needs the placement layer, not yet in the port, and
-    raises ``RuntimeError``."""
+    ``migration`` (needs ``settings.placement``): a drill ``tenant`` (a
+    square-matrix one) and its ``devices = (before, after)`` slice
+    widths.  The tenant is placed on its ``before`` slice up front; at
+    the midpoint round, while that round's submissions are in flight,
+    it live-migrates to ``after`` — held to exactly-once / exact-pricing
+    invariants (:func:`_run_migration_scenario`), with both placement
+    versions' handles joining the tenant's parity reference set."""
     if not (_settings.gateway and _settings.resil):
         raise RuntimeError(
             "chaos.run_drill needs settings.gateway and settings.resil "
             "on — the drill composes faults through the armed system")
-    if migration is not None:
+    if migration is not None and not _settings.placement:
         raise RuntimeError(
-            "chaos.run_drill migration scenario needs the placement "
-            "layer (legate_sparse_tpu_torch has no placement/ yet) — "
-            "there is no live placement to migrate otherwise")
+            "chaos.run_drill migration scenario needs "
+            "settings.placement on — there is no live placement to "
+            "migrate otherwise")
     if mutation is not None and not _settings.delta:
         raise RuntimeError(
             "chaos.run_drill mutation scenario needs settings.delta "
@@ -383,6 +472,10 @@ def run_drill(gateway, tenants: Sequence[dict], *, rounds: int = 4,
     rng = random.Random(seed)
     report = ChaosReport(rounds=rounds)
     placed_refs: Dict[str, List] = {}
+    mig_state: Optional[dict] = None
+    if migration is not None:
+        mig_state = _setup_migration_scenario(migration, tenants,
+                                              placed_refs, report)
     mut_state: Optional[dict] = None
     if mutation is not None:
         mut_state = _setup_mutation_scenario(mutation, tenants,
@@ -412,6 +505,11 @@ def run_drill(gateway, tenants: Sequence[dict], *, rounds: int = 4,
                 # The recovery solve runs while this round's gateway
                 # submissions are still queued — live load.
                 _run_device_loss_scenario(rng, device_loss, report)
+            if mig_state is not None and _round == rounds // 2:
+                # The live migration mid-storm: this round's admitted
+                # requests hold handles pinned at admission and drain
+                # on the old placement.
+                _run_migration_scenario(mig_state, placed_refs, report)
             if mut_state is not None and _round == rounds // 2:
                 # The update storm and compaction mid-storm: the
                 # round's admitted requests hold views pinned at

@@ -101,6 +101,29 @@ snapshots), ``resil_abft`` (off), each under
 ``LEGATE_SPARSE_TPU_AUTOTUNE``
     Measured kernel verdicts (``legate_sparse_tpu_torch.autotune``).
 
+The operations layer, all off by default (each hook is then one flag
+read and nothing else):
+
+``obs_slo`` (``LEGATE_SPARSE_TPU_OBS_SLO``, off) and
+``obs_slo_watchdog_ms`` (``_WATCHDOG_MS``, 0: no thread)
+    SLO burn-rate evaluation over the ``lat.*`` histograms
+    (``obs.slo``); off, ``slo.evaluate()`` returns ``[]`` and no
+    ``slo.*`` counter moves.
+``obs_attrib`` (``LEGATE_SPARSE_TPU_OBS_ATTRIB``, off) and
+``obs_tenant_cap`` (``LEGATE_SPARSE_TPU_OBS_TENANT_CAP``, 64)
+    Per-tenant cost attribution and the capacity report
+    (``obs.attrib``, ``obs.capacity``); past the cap, new tenant labels
+    fold into ``__other__``.
+``placement`` (``LEGATE_SPARSE_TPU_PLACEMENT``, off) and
+``placement_cooldown_ms`` (``_COOLDOWN_MS``, 1000.0),
+``placement_watchdog_ms`` (``_WATCHDOG_MS``, 0: no thread),
+``placement_amortize`` (``_AMORTIZE``, 1.0), ``placement_bw_gbps``
+(``_BW_GBPS``, 10.0), each under ``LEGATE_SPARSE_TPU_PLACEMENT``
+    Elastic per-tenant placement (``legate_sparse_tpu_torch.placement``):
+    the gateway's routing of placed tenants, and the controller's
+    cooldown, watchdog cadence, amortization factor and assumed
+    migration bandwidth.
+
 The JAX package's ``engine_persist_dir`` has no counterpart: it backs
 XLA's persistent compilation cache, and an eager plan compiles nothing.
 
@@ -224,6 +247,23 @@ class Settings:
             env("LEGATE_SPARSE_TPU_GATEWAY_SLACK_MS", "5.0"))
         self.gateway_timeout_ms: float = float(
             env("LEGATE_SPARSE_TPU_GATEWAY_TIMEOUT_MS", "2.0"))
+        self.obs_slo: bool = _env_bool("LEGATE_SPARSE_TPU_OBS_SLO", False)
+        self.obs_slo_watchdog_ms: float = float(
+            env("LEGATE_SPARSE_TPU_OBS_SLO_WATCHDOG_MS", "0"))
+        self.obs_attrib: bool = _env_bool("LEGATE_SPARSE_TPU_OBS_ATTRIB",
+                                          False)
+        self.obs_tenant_cap: int = int(
+            env("LEGATE_SPARSE_TPU_OBS_TENANT_CAP", "64"))
+        self.placement: bool = _env_bool("LEGATE_SPARSE_TPU_PLACEMENT",
+                                         False)
+        self.placement_cooldown_ms: float = float(
+            env("LEGATE_SPARSE_TPU_PLACEMENT_COOLDOWN_MS", "1000.0"))
+        self.placement_watchdog_ms: float = float(
+            env("LEGATE_SPARSE_TPU_PLACEMENT_WATCHDOG_MS", "0"))
+        self.placement_amortize: float = float(
+            env("LEGATE_SPARSE_TPU_PLACEMENT_AMORTIZE", "1.0"))
+        self.placement_bw_gbps: float = float(
+            env("LEGATE_SPARSE_TPU_PLACEMENT_BW_GBPS", "10.0"))
         self.autotune: bool = _env_bool("LEGATE_SPARSE_TPU_AUTOTUNE", False)
         self.autotune_store_path: str = env(
             "LEGATE_SPARSE_TPU_AUTOTUNE_STORE", "")
@@ -237,8 +277,8 @@ class Settings:
         self._init_done: bool = True
 
     # Settings that cannot change what a product computes: the routing
-    # switches and the queueing, capacity, resilience, graph-loop and
-    # delta-buffer policies (the JAX package's set, less its TPU-only
+    # switches and the queueing, capacity, resilience, telemetry,
+    # placement, graph-loop and delta-buffer policies (the JAX package's set, less its TPU-only
     # names).  Bucket-policy knobs are not exempt: they change plan keys.
     _EPOCH_EXEMPT = frozenset({
         "obs", "engine", "engine_max_batch", "engine_queue_depth",
@@ -253,6 +293,9 @@ class Settings:
         "gateway", "gateway_max_batch", "gateway_queue_depth",
         "gateway_tenant_quota", "gateway_rate", "gateway_burst",
         "gateway_slack_ms", "gateway_timeout_ms",
+        "obs_slo", "obs_slo_watchdog_ms", "obs_attrib", "obs_tenant_cap",
+        "placement", "placement_cooldown_ms", "placement_watchdog_ms",
+        "placement_amortize", "placement_bw_gbps",
         "graph_max_iters", "graph_conv_iters",
         "delta", "delta_capacity", "delta_watermark", "delta_worker_ms",
         "autotune", "autotune_store_path", "autotune_store_size",

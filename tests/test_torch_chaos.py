@@ -196,11 +196,12 @@ def test_schedule_draws_equal_jax(pkg, monkeypatch, seed):
 
 
 def test_chaos_migration_needs_placement(pkg):
-    """``migration=`` needs the placement layer: a typed RuntimeError
-    (the port has no ``placement/`` yet; the JAX package raises the same
-    type while ``settings.placement`` is off)."""
+    """``migration=`` needs ``settings.placement`` on: both packages
+    raise the same typed RuntimeError while it is off (the drill's
+    migration case itself runs in ``test_torch_placement.py``)."""
     arm(pkg)
-    with pytest.raises(RuntimeError, match="placement"):
+    assert pkg.settings.placement is False
+    with pytest.raises(RuntimeError, match="settings.placement"):
         pkg.resil.chaos.run_drill(None, tenants=[],
                                   migration={"tenant": "t",
                                              "devices": (2, 4)})

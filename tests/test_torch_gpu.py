@@ -50,7 +50,13 @@ with equal fetches and DIA launches, a retried stretch too; on one NCCL
 rank the ABFT-checked ``dist_spmv`` through the DIA kernel (a clean
 check; a poisoned y detected, retried, bit for bit) and a device loss
 re-raised; ``test_recovery_ladder_nccl_ranks`` (two cards or more) the
-survivor of a 2-rank ``dist_cg`` recovering alone.
+survivor of a 2-rank ``dist_cg`` recovering alone.  The operations
+layer (``test_placed_dot_matches_unplaced_on_card`` and after): a placed
+tenant on a one-card slice serves through its DIA or BSR kernel bit for
+bit the unplaced product, attribution on and off give the same bits,
+and ``test_placement_submesh_nccl_ranks`` (two cards or more) a 2-rank
+submesh's product bit for bit the one-card one, no collective outside
+the slice.
 """
 
 import numpy as np
@@ -1685,3 +1691,150 @@ def test_recovery_ladder_nccl_ranks():
                  format="csc")
     ref = spla.spsolve(S, np.ones(n))
     assert np.linalg.norm(r0["x"] - ref) <= 1e-4 * np.linalg.norm(ref)
+
+
+# ---------------------------------------------------- the operations layer --
+
+def _ops_matrices(cuda, rng):
+    D = sparse.csr_array(_holey(1 << 16, rng), device=cuda)
+    R = sparse.csr_array(sp.random(4096, 4096, density=0.01, format="csr",
+                                   random_state=rng, dtype=np.float32),
+                         device=cuda)
+    return D, R
+
+
+@pytest.mark.gpu
+def test_placed_dot_matches_unplaced_on_card(cuda):
+    """A placed tenant on a one-card slice serves through its matrix's own
+    kernel: the handle's ``dot`` (directly and through the gateway with
+    placement on) launches ``dia_spmv``/``bsr_spmv`` once a request and
+    is bit for bit the unplaced ``A.dot``."""
+    from legate_sparse_tpu_torch import placement
+    from legate_sparse_tpu_torch.engine import Engine, Gateway
+    from legate_sparse_tpu_torch.settings import settings
+
+    rng = np.random.default_rng(2)
+    D, R = _ops_matrices(cuda, rng)
+    saved = (settings.gateway, settings.placement)
+    settings.gateway = settings.placement = True
+    gw = Gateway(Engine(), max_batch=8, timeout_ms=0.0)
+    try:
+        for name, A, route in (("banded", D, "dia-kernel"),
+                               ("blocks", R, "bsr")):
+            placement.place(name, A)
+            assert placement.migrate_to(name, 1) > 0
+            x = _card_x(A.shape[1], cuda)
+            ref = A @ x
+            assert A.spmv_path == route
+            before = _launches()
+            y = placement.route(A, name).dot(x)
+            yg = gw.submit(A, x, tenant=name).result(timeout=60)
+            moved = [b - a for a, b in zip(before, _launches())]
+            assert moved == ([2, 0, 0, 0] if route == "dia-kernel"
+                             else [0, 0, 2, 0])
+            assert torch.equal(y, ref) and torch.equal(yg, ref)
+    finally:
+        gw.shutdown()
+        placement.reset()
+        settings.gateway, settings.placement = saved
+
+
+@pytest.mark.gpu
+def test_attribution_on_off_same_bits_on_card(cuda):
+    """The gateway load (a banded and a block tenant inline, a packed
+    engine pair) with attribution and SLOs off, then on: the same bits,
+    and on, the tenants' wall time sums to the dispatch spans'."""
+    from legate_sparse_tpu_torch import obs
+    from legate_sparse_tpu_torch.engine import Engine, Gateway
+    from legate_sparse_tpu_torch.settings import settings
+
+    rng = np.random.default_rng(3)
+    D, R = _ops_matrices(cuda, rng)
+    E = sparse.csr_array(sp.random(2048, 2048, density=0.002, format="csr",
+                                   random_state=rng, dtype=np.float32),
+                         device=cuda)
+    xs = {A.shape[1]: _card_x(A.shape[1], cuda) for A in (D, R, E)}
+    saved = (settings.gateway, settings.obs_attrib, settings.obs_slo)
+
+    def load():
+        gw = Gateway(Engine(), max_batch=8, timeout_ms=0.0)
+        try:
+            futs = [gw.submit(A, xs[A.shape[1]], tenant=t, qos=q)
+                    for A, t, q in ((D, "banded", "interactive"),
+                                    (R, "blocks", "batch"),
+                                    (E, "alpha", "interactive"),
+                                    (E, "beta", "batch"))]
+            gw.flush()
+            return [f.result(timeout=60) for f in futs]
+        finally:
+            gw.shutdown()
+
+    settings.gateway = True
+    obs.reset_all()
+    obs.enable()
+    try:
+        off = load()
+        assert not obs.counters.snapshot("attrib.")
+        obs.reset_all()
+        settings.obs_attrib = settings.obs_slo = True
+        on = load()
+        spans = sum(r["dur_ns"] for r in obs.records()
+                    if r.get("type") == "span"
+                    and r["name"] in obs.attrib.DISPATCH_SPANS)
+        wall = sum(v for k, v in obs.counters.snapshot(
+            "attrib.tenant.").items() if k.endswith(".wall_ns"))
+    finally:
+        obs.disable()
+        obs.reset_all()
+        settings.gateway, settings.obs_attrib, settings.obs_slo = saved
+    for a, b in zip(off, on):
+        assert torch.equal(a, b)
+    assert wall == spans > 0
+
+
+def _submesh_rank(rank, world):
+    """A banded tenant migrated onto ranks 0-1 of a job of ``world``
+    NCCL ranks: the slice's ranks serve through ``dist_spmv`` (the DIA
+    kernel on each window), bit for bit the one-card product; a rank
+    outside the slice makes no collective."""
+    from legate_sparse_tpu_torch import placement
+    from utils_test.torch_ops_ranks import CollectiveMeter
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(4)
+    A = sparse.csr_array(_holey(1 << 16, rng), device=dev)
+    x = _card_x(A.shape[1], dev)
+    ref = A @ x
+    placement.place("banded", A)
+    placement.migrate_to("banded", 2)
+    h = placement.route(A, "banded")
+    d0 = dia_kernel.dia_spmv.launches
+    with CollectiveMeter() as meter:
+        y = h.dot(x)
+    torch.cuda.synchronize()
+    out = {"member": h._dist is not None, "calls": meter.calls,
+           "same": bool(torch.equal(y, ref)),
+           "launches": dia_kernel.dia_spmv.launches - d0}
+    placement.reset()
+    torch.distributed.barrier()
+    return out
+
+
+@pytest.mark.gpu
+def test_placement_submesh_nccl_ranks():
+    """A tenant on a 2-rank submesh of a job over every card (up to 4):
+    the slice's ranks' product bit for bit the one-card one, through the
+    DIA kernel; ranks outside the slice serve locally with no
+    collective."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices or more (one NCCL rank a card)")
+    from legate_sparse_tpu_torch.ops import _build
+    from legate_sparse_tpu_torch.parallel.launch import run_ranks
+
+    _build.build_all()
+    world = min(torch.cuda.device_count(), 4)
+    res = run_ranks(_submesh_rank, world, backend="nccl", timeout=300)
+    for rank, r in enumerate(res):
+        assert r["same"] and r["launches"] >= 1
+        assert r["member"] == (rank < 2)
+        assert (r["calls"] > 0) if rank < 2 else (r["calls"] == 0)

@@ -77,6 +77,16 @@ def test_import_loads_no_jax():
         "import legate_sparse_tpu_torch.engine.gateway\n"
         "import legate_sparse_tpu_torch.engine.plan_cache\n"
         "import legate_sparse_tpu_torch.obs.context\n"
+        "import legate_sparse_tpu_torch.obs.attrib\n"
+        "import legate_sparse_tpu_torch.obs.capacity\n"
+        "import legate_sparse_tpu_torch.obs.doctor\n"
+        "import legate_sparse_tpu_torch.obs.regress\n"
+        "import legate_sparse_tpu_torch.obs.report\n"
+        "import legate_sparse_tpu_torch.obs.slo\n"
+        "import legate_sparse_tpu_torch.placement\n"
+        "import legate_sparse_tpu_torch.placement.controller\n"
+        "import legate_sparse_tpu_torch.placement.migrate\n"
+        "import legate_sparse_tpu_torch.placement.submesh\n"
         "import legate_sparse_tpu_torch.resilience\n"
         "import legate_sparse_tpu_torch.resilience.chaos\n"
         "import legate_sparse_tpu_torch.resilience.checkpoint\n"
