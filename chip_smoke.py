@@ -329,14 +329,39 @@ Phases, each printing one JSON line:
    ``python -m legate_sparse_tpu_torch.obs.doctor --check`` in a
    subprocess (exit 2 or a crash fails the phase; findings are logged);
    (f) its ``dia_spmv`` and ``bsr_spmv`` launches.
+19. the entry points (``phase19_entry_points``),
+   ``main_path_entry_points``: (a) ``bench_torch.main()`` at its full
+   sizes (every headline field finite and logged on its own line,
+   ``vs_baseline`` and ``pde_roofline_ratio`` at most 1.05, ``value`` at
+   most 1.05 x 3.35 TB/s, ``path`` "dia"), and, after the runs, the
+   three inputs it gives the kernels beyond (b)'s and (c)'s shapes
+   rebuilt at its sizes and held on a seeded x against the plain
+   versions: its BSR matrix (2^13 rows, density 0.05; within 1e-5),
+   its bf16 band (2^24 rows, 11 diagonals; bit for bit) and its SpGEMM
+   band (2^20 rows, 11 diagonals; bit for bit); (b)
+   ``apps.spmv_microbenchmark`` on ``banded_matrix(2^24, 11)`` (f32,
+   BASELINE config 2), 20 products into a fresh y and 20 with
+   ``out=``, each last product bit for bit the plain DIA SpMV; (c)
+   ``apps.spgemm_microbenchmark`` on ``banded_matrix(2^24, 5)`` (config
+   5), ``--stable`` (10 products) and fresh (one), each product's band
+   bit for bit ``dia_spgemm_plain``'s; (d) ``apps.spectral`` at n = 4000
+   and ``P19_SPECTRAL_N`` (4 clusters, k = 6), the eigensolvers' scipy
+   fallback replaced by one that raises, components and labels equal to
+   host scipy's run of the same script, eigenvalues within 1e-8; (e)
+   ``apps.pde`` on the 4096^2 grid: ``--explicit`` (500 steps),
+   ``--throughput`` (450 timed CG iterations at rtol 0) and
+   ``--distributed --throughput`` on one NCCL rank (the same iterations,
+   x within 1e-5 of the single-device iterate), and ``apps.gmg --data
+   diffusion --warmup`` on 512^2 (6 levels, rtol 1e-5).  Its launches
+   are those of (a)-(e)'s runs, the comparisons after.
 
 Launch counts come from the kernel wrappers: each is set to 0 just
-before a main-path phase (in phases 10-12, 14, 15, 17 and 18, each run;
+before a main-path phase (in phases 10-12, 14, 15 and 17-19, each run;
 in phase 16, the gateway load) drives its path and read just after; the
 ``kernels`` line's launches add phases 10's, 11's, 12's, 14's, 15's,
-16's, 17's and 18's to those of phases 4-7, and its
+16's, 17's, 18's and 19's to those of phases 4-7, and its
 ``max_abs_err`` is the largest over the kernel's shapes in phases 4-7,
-10-12 and 14.  Any
+10-12, 14 and 19.  Any
 failed check raises, so the script exits non-zero; it exits non-zero
 without printing a result when there is no CUDA device.  The last three
 lines are the ``kernels`` JSON object, the ``nvidia-smi`` line and
@@ -354,10 +379,10 @@ import tempfile
 import time
 import warnings
 
+from legate_sparse_tpu_torch.bench_timing import INNER, REPS, time_ms
+
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_OPS_PER_S = 67e12          # H100 SXM data sheet, f32 outside tensor cores
-REPS = 25
-INNER = 10                     # calls per timed sample
 
 
 def log(obj) -> None:
@@ -373,29 +398,6 @@ def sync() -> None:
     import torch
 
     torch.cuda.synchronize()
-
-
-def time_ms(fn, reps: int = REPS) -> float:
-    """Median over ``reps`` samples of the time per call of ``INNER``
-    calls in a row: the card runs them back to back, so the host's
-    cost of each launch stays out of a kernel's time."""
-    import numpy as np
-    import torch
-
-    for _ in range(3):
-        fn()
-    sync()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(INNER):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / INNER)
-    return float(np.median(times))
 
 
 def profile_calls(fn, name: str = "") -> dict:
@@ -2928,6 +2930,263 @@ def phase18_submesh_rank(rank, world):
     placement.reset()
     dist.barrier()
     return out
+
+
+# Phase 19's widths: the SpMV microbenchmark's rows (BASELINE config 2),
+# the SpGEMM microbenchmark's (config 5), the spectral app's second n,
+# the pde app's grid (unknowns per side) and the GMG app's.
+P19_SPMV_ROWS, P19_SPGEMM_ROWS, P19_SPECTRAL_N, P19_PDE_GRID, P19_GMG_GRID = (
+    1 << 24, 1 << 24, 40_000, 4096, 512)
+
+
+def phase19_entry_points():
+    """Phase 19 (``main_path_entry_points``): the port's entry points at
+    full width, in this process (the distributed runs on one NCCL rank
+    each): (a) ``bench_torch.main()``, (b) the SpMV microbenchmark, (c)
+    the SpGEMM microbenchmark, stable and fresh, (d) the spectral app,
+    (e) the pde app's explicit, throughput and distributed modes and the
+    GMG app on the diffusion operator.  The launches are counted over
+    the runs alone; the comparisons with the plain versions (also of
+    the bench's BSR, bf16 and SpGEMM inputs, rebuilt) and scipy come
+    after.  Returns ``(record, launches, kernel_vs_plain)``; any failed
+    check raises."""
+    import math
+
+    import numpy as np
+    import torch
+
+    import bench_torch
+    import legate_sparse_tpu_torch as sparse
+    from legate_sparse_tpu_torch import eigen as eigen_mod
+    from legate_sparse_tpu_torch.apps import common as app_common
+    from legate_sparse_tpu_torch.apps import gmg as gmg_app
+    from legate_sparse_tpu_torch.apps import pde
+    from legate_sparse_tpu_torch.apps import spectral
+    from legate_sparse_tpu_torch.apps import spgemm_microbenchmark as spgemm_mb
+    from legate_sparse_tpu_torch.apps import spmv_microbenchmark as spmv_mb
+    from legate_sparse_tpu_torch.ops import bsr as bsr_ops
+    from legate_sparse_tpu_torch.ops import dia_kernel
+
+    rec = {}
+    seconds = {}
+    f32 = torch.float32
+
+    def lap(name, t0):
+        seconds[name] = time.perf_counter() - t0
+
+    reset_counts()
+    # (a) the bench at its full sizes.
+    t0 = time.perf_counter()
+    bench = bench_torch.main([])
+    lap("bench", t0)
+    for key in bench_torch.HEADLINE_NUMBERS:
+        val = bench.get(key)
+        log({"phase": "entry_bench_field", "field": key, "value": val})
+        check(isinstance(val, (int, float)) and math.isfinite(val),
+              f"bench_torch: {key} = {val!r}")
+    for key in bench_torch.HEADLINE_STRINGS:
+        log({"phase": "entry_bench_field", "field": key,
+             "value": bench.get(key)})
+        check(isinstance(bench.get(key), str), f"bench_torch: {key}")
+    check(bench["vs_baseline"] <= 1.05,
+          f"bench_torch: vs_baseline {bench['vs_baseline']} > 1.05")
+    check(bench["value"] <= 1.05 * HBM_BYTES_PER_S / 1e9,
+          f"bench_torch: value {bench['value']} GB/s past the HBM peak")
+    check(bench["path"] == "dia", f"bench_torch: path {bench['path']}")
+    check(bench["pde_roofline_ratio"] <= 1.05,
+          f"bench_torch: pde_roofline_ratio {bench['pde_roofline_ratio']}")
+    rec["bench"] = bench
+
+    h = app_common.parse_common_args(["--dtype", "float32"])
+    # (b) the SpMV microbenchmark (BASELINE config 2), into a fresh y and
+    # into a preallocated one.
+    t0 = time.perf_counter()
+    A = app_common.banded_matrix(P19_SPMV_ROWS, 11, device=h.device,
+                                 dtype=h.dtype)
+    spmv = spmv_mb.run_spmv(A, 20, False, h, False)
+    spmv_out = spmv_mb.run_spmv(A, 20, False, h, True)
+    lap("spmv_microbenchmark", t0)
+    # (c) the SpGEMM microbenchmark (BASELINE config 5), stable and fresh.
+    t0 = time.perf_counter()
+    gemm_stable = spgemm_mb.run_spgemm(P19_SPGEMM_ROWS, 5, "", "", 10, True, h)
+    gemm_fresh = spgemm_mb.run_spgemm(P19_SPGEMM_ROWS, 5, "", "", 1, False,
+                                      h)
+    lap("spgemm_microbenchmark", t0)
+    # (e) the pde app's modes on the 4096^2 grid, the GMG app on diffusion.
+    g = P19_PDE_GRID + 2
+    t0 = time.perf_counter()
+    expl = pde.explicit(g, g, 500, 50, dtype=f32, device=h.device)
+    lap("pde_explicit", t0)
+    t0 = time.perf_counter()
+    # rtol 0: a fixed 450 timed iterations on both sides.
+    thr = pde.throughput(g, g, 0.0, 500, 50, dtype=f32, device=h.device)
+    lap("pde_throughput", t0)
+    t0 = time.perf_counter()
+    dist = pde.distributed(g, g, True, 0.0, 500, 50, dtype=f32,
+                           device=h.device, ranks=1, return_x=True)
+    lap("pde_distributed", t0)
+    t0 = time.perf_counter()
+    diff = gmg_app.solve(P19_GMG_GRID, 6, gridop="linear", tol=1e-5,
+                         dtype=f32, device=h.device, data="diffusion",
+                         warmup=True)
+    lap("gmg_diffusion", t0)
+    launches = read_counts()
+    check(all(launches[k] > 0 for k in ("dia_spmv", "bsr_spmv",
+                                        "dia_spgemm")),
+          f"phase 19 launches {launches}")
+
+    # The kernels of (b) and (c) against their plain versions.
+    kernel_vs_plain = {}
+    ones = torch.ones(A.shape[1], dtype=f32, device=h.device)
+    packed = A._get_dia_pack()
+    yp = dia_kernel.dia_spmv_plain(packed.rdata, packed.rmask, ones,
+                                   packed.offsets, packed.shape)
+    check(A.spmv_path == "dia-kernel", f"spmv microbenchmark took "
+          f"{A.spmv_path}")
+    for name, r in (("spmv_microbenchmark", spmv),
+                    ("spmv_microbenchmark --use-out", spmv_out)):
+        check(torch.equal(r["y"], yp), f"{name}: not bitwise the plain "
+              "DIA SpMV")
+        kernel_vs_plain[name] = {"kernel": "dia_spmv", "max_abs_err": 0.0}
+    rec["spmv_microbenchmark"] = {
+        "rows": spmv["rows"], "nnz": spmv["nnz"], "path": A.spmv_path,
+        "ms_per_iter": spmv["ms_per_iter"],
+        "use_out_ms_per_iter": spmv_out["ms_per_iter"],
+        "gbs": A.spmv_traffic_bytes(ones) / (spmv["ms_per_iter"] * 1e-3)
+        / 1e9, "bitwise_vs_plain": True}
+    del A, packed, yp, spmv, spmv_out, ones
+    for name, r in (("stable", gemm_stable), ("fresh", gemm_fresh)):
+        check(r["path"] == "dia-kernel",
+              f"spgemm microbenchmark ({name}) took {r['path']}")
+        da, db = r["A"]._get_dia(), r["B"]._get_dia()
+        Cd, offs_c, _mask = r["C"]._dia
+        Cp = dia_kernel.dia_spgemm_plain(da[0], db[0], da[1], db[1], offs_c,
+                                         r["A"].shape, r["B"].shape)
+        check(torch.equal(Cd, Cp), f"spgemm microbenchmark ({name}): not "
+              "bitwise the plain DIA SpGEMM")
+        kernel_vs_plain[f"spgemm_microbenchmark {name}"] = {
+            "kernel": "dia_spgemm", "max_abs_err": 0.0}
+        rec[f"spgemm_microbenchmark_{name}"] = {
+            "rows": P19_SPGEMM_ROWS, "nnz_c": r["C"].nnz,
+            "ms_per_iter": r["ms_per_iter"], "path": r["path"],
+            "bitwise_vs_plain": True}
+    del gemm_stable, gemm_fresh, da, db, Cd, Cp
+
+    # The inputs (a) gave the kernels beyond (b)'s and (c)'s shapes,
+    # rebuilt at the bench's sizes: its BSR matrix, its bf16 band and its
+    # SpGEMM band, each against the kernel's plain version on a seeded x.
+    full = bench_torch.FULL
+    gen = torch.Generator(device=h.device).manual_seed(19)
+
+    def seeded_x(n, dtype):
+        return (torch.rand(n, generator=gen, device=h.device) * 2 - 1).to(
+            dtype)
+
+    bench_vs_plain = {}
+    A_b, st = bench_torch._bsr_config(sparse, full["bsr_rows"], h.device)
+    xb = seeded_x(st.nbc * 128, f32)
+    yb = st.matvec(xb[:A_b.shape[1]])
+    ybp = bsr_ops.bsr_spmv_plain(st, xb.reshape(-1, 128)).reshape(-1)[
+        :A_b.shape[0]]
+    bench_vs_plain["bench bsr"] = {
+        "kernel": "bsr_spmv", "rows": A_b.shape[0], "nnz": A_b.nnz,
+        "blocks": st.nblocks,
+        "max_abs_err": close(yb, ybp, 1e-5, "bench bsr vs plain")}
+    del A_b, st, xb, yb, ybp
+    A16 = bench_torch._banded_config(sparse, 1 << full["log2_rows"], 11,
+                                     dtype=torch.bfloat16, device=h.device)
+    x16 = seeded_x(A16.shape[1], torch.bfloat16)
+    y16 = A16 @ x16
+    check(A16.spmv_path == "dia-kernel", f"bench bf16 took {A16.spmv_path}")
+    pk = A16._get_dia_pack()
+    y16p = dia_kernel.dia_spmv_plain(pk.rdata, pk.rmask, x16, pk.offsets,
+                                     pk.shape)
+    check(torch.equal(y16, y16p), "bench bf16: not bitwise the plain DIA "
+          "SpMV")
+    bench_vs_plain["bench bf16"] = {
+        "kernel": "dia_spmv", "rows": A16.shape[0], "diagonals": 11,
+        "max_abs_err": max_abs(y16, y16p), "bitwise": True}
+    del A16, x16, y16, y16p, pk
+    A_gm = bench_torch._banded_config(sparse, full["spgemm_rows"], 11,
+                                      device=h.device)
+    C_gm = A_gm @ A_gm
+    check(A_gm.spgemm_path == "dia-kernel",
+          f"bench spgemm took {A_gm.spgemm_path}")
+    dg = A_gm._get_dia()
+    Cd, offs_c, _mask = C_gm._dia
+    Cp = dia_kernel.dia_spgemm_plain(dg[0], dg[0], dg[1], dg[1], offs_c,
+                                     A_gm.shape, A_gm.shape)
+    check(torch.equal(Cd, Cp), "bench spgemm: not bitwise the plain DIA "
+          "SpGEMM")
+    bench_vs_plain["bench spgemm"] = {
+        "kernel": "dia_spgemm", "rows": A_gm.shape[0],
+        "diagonals_c": len(offs_c), "max_abs_err": 0.0, "bitwise": True}
+    del A_gm, C_gm, dg, Cd, Cp
+    kernel_vs_plain.update(bench_vs_plain)
+    rec["bench_inputs_vs_plain"] = bench_vs_plain
+
+    # (d) the spectral app against host scipy, with the eigensolvers'
+    # scipy fallback replaced by one that raises.
+    real_fallback = eigen_mod._host_fallback
+
+    def no_fallback(name):
+        raise RuntimeError(f"phase 19: eigen fell back to scipy ({name})")
+
+    h_cpu = app_common.parse_common_args(["--package", "scipy"])
+    for n in (4000, P19_SPECTRAL_N):
+        t0 = time.perf_counter()
+        eigen_mod._host_fallback = no_fallback
+        try:
+            got = spectral.run(h, n, 4, 6)
+        finally:
+            eigen_mod._host_fallback = real_fallback
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = spectral.run(h_cpu, n, 4, 6)
+        host_s = time.perf_counter() - t0
+        check(got["components"] == ref["components"]
+              and np.array_equal(got["labels"], ref["labels"]),
+              f"spectral n={n}: components differ from scipy's")
+        err = float(np.abs(got["eigenvalues"] - ref["eigenvalues"]).max())
+        check(err <= 1e-8, f"spectral n={n}: eigenvalues {err} from scipy's")
+        rec[f"spectral_{n}"] = {
+            "nnz": got["nnz"], "components": got["components"],
+            "eigenvalues": got["eigenvalues"].tolist(),
+            "max_abs_err_vs_scipy": err, "near_zero": got["near_zero"],
+            "gap": got["gap"], "card_ms": {
+                k: got[k] for k in ("cc_ms", "laplacian_ms", "eigsh_ms")},
+            "scipy_ms": {k: ref[k] for k in ("cc_ms", "laplacian_ms",
+                                              "eigsh_ms")},
+            "card_s": card_s, "host_s": host_s,
+            "laplacian_path": got["laplacian_path"]}
+        seconds[f"spectral_{n}"] = card_s + host_s
+
+    # (e)'s results.
+    for name, r in (("explicit", expl), ("throughput", thr)):
+        check(r["path"] == "dia-kernel", f"pde {name} took {r['path']}")
+        check(bool(torch.isfinite(r["x"]).all()), f"pde {name}: not finite")
+    check(thr["iters"] == 450, f"pde throughput: {thr['iters']} iterations")
+    x_single = thr.pop("x").cpu().numpy()
+    x_dist = dist.pop("x")
+    check(dist["iters"] == thr["iters"] and dist["spmv_path"] == "dia-kernel",
+          f"pde distributed: {dist['iters']} iterations on "
+          f"{dist['spmv_path']}")
+    dist_err = float(np.abs(x_dist - x_single).max()
+                     / max(np.abs(x_single).max(), 1e-30))
+    check(dist_err <= 1e-5, f"pde distributed: x {dist_err} from the "
+          "single-device solve")
+    expl.pop("x")
+    check(diff["converged"] or diff["rel_residual"] <= 2 * max(
+        diff["residual_floor"], 1e-5), f"gmg diffusion: {diff['rel_residual']}")
+    diff.pop("x")
+    diff.pop("gmg")
+    rec["pde_explicit"] = expl
+    rec["pde_throughput"] = thr
+    rec["pde_distributed"] = {**dist, "x_rel_err_vs_single": dist_err,
+                              "bitwise_vs_single": bool(dist_err == 0.0)}
+    rec["gmg_diffusion"] = diff
+    rec["seconds"] = seconds
+    return rec, launches, kernel_vs_plain
 
 
 def main() -> int:
@@ -5755,18 +6014,27 @@ def main() -> int:
         log({"phase": "placement_submesh", "skipped": "1 card"})
     torch.cuda.empty_cache()
 
+    # ---- 19. the entry points ------------------------------------------------
+    t0 = time.perf_counter()
+    e_rec, phase19, entry_vs_plain = phase19_entry_points()
+    log({"phase": "main_path_entry_points", "nvidia_smi": smi_line, **e_rec,
+         "launches": phase19, "seconds_total": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+
     for row in (dia_row, bsr_row, dia_spmm_row, bsr_spmm_row,
                 dia_spgemm_row):
         row["launches"] += (phase10[row["name"]] + phase11[row["name"]]
                             + phase12[row["name"]] + phase14[row["name"]]
                             + phase15[row["name"]] + phase16[row["name"]]
-                            + phase17[row["name"]] + phase18[row["name"]])
+                            + phase17[row["name"]] + phase18[row["name"]]
+                            + phase19[row["name"]])
         row["max_abs_err"] = max([row["max_abs_err"]] + [
             h["max_abs_err"] for h in (list(kernel_vs_plain.values())
                                        + list(spec_vs_plain.values())
                                        + list(comp_vs_plain.values())
                                        + list(p14["kernel_vs_plain"]
-                                              .values()))
+                                              .values())
+                                       + list(entry_vs_plain.values()))
             if h["kernel"] == row["name"]])
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

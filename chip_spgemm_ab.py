@@ -21,14 +21,13 @@ line per process.  Exits non-zero without a CUDA device or on any
 mismatch.
 """
 
+import importlib.util
 import json
 import os
 import subprocess
 import sys
 from pathlib import Path
 
-REPS = 25
-INNER = 10
 N = 1 << 24
 OFFS = (-2, -1, 0, 1, 2)
 
@@ -40,13 +39,24 @@ def _smi() -> str:
     return out[0] if out else "nvidia-smi: no output"
 
 
+def _timing():
+    """This checkout's ``bench_timing`` module, loaded from its file so
+    that the package the child times stays the one under ROOT."""
+    path = (Path(__file__).resolve().parent / "legate_sparse_tpu_torch"
+            / "bench_timing.py")
+    spec = importlib.util.spec_from_file_location("_ab_bench_timing", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def child(root: str) -> dict:
     """Time ``root``'s kernel: one JSON object."""
     import time
 
-    import numpy as np
     import torch
 
+    time_ms = _timing().time_ms
     sys.path.insert(0, root)
     from legate_sparse_tpu_torch.ops import _build, dia_kernel
 
@@ -59,22 +69,6 @@ def child(root: str) -> dict:
     dev = torch.device("cuda")
     args = (OFFS, OFFS, tuple(range(-4, 5)), (N, N), (N, N))
     gen = torch.Generator(device=dev).manual_seed(0)
-
-    def time_ms(fn) -> float:
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(REPS):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(INNER):
-                fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / INNER)
-        return float(np.median(times))
 
     for dtype in (torch.float32, torch.bfloat16):
         a = torch.randn((5, N), generator=gen, device=dev).to(dtype)

@@ -6,8 +6,9 @@ The port of ``examples/gmg.py``: a V-cycle with weighted-Jacobi
 smoothing, injection or full-weighting (``linear``) restriction built
 as CSR on the host, prolongation ``P = R.T``, and Galerkin coarse
 operators ``A_c = R @ A @ P`` (two SpGEMMs per level, through ESC),
-used as the preconditioner ``M`` of ``linalg.cg``.  ``poisson2D`` is
-the port of ``examples/common.py:312``.  Random vectors come from numpy
+used as the preconditioner ``M`` of ``linalg.cg``.  The operator is
+``apps.common.poisson2D`` or, with ``--data diffusion``,
+``apps.common.diffusion2D``.  Random vectors come from numpy
 generators seeded as the example seeds them (``default_rng(7)`` for the
 spectral-radius estimate, ``default_rng(0)`` for the right-hand side)
 and are cast to the operator's dtype.  Run it as::
@@ -24,7 +25,16 @@ first V-cycle's seconds (structure packs), the solve's seconds and ms
 per iteration, the route of every SpGEMM and the SpMV path of every
 operator; with ``--compare-plain``, the same solve by plain CG; with
 ``--profile``, the device time by kernel of the GMG-CG solve and of 200
-plain CG iterations, from ``torch.profiler``.
+plain CG iterations, from ``torch.profiler``.  ``--verbose`` prints the
+true residual at every iteration (a host sync each); ``--warmup`` runs
+a small SpGEMM (``A.T @ A`` of a 64x64 diffusion operator) first.
+
+``--distributed [--ranks R]`` is the example's multi-rank rendition:
+the operator sharded by ``parallel.shard_csr``, the hierarchy
+``parallel.DistGMG(levels, gridop, power_iters)`` and
+``parallel.dist_cg(M=gmg.cycle)`` over ``R`` ranks started by
+``parallel.launch.run_ranks`` (NCCL on ``cuda``, one a card; gloo on
+the CPU).  Its JSON line has ``mode: "distributed"``.
 """
 
 from __future__ import annotations
@@ -38,24 +48,11 @@ import time
 import numpy as np
 import torch
 
-from .. import diags, linalg
+from .. import linalg
 from ..csr import csr_array, csr_matrix
 from ..runtime import resolve_device
 from ..types import to_torch_dtype
-
-
-def poisson2D(N: int, dtype=torch.float64, device=None) -> csr_array:
-    """5-point 2-D Poisson operator on N*N unknowns, as CSR (the zero
-    couplings across grid rows are dropped)."""
-    first = np.full(N - 1, -1.0)
-    chunks = np.concatenate([np.zeros(1), first])
-    diag_size = N * N - 1
-    diag_a = np.concatenate(
-        [first, np.tile(chunks, (diag_size - (N - 1)) // N)])
-    diag_g = -1.0 * np.ones(N * (N - 1))
-    diag_c = 4.0 * np.ones(N * N)
-    return diags([diag_g, diag_a, diag_c, diag_a, diag_g], [-N, -1, 0, 1, N],
-                 dtype=dtype, device=device).tocsr()
+from .common import diffusion2D, poisson2D
 
 
 def _sync(device: torch.device) -> None:
@@ -297,8 +294,10 @@ def solve(N: int, levels: int, gridop: str = "linear", tol: float = 1e-10,
           dtype=torch.float64, device=None, maxiter: int = 200,
           power_iters: int = 1, compare_plain: bool = False,
           plain_maxiter=None, profile: bool = False,
-          watch=contextlib.nullcontext) -> dict:
-    """Build the N x N Poisson operator and its GMG hierarchy on
+          watch=contextlib.nullcontext, data: str = "poisson",
+          verbose: bool = False, warmup: bool = False) -> dict:
+    """Build the N x N operator (``data``: ``poisson`` or ``diffusion``)
+    and its GMG hierarchy on
     ``device``, solve ``A x = b`` (b from ``default_rng(0)``) by
     GMG-preconditioned CG to relative tolerance ``tol``, and measure
     the result in float64.  With ``compare_plain`` also solve by plain
@@ -307,10 +306,17 @@ def solve(N: int, levels: int, gridop: str = "linear", tol: float = 1e-10,
     ``torch.profiler`` (``profile_device``).  ``watch()``, a context
     manager, is entered around the GMG-CG solve alone: the hierarchy's
     build, the warm-up V-cycle and the comparisons stay outside it
-    (``chip_smoke.py`` counts the kernels' launches in it)."""
+    (``chip_smoke.py`` counts the kernels' launches in it).
+    ``verbose`` prints the true residual of every iterate of the GMG-CG
+    solve; ``warmup`` runs one small SpGEMM before anything is
+    timed."""
     dev = resolve_device(device)
     dtype = to_torch_dtype(dtype)
-    A = poisson2D(N, dtype=dtype, device=dev)
+    if warmup:
+        tA = diffusion2D(64, epsilon=0.1, theta=np.pi / 4, dtype=dtype,
+                         device=dev)
+        tA.T @ tA
+    A = _operator(data, N, dtype, dev)
     b64 = torch.from_numpy(np.random.default_rng(0).random(N * N)).to(dev)
     b = b64.to(dtype)
     clock = _Clock(dev)
@@ -324,10 +330,12 @@ def solve(N: int, levels: int, gridop: str = "linear", tol: float = 1e-10,
     M.matvec(zero)
     first_cycle_s = clock.lap()
     with watch():
-        x, iters = linalg.cg(A, b, rtol=tol, maxiter=maxiter, M=M)
+        x, iters = linalg.cg(
+            A, b, rtol=tol, maxiter=maxiter, M=M,
+            callback=_residual_printer(A, b) if verbose else None)
     solve_s = clock.lap()
     rel, floor = _residuals(A, b64, x)
-    out = {"grid": f"{N}x{N}", "n": N * N, "levels": levels,
+    out = {"grid": f"{N}x{N}", "n": N * N, "data": data, "levels": levels,
            "gridop": gridop, "dtype": str(dtype).split(".")[-1],
            "iters": int(iters), "rel_residual": rel,
            "residual_floor": floor, "converged": rel <= tol,
@@ -355,6 +363,80 @@ def solve(N: int, levels: int, gridop: str = "linear", tol: float = 1e-10,
     return out
 
 
+def _operator(data: str, N: int, dtype, device) -> csr_array:
+    """The N*N system matrix of ``--data``."""
+    gen = {"poisson": poisson2D, "diffusion": diffusion2D}.get(data)
+    if gen is None:
+        raise ValueError(f"unknown --data {data!r}")
+    return gen(N, dtype=dtype, device=device)
+
+
+def _residual_printer(A, b, show: bool = True):
+    """The ``--verbose`` callback: the true residual of each iterate
+    (a sharded iterate is gathered first, a collective every rank runs;
+    ``show`` on one rank alone)."""
+    def callback(x):
+        x = x.full_tensor() if hasattr(x, "full_tensor") else x
+        r = float(torch.linalg.vector_norm(b - A @ x.to(A.dtype)))
+        if show:
+            print(f"Residual: {r}", flush=True)
+    return callback
+
+
+def _distributed_rank(rank, world, N, data, levels, gridop, tol, maxiter,
+                      power_iters, dtype, verbose, return_x):
+    """One rank of ``distributed``: rank 0's record."""
+    from .. import parallel as P, runtime
+    from ..parallel.mesh import device_type
+
+    if device_type() == "cpu":
+        runtime.set_device("cpu")
+    dev = runtime.default_device()
+    A = _operator(data, N, dtype, dev)
+    b64 = torch.from_numpy(np.random.default_rng(0).random(N * N)).to(dev)
+    b = b64.to(dtype)
+    clock = _Clock(dev)
+    dA = P.shard_csr(A, mesh=P.make_row_mesh())
+    mg = P.DistGMG(dA, levels=levels, gridop=gridop, power_iters=power_iters)
+    build_s = clock.lap()
+    diagnostics = mg.diagnostics()
+    callback = _residual_printer(A, b, rank == 0) if verbose else None
+    clock.lap()
+    x, iters = P.dist_cg(dA, b, M=mg.cycle, rtol=tol, maxiter=maxiter,
+                         callback=callback)
+    solve_s = clock.lap()
+    x = x.full_tensor()
+    rel, floor = _residuals(A, b64, x)
+    out = {"mode": "distributed", "grid": f"{N}x{N}", "n": N * N,
+           "data": data, "levels": levels, "gridop": gridop,
+           "dtype": str(dtype).split(".")[-1], "ranks": world,
+           "iters": int(iters), "rel_residual": rel,
+           "residual_floor": floor, "converged": rel <= tol,
+           "build_s": build_s, "solve_s": solve_s,
+           "ms_per_iter": solve_s * 1e3 / max(int(iters), 1),
+           "diagnostics": diagnostics}
+    if return_x and rank == 0:
+        out["x"] = x.cpu().numpy()
+    return out
+
+
+def distributed(N: int, levels: int, data: str = "poisson",
+                gridop: str = "injection", tol: float = 1e-10,
+                dtype=torch.float64, device=None, maxiter: int = 200,
+                power_iters: int = 1, ranks: int = 1, verbose: bool = False,
+                return_x: bool = False) -> dict:
+    """GMG-CG over ``ranks`` ranks (NCCL on ``cuda``, gloo on the CPU):
+    ``shard_csr`` -> ``DistGMG`` -> ``dist_cg(M=gmg.cycle)``; rank 0's
+    record (with ``return_x``, the solution as a numpy array)."""
+    from ..parallel.launch import run_ranks
+
+    backend = "nccl" if resolve_device(device).type == "cuda" else "gloo"
+    return run_ranks(_distributed_rank, ranks, backend=backend, timeout=900,
+                     args=(N, data, levels, gridop, tol, maxiter,
+                           power_iters, to_torch_dtype(dtype), verbose,
+                           return_x))[0]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("-n", "--num", type=int, default=16, dest="N")
@@ -374,14 +456,38 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also run the solves under torch.profiler and "
                     "report device time by kernel")
+    ap.add_argument("-d", "--data", choices=["poisson", "diffusion"],
+                    default="poisson")
+    ap.add_argument("-v", "--verbose", action="store_true",
+                    help="print the true residual at every iteration")
+    ap.add_argument("-w", "--warmup", action="store_true",
+                    help="run a small SpGEMM before timing")
+    ap.add_argument("--distributed", action="store_true",
+                    help="DistGMG and dist_cg over the ranks")
+    ap.add_argument("--ranks", type=int, default=None,
+                    help="ranks of --distributed (default: the visible "
+                    "cards on cuda, 1 on the CPU)")
     args = ap.parse_args(argv)
-    out = solve(args.N, args.levels, gridop=args.gridop, tol=args.tol,
-                dtype=args.dtype, device=args.device, maxiter=args.maxiter,
-                power_iters=args.power_iters,
-                compare_plain=args.compare_plain, profile=args.profile)
-    print(print_diagnostics(out.pop("gmg").operators), file=sys.stderr)
-    out.pop("x")
-    out["device"] = str(resolve_device(args.device))
+    dev = resolve_device(args.device)
+    if args.distributed:
+        ranks = args.ranks or (torch.cuda.device_count()
+                               if dev.type == "cuda" else 1)
+        out = distributed(args.N, args.levels, data=args.data,
+                          gridop=args.gridop, tol=args.tol, dtype=args.dtype,
+                          device=dev, maxiter=args.maxiter,
+                          power_iters=args.power_iters, ranks=ranks,
+                          verbose=args.verbose)
+        print(out.pop("diagnostics"), file=sys.stderr)
+    else:
+        out = solve(args.N, args.levels, gridop=args.gridop, tol=args.tol,
+                    dtype=args.dtype, device=dev, maxiter=args.maxiter,
+                    power_iters=args.power_iters,
+                    compare_plain=args.compare_plain, profile=args.profile,
+                    data=args.data, verbose=args.verbose,
+                    warmup=args.warmup)
+        print(print_diagnostics(out.pop("gmg").operators), file=sys.stderr)
+        out.pop("x")
+    out["device"] = str(dev)
     print(json.dumps(out))
     return 0
 

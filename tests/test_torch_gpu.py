@@ -1838,3 +1838,71 @@ def test_placement_submesh_nccl_ranks():
         assert r["same"] and r["launches"] >= 1
         assert r["member"] == (rank < 2)
         assert (r["calls"] > 0) if rank < 2 else (r["calls"] == 0)
+
+
+# ---- the entry points' timing (bench_timing, apps.common) ------------------
+
+
+@pytest.mark.gpu
+def test_bench_timing_on_card(cuda):
+    """``time_ms`` (CUDA events) and ``loop_ms_per_iter`` (synchronised
+    trip counts) give positive, finite times on the card."""
+    from legate_sparse_tpu_torch.bench_timing import (loop_ms_per_iter,
+                                                      time_ms)
+
+    x = torch.ones(1 << 22, dtype=torch.float32, device=cuda)
+    ms = time_ms(lambda: x.mul(1.0000001), reps=5)
+    assert np.isfinite(ms) and ms > 0
+    per_iter = loop_ms_per_iter(lambda v: v * 1.0000001, x, k_lo=5, k_hi=50)
+    assert np.isfinite(per_iter) and per_iter > 0
+
+
+@pytest.mark.gpu
+def test_triad_below_the_hbm_peak(cuda):
+    """A triad over 2^24 lanes cannot move bytes faster than the card's
+    3.35 TB/s (data sheet), with 5% for the clocks."""
+    from legate_sparse_tpu_torch.bench_timing import triad_gbs
+
+    gbs = triad_gbs(24, device=cuda)
+    assert 0 < gbs < 1.05 * 3350.0
+
+
+@pytest.mark.gpu
+def test_app_timer_fences(cuda):
+    """``apps.common.TorchTimer`` synchronises at both ends: one timed
+    2^24-row SpMV (11 diagonals, f32) takes at least the DIA kernel's
+    own time by CUDA events."""
+    from legate_sparse_tpu_torch.apps.common import (TorchTimer,
+                                                     banded_matrix)
+    from legate_sparse_tpu_torch.bench_timing import time_ms
+
+    A = banded_matrix(1 << 24, 11, device=cuda, dtype=torch.float32)
+    x = torch.ones(1 << 24, dtype=torch.float32, device=cuda)
+    A @ x
+    assert A.spmv_path == "dia-kernel"
+    kernel_ms = time_ms(lambda: A @ x, reps=5)
+    timer = TorchTimer(cuda)
+    samples = []
+    for _ in range(5):
+        timer.start()
+        A @ x
+        samples.append(timer.stop())
+    assert min(samples) >= kernel_ms
+
+
+@pytest.mark.gpu
+def test_app_defaults_reach_the_kernels(cuda):
+    """The apps' default dtype on ``cuda`` is float32 (``harness_float``),
+    so the documented commands of the SpMV and SpGEMM microbenchmarks run
+    the DIA kernels, not their plain twins."""
+    from legate_sparse_tpu_torch.apps import common
+    from legate_sparse_tpu_torch.apps import spgemm_microbenchmark as spgemm
+    from legate_sparse_tpu_torch.apps import spmv_microbenchmark as spmv
+
+    h = common.parse_common_args(["--device", "cuda"])
+    assert h.dtype == torch.float32
+    recs = spmv.main(["--device", "cuda", "--nmin", "4096", "--nmax",
+                      "4096", "-i", "3"])
+    assert recs[-1]["path"] == "dia-kernel"
+    assert spgemm.run_spgemm(4096, 5, "", "", 2, True, h)["path"] \
+        == "dia-kernel"

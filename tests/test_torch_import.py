@@ -20,9 +20,13 @@ from legate_sparse_tpu_torch import runtime
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "legate_sparse_tpu_torch"
 PORT_FILES = sorted(p.relative_to(ROOT).as_posix()
-                    for p in PKG.rglob("*.py")) + ["chip_smoke.py",
+                    for p in PKG.rglob("*.py")) + ["bench_torch.py",
+                                                   "chip_smoke.py",
                                                    "chip_spgemm_ab.py"]
-FORBIDDEN = ("jax", "jaxlib", "legate_sparse_tpu")
+# ``bench`` and ``examples``' modules (``common`` among them) import the
+# JAX package at run time: the port keeps its own copies.
+FORBIDDEN = ("jax", "jaxlib", "legate_sparse_tpu", "bench", "common",
+             "examples")
 
 
 def _forbidden(module: str) -> bool:
@@ -35,8 +39,14 @@ def test_import_loads_no_jax():
     code = (
         "import sys\n"
         "import legate_sparse_tpu_torch\n"
+        "import legate_sparse_tpu_torch.apps.common\n"
         "import legate_sparse_tpu_torch.apps.gmg\n"
         "import legate_sparse_tpu_torch.apps.pde\n"
+        "import legate_sparse_tpu_torch.apps.spectral\n"
+        "import legate_sparse_tpu_torch.apps.spgemm_microbenchmark\n"
+        "import legate_sparse_tpu_torch.apps.spmv_microbenchmark\n"
+        "import legate_sparse_tpu_torch.bench_timing\n"
+        "import bench_torch\n"
         "import legate_sparse_tpu_torch.base\n"
         "import legate_sparse_tpu_torch.coo\n"
         "import legate_sparse_tpu_torch.coverage\n"
@@ -97,7 +107,8 @@ def test_import_loads_no_jax():
         "import legate_sparse_tpu_torch.resilience.policy\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib',\n"
-        "                                    'legate_sparse_tpu'))\n"
+        "                                    'legate_sparse_tpu', 'bench',\n"
+        "                                    'common', 'examples'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -139,7 +150,21 @@ def test_facade_names_exported_without_jax():
 def test_forbidden_matches_exact_module_names():
     assert _forbidden("jax.numpy")
     assert _forbidden("legate_sparse_tpu.ops.bsr")
+    assert _forbidden("bench") and _forbidden("examples.common")
     assert not _forbidden("legate_sparse_tpu_torch.ops.bsr")
+    assert not _forbidden("bench_torch")
+
+
+def test_one_copy_of_time_ms():
+    """The kernel timer lives in ``bench_timing.py`` alone; the chip
+    scripts import it."""
+    defs = [rel for rel in PORT_FILES
+            if any(isinstance(n, ast.FunctionDef) and n.name == "time_ms"
+                   for n in ast.walk(ast.parse((ROOT / rel).read_text())))]
+    assert defs == ["legate_sparse_tpu_torch/bench_timing.py"]
+    assert "from legate_sparse_tpu_torch.bench_timing import" in (
+        ROOT / "chip_smoke.py").read_text()
+    assert "bench_timing.py" in (ROOT / "chip_spgemm_ab.py").read_text()
 
 
 @pytest.fixture
