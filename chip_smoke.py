@@ -333,7 +333,18 @@ Phases, each printing one JSON line:
    ``main_path_entry_points``: (a) ``bench_torch.main()`` at its full
    sizes (every headline field finite and logged on its own line,
    ``vs_baseline`` and ``pde_roofline_ratio`` at most 1.05, ``value`` at
-   most 1.05 x 3.35 TB/s, ``path`` "dia"), and, after the runs, the
+   most 1.05 x 3.35 TB/s, ``path`` "dia"; every field of the twelve
+   phases ported from ``bench.py`` finite, its strings strings, one
+   shard a card, no recovery field on one card, the serving counts
+   that depend on neither the rank count nor the sizes equal to
+   ``evidence/BENCH_golden_smoke.json``'s, the saturation totals its
+   offered load, attribution's tenant bytes its comm bytes, both
+   ``dist_cg`` runs their full budget; the launches of the bench's
+   ranks, which its record carries, added to the phase's), and, after
+   the runs, the dist and attribution phases' bands row-sharded on one
+   NCCL rank (``phase19_dist_rank``), each ``dist_spmv`` through the
+   DIA kernel on its window bit for bit the plain DIA SpMV and the
+   single-device product, and the
    three inputs it gives the kernels beyond (b)'s and (c)'s shapes
    rebuilt at its sizes and held on a seeded x against the plain
    versions: its BSR matrix (2^13 rows, density 0.05; within 1e-5),
@@ -380,6 +391,9 @@ import time
 import warnings
 
 from legate_sparse_tpu_torch.bench_timing import INNER, REPS, time_ms
+# Each kernel's wrapper by name; ``wrapper.launches`` counts the launches
+# of its kernel.
+from legate_sparse_tpu_torch.ops import kernel_wrappers as kernel_counters
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_OPS_PER_S = 67e12          # H100 SXM data sheet, f32 outside tensor cores
@@ -458,17 +472,6 @@ def close(y, ref, rtol: float, what: str) -> float:
     check(err <= rtol * max(scale, 1.0), f"{what}: max |Δ| {err} > "
           f"{rtol} * {scale}")
     return err
-
-
-def kernel_counters() -> dict:
-    """Each kernel's wrapper by name; ``wrapper.launches`` counts the
-    launches of its kernel."""
-    from legate_sparse_tpu_torch.ops import bsr as bsr_ops
-    from legate_sparse_tpu_torch.ops import dia_kernel
-
-    return {"dia_spmv": dia_kernel.dia_spmv, "bsr_spmv": bsr_ops.bsr_spmv,
-            "dia_spmm": dia_kernel.dia_spmm, "bsr_spmm": bsr_ops.bsr_spmm,
-            "dia_spgemm": dia_kernel.dia_spgemm}
 
 
 def reset_counts() -> None:
@@ -2939,6 +2942,59 @@ P19_SPMV_ROWS, P19_SPGEMM_ROWS, P19_SPECTRAL_N, P19_PDE_GRID, P19_GMG_GRID = (
     1 << 24, 1 << 24, 40_000, 4096, 512)
 
 
+def phase19_dist_rank(rank, world):
+    """Phase 19 (a)'s banded distributed inputs on one NCCL rank: the
+    dist phase's band (``bench_torch.FULL["dist_log2_rows"]``) and the
+    attribution phase's (``["serve_rows"]``), row-sharded as the bench
+    shards them; each ``dist_spmv`` on a seeded x goes through the DIA
+    kernel on the rank's window (one launch), bit for bit the plain DIA
+    SpMV on that window (offset order, f32 accumulator) and the
+    single-device ``A @ x``.  Returns the comparisons."""
+    import torch
+
+    import bench_torch
+    import legate_sparse_tpu_torch as sparse
+    from legate_sparse_tpu_torch import parallel as P
+    from legate_sparse_tpu_torch.ops import dia_kernel
+    from legate_sparse_tpu_torch.parallel import dist_csr as D
+
+    mesh = P.make_row_mesh()
+    group = mesh.get_group("rows")
+    dev = D.mesh_device(mesh)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    out = {}
+    full = bench_torch.FULL
+    for name, n in (("bench dist_spmv", 1 << full["dist_log2_rows"]),
+                    ("bench attrib dist_spmv", full["serve_rows"])):
+        A = bench_torch._banded_config(sparse, n, bench_torch.NNZ_PER_ROW,
+                                       device=dev)
+        dA = P.shard_csr(A, mesh=mesh)
+        x = torch.rand(n, generator=gen, device=dev) * 2 - 1
+        xs = D.shard_vector(x, mesh, dA.rows_padded)
+        sync()
+        reset_counts()
+        y = P.dist_spmv(dA, xs).to_local()
+        sync()
+        counts = read_counts()
+        check(dA.spmv_path == "dia-kernel" and counts["dia_spmv"] == 1
+              and sum(counts.values()) == 1,
+              f"{name}: {dA.spmv_path}, launches {counts}")
+        pk = dA.dia_pack
+        xw = D._extend_x(x, dA.halo, group)
+        yp = dia_kernel.dia_spmv_plain(pk.rdata, pk.rmask, xw, pk.offsets,
+                                       pk.shape)
+        err = close(y, yp, 1e-6, f"{name} vs plain")
+        check(torch.equal(y, yp), f"{name}: the kernel on the window is not "
+              "bit for bit the plain DIA SpMV")
+        check(torch.equal(y, A @ x), f"{name}: not bit for bit the "
+              "single-device A @ x")
+        out[name] = {"kernel": "dia_spmv", "rows": n, "diagonals": len(
+            pk.offsets), "halo": dA.halo, "max_abs_err": err,
+            "bitwise": True}
+        del A, dA, x, xs, y, yp, xw, pk
+    return out
+
+
 def phase19_entry_points():
     """Phase 19 (``main_path_entry_points``): the port's entry points at
     full width, in this process (the distributed runs on one NCCL rank
@@ -2995,6 +3051,61 @@ def phase19_entry_points():
     check(bench["path"] == "dia", f"bench_torch: path {bench['path']}")
     check(bench["pde_roofline_ratio"] <= 1.05,
           f"bench_torch: pde_roofline_ratio {bench['pde_roofline_ratio']}")
+    # The twelve phases ported from bench.py: every field; on one card
+    # the recovery drill is gated off; the counts that depend neither on
+    # the rank count nor on the sizes equal the JAX golden's.
+    cards = torch.cuda.device_count()
+    recovery = bench_torch.PHASE_NUMBERS["recovery"]
+    for phase, keys in bench_torch.PHASE_NUMBERS.items():
+        for key in keys:
+            val = bench.get(key)
+            log({"phase": "entry_bench_field", "field": key, "value": val})
+            if phase == "recovery" and cards < 2:
+                check(val is None, f"bench_torch: {key} on one card")
+                continue
+            check(isinstance(val, (int, float)) and math.isfinite(val),
+                  f"bench_torch: {key} = {val!r}")
+    for key in bench_torch.PHASE_STRINGS:
+        log({"phase": "entry_bench_field", "field": key,
+             "value": bench.get(key)})
+        check(isinstance(bench.get(key), str), f"bench_torch: {key}")
+    check(bench["schema_version"] == 20 and bench["dist_shards"] == cards,
+          f"bench_torch: schema {bench['schema_version']}, "
+          f"{bench['dist_shards']} shards on {cards} cards")
+    check(cards >= 2 or not any(k in bench for k in recovery),
+          "bench_torch: recovery fields on one card")
+    golden_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "evidence", "BENCH_golden_smoke.json")
+    with open(golden_path) as f:
+        golden = json.load(f)
+    as_golden = ("engine_plan_hits", "engine_plan_misses",
+                 "engine_batch_requests", "resil_retries", "resil_shed",
+                 "resil_breaker_trips", "resil_faults_injected",
+                 "gateway_requests", "gateway_dispatches", "gateway_packed",
+                 "gateway_rejected_queue_full",
+                 "gateway_interactive_served", "gateway_interactive_shed",
+                 "gateway_batch_served", "gateway_background_served",
+                 "gateway_background_shed", "saturation_shed",
+                 "attrib_requests", "attrib_packed", "autotune_verdicts",
+                 "graph_pagerank_iters")
+    for key in as_golden:
+        check(bench[key] == golden[key], f"bench_torch: {key} "
+              f"{bench[key]} != the golden's {golden[key]}")
+    # Conserved means equal and above 0: one card sends no bytes.
+    check(bench["attrib_tenant_comm_bytes"] == bench["attrib_comm_bytes"]
+          and bench["attrib_conserved"] == int(cards > 1),
+          f"bench_torch: attrib {bench['attrib_tenant_comm_bytes']} tenant "
+          f"bytes of {bench['attrib_comm_bytes']}, conserved "
+          f"{bench['attrib_conserved']}")
+    full = bench_torch.FULL
+    offered = sum(full["saturation_levels"]) * full["saturation_per_client"]
+    check(bench["saturation_requests"] == offered
+          == bench["saturation_batched_requests"],
+          f"bench_torch: saturation {bench['saturation_requests']} resolved, "
+          f"{bench['saturation_batched_requests']} batched of {offered}")
+    check(bench["dist_cg_iters"] == bench["dist2d_cg_iters"]
+          == full["dist_cg_iters"], f"bench_torch: dist_cg ran "
+          f"{bench['dist_cg_iters']}, {bench['dist2d_cg_iters']} iterations")
     rec["bench"] = bench
 
     h = app_common.parse_common_args(["--dtype", "float32"])
@@ -3031,9 +3142,23 @@ def phase19_entry_points():
                          warmup=True)
     lap("gmg_diffusion", t0)
     launches = read_counts()
+    # The bench's ranks count their launches in their own processes: the
+    # GMG phase's and each distributed phase's.
+    per_phase = bench["rank_kernel_launches"]
+    rec["bench_rank_launches"] = per_phase
+    launches = {k: v + sum(p[k] for p in per_phase.values())
+                for k, v in launches.items()}
     check(all(launches[k] > 0 for k in ("dia_spmv", "bsr_spmv",
                                         "dia_spgemm")),
           f"phase 19 launches {launches}")
+    # The dist phase: at least its warm-up product, its timing loop's
+    # three runs at each trip count, and dist_cg's iterations and first
+    # residual; the attribution phase: its two products.
+    least = 1 + 3 * (2 + full["dist_k_hi"]) + full["dist_cg_iters"] + 1
+    check(per_phase["dist"]["dia_spmv"] >= least
+          and per_phase["attrib"]["dia_spmv"] == 2,
+          f"phase 19: the bench's ranks launched {per_phase}; the dist "
+          f"phase's dia_spmv under {least}, or attrib's not 2")
 
     # The kernels of (b) and (c) against their plain versions.
     kernel_vs_plain = {}
@@ -3075,7 +3200,6 @@ def phase19_entry_points():
     # The inputs (a) gave the kernels beyond (b)'s and (c)'s shapes,
     # rebuilt at the bench's sizes: its BSR matrix, its bf16 band and its
     # SpGEMM band, each against the kernel's plain version on a seeded x.
-    full = bench_torch.FULL
     gen = torch.Generator(device=h.device).manual_seed(19)
 
     def seeded_x(n, dtype):
@@ -3122,6 +3246,13 @@ def phase19_entry_points():
         "kernel": "dia_spgemm", "rows": A_gm.shape[0],
         "diagonals_c": len(offs_c), "max_abs_err": 0.0, "bitwise": True}
     del A_gm, C_gm, dg, Cd, Cp
+    from legate_sparse_tpu_torch.parallel.launch import run_ranks
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bench_vs_plain.update(run_ranks(phase19_dist_rank, 1, backend="nccl",
+                                    timeout=600, init_timeout=120)[0])
+    lap("bench_dist_inputs", t0)
     kernel_vs_plain.update(bench_vs_plain)
     rec["bench_inputs_vs_plain"] = bench_vs_plain
 

@@ -111,7 +111,9 @@ def fixed_cost_s(x0: torch.Tensor, repeats: int = 3) -> float:
 def loop_ms_per_iter(step: Callable, x0: torch.Tensor, k_lo: int = 5,
                      k_hi: Optional[int] = None, repeats: int = 2,
                      deadline_s: Optional[float] = None,
-                     k_cap: int = 4000) -> float:
+                     k_cap: int = 4000,
+                     agree: Optional[Callable[[float], float]] = None
+                     ) -> float:
     """Milliseconds per ``step`` application in a chained loop (see the
     module docstring).
 
@@ -123,7 +125,16 @@ def loop_ms_per_iter(step: Callable, x0: torch.Tensor, k_lo: int = 5,
     Beyond the first pair, the trip counts are aimed from the measured
     points.  A high trip count not measurably slower than the low one
     raises ``RuntimeError("unresolvable timing ...")``: the result is
-    positive and never clamped."""
+    positive and never clamped.
+
+    ``agree`` turns each measured time (seconds) into the job's: every
+    rank of a job whose ``step`` runs collectives passes the same
+    function (the slowest rank's time, by an all-reduce), so every rank
+    takes the same trip counts and its collectives stay matched; such
+    callers pass no ``deadline_s``, which reads each rank's own clock."""
+    if agree is None:
+        def agree(t: float) -> float:
+            return t
     device = x0.device
     t_start = time.perf_counter()
 
@@ -140,14 +151,14 @@ def loop_ms_per_iter(step: Callable, x0: torch.Tensor, k_lo: int = 5,
             t0 = time.perf_counter()
             run(k)
             best = min(best, time.perf_counter() - t0)
-        return best
+        return agree(best)
 
     def left() -> float:
         if deadline_s is None:
             return float("inf")
         return deadline_s - (time.perf_counter() - t_start)
 
-    fixed = fixed_cost_s(x0)
+    fixed = agree(fixed_cost_s(x0))
     t_lo = timed(k_lo)
     # Delta target sized so the loop-body difference dominates
     # fixed-cost jitter; per-iter upper bound from the low point alone.
