@@ -112,8 +112,8 @@ The sizes are ``FULL`` on any device; ``--smoke`` runs every phase at
 tiny sizes (``SMOKE``), on the CPU with one thread.  With
 ``LEGATE_SPARSE_TPU_OBS=1`` the run also writes
 ``BENCH_<stamp>.trace.json`` (``LEGATE_SPARSE_TPU_OBS_FILE`` overrides
-the path; it holds rank 0's spans of the distributed phases too) and
-exits non-zero if it holds no span.
+the path; it holds rank 0's spans and ``comm.*`` counters of the
+distributed phases too) and exits non-zero if it holds no span.
 """
 
 from __future__ import annotations
@@ -828,8 +828,10 @@ def _rank_phases(rank, world, size: dict, trace: bool) -> dict:
         phase_s[name] = time.perf_counter() - t0
     spans = ([r for r in obs.records() if r["type"] == "span"]
              if trace and rank == 0 else [])
+    comm = ({k: v for k, v in obs.counters.snapshot().items()
+             if k.startswith("comm.")} if trace and rank == 0 else {})
     return {"fields": fields, "phase_s": phase_s, "spans": spans,
-            "launches": launches}
+            "comm_counters": comm, "launches": launches}
 
 
 # ---- the serving phases: in the bench's own process ---------------------
@@ -1601,6 +1603,7 @@ def main(argv=None) -> dict:
     for r in rec["spans"]:
         obs_trace.complete_span(r["name"], r["ts_ns"], r["dur_ns"],
                                 **dict(r.get("attrs") or {}, rank=0))
+    rank_comm = rec["comm_counters"]
 
     # ---- the serving phases, in this process -------------------------------
     for name, run_phase in (("engine", _engine_phase),
@@ -1627,8 +1630,14 @@ def main(argv=None) -> dict:
             stamp = time.strftime("%Y%m%dT%H%M%S", time.gmtime())
             trace_path = f"BENCH_{stamp}.trace.json"
         n_spans = sum(1 for r in obs.records() if r["type"] == "span")
+        # The trace's counters: this process's, plus rank 0's comm
+        # ledger (the distributed phases' collectives ran there).
+        counters = obs.counters.snapshot()
+        for k, v in rank_comm.items():
+            counters[k] = counters.get(k, 0) + v
         obs.write_chrome_trace(trace_path, extra_metadata={
-            "platform": dev.type, "bench_result": result})
+            "platform": dev.type, "bench_result": result,
+            "counters": counters})
         result["trace_file"] = trace_path
         result["trace_spans"] = n_spans
         print(json.dumps(result), flush=True)

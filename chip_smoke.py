@@ -364,15 +364,32 @@ Phases, each printing one JSON line:
    ``--distributed --throughput`` on one NCCL rank (the same iterations,
    x within 1e-5 of the single-device iterate), and ``apps.gmg --data
    diffusion --warmup`` on 512^2 (6 levels, rtol 1e-5).  Its launches
-   are those of (a)-(e)'s runs, the comparisons after.
+   are those of (a)-(e)'s runs, the comparisons after.  The bench's
+   JSON is phase 20's input.
+20. the tools (``phase20_tools``), ``main_path_tools``: (a)
+   ``tools.tune_irregular`` at the JAX tool's sizes (three uniform
+   densities at 2^13-2^14 rows, the 2^18-row power-law matrix, the 2^15
+   clustered 8x8 FEM pattern, the 2^22-row hyper-sparse matrix): the
+   autotune candidates raced and recorded, the winner's chained loop,
+   and ``bsr_spmv`` timed on every config that packs (each a line of
+   its own), then each of those held against ``bsr_spmv_plain`` on a
+   seeded x (1e-5); (b) ``bench_torch.py --smoke`` on the card,
+   traced (``build/phase20/bench_smoke.trace.json``; phase 19's timed
+   bench stays untraced); (c) ``tools.bench_compare``'s ``main`` (its
+   ``python -m`` entry point, in this process) on phase 19's bench
+   JSON against itself (exit 0) and against a copy with ``spmv_ms``
+   doubled (exit 1); (d) ``tools.trace_summary``'s ``main`` with
+   ``--comm --autotune --gateway --latency`` on (b)'s trace (exit 0,
+   each table with rows).  Its launches are those of (a)'s and (b)'s runs; (a)'s are
+   ``bsr_spmv``'s alone, as many as its packed configs report.
 
 Launch counts come from the kernel wrappers: each is set to 0 just
-before a main-path phase (in phases 10-12, 14, 15 and 17-19, each run;
+before a main-path phase (in phases 10-12, 14, 15 and 17-20, each run;
 in phase 16, the gateway load) drives its path and read just after; the
 ``kernels`` line's launches add phases 10's, 11's, 12's, 14's, 15's,
-16's, 17's, 18's and 19's to those of phases 4-7, and its
+16's, 17's, 18's, 19's and 20's to those of phases 4-7, and its
 ``max_abs_err`` is the largest over the kernel's shapes in phases 4-7,
-10-12, 14 and 19.  Any
+10-12, 14, 19 and 20.  Any
 failed check raises, so the script exits non-zero; it exits non-zero
 without printing a result when there is no CUDA device.  The last three
 lines are the ``kernels`` JSON object, the ``nvidia-smi`` line and
@@ -381,6 +398,7 @@ lines are the ``kernels`` JSON object, the ``nvidia-smi`` line and
 
 import atexit
 import contextlib
+import io
 import json
 import os
 import shutil
@@ -390,13 +408,12 @@ import tempfile
 import time
 import warnings
 
-from legate_sparse_tpu_torch.bench_timing import INNER, REPS, time_ms
+from legate_sparse_tpu_torch.bench_timing import (F32_OPS_PER_S,
+                                                  HBM_BYTES_PER_S, INNER,
+                                                  REPS, time_ms)
 # Each kernel's wrapper by name; ``wrapper.launches`` counts the launches
 # of its kernel.
 from legate_sparse_tpu_torch.ops import kernel_wrappers as kernel_counters
-
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-F32_OPS_PER_S = 67e12          # H100 SXM data sheet, f32 outside tensor cores
 
 
 def log(obj) -> None:
@@ -3320,6 +3337,144 @@ def phase19_entry_points():
     return rec, launches, kernel_vs_plain
 
 
+def phase20_tools(bench: dict, smi_line: str):
+    """Phase 20 (``main_path_tools``): the port's three tools on the
+    card.  (a) ``tools.tune_irregular`` at the JAX tool's sizes
+    (``FULL``), its launches counted over the run alone (``bsr_spmv``
+    only, as many as its configs that pack report), then on every
+    config that packs ``bsr_spmv`` against ``bsr_spmv_plain`` (1e-5) on
+    a seeded x; (b) ``bench_torch.py --smoke`` on the card, traced: the
+    trace that (d) reads, kept apart from phase 19's timed bench; (c)
+    ``tools.bench_compare`` on phase 19's bench JSON against itself
+    (exit 0) and against a copy with ``spmv_ms`` doubled (exit 1); (d)
+    ``tools.trace_summary --comm --autotune --gateway --latency`` over
+    (b)'s trace (exit 0, every table with rows).  (c) and (d) call the
+    tools' ``main``, their ``python -m`` entry points, in this process.
+    Its launches are (a)'s and (b)'s.
+    Returns ``(record, launches, kernel_vs_plain)``; any failed check
+    raises."""
+    import torch
+
+    import bench_torch
+    from legate_sparse_tpu_torch import obs
+    from legate_sparse_tpu_torch.ops import bsr as bsr_ops
+    from legate_sparse_tpu_torch.tools import (bench_compare, trace_summary,
+                                               tune_irregular)
+
+    rec, seconds = {}, {}
+    t_phase = time.perf_counter()
+    art_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "phase20")
+    os.makedirs(art_dir, exist_ok=True)
+
+    # (a) the shoot-out.
+    keep = []
+    reset_counts()
+    t0 = time.perf_counter()
+    shoot = tune_irregular.run(tune_irregular.FULL, "cuda", keep=keep)
+    seconds["tune_irregular"] = time.perf_counter() - t0
+    launches = read_counts()
+    packed = [c for c in shoot["configs"] if "nblocks" in c]
+    check([c["label"] for c in packed] == [label for label, _ in keep]
+          and all(c["bsr_launches"] > 0 for c in packed)
+          and launches["bsr_spmv"] == sum(c["bsr_launches"] for c in packed)
+          and all(n == 0 for k, n in launches.items() if k != "bsr_spmv"),
+          f"phase 20: shoot-out launches {launches}, per config "
+          f"{[(c['label'], c['bsr_launches']) for c in packed]}")
+    for cfg in shoot["configs"]:
+        log({"phase": "tools_shootout_config", "nvidia_smi": smi_line,
+             **cfg})
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    vs_plain = {}
+    for label, st in keep:
+        x2d = torch.rand((st.nbc, 128), generator=gen, device="cuda") * 2 - 1
+        y = bsr_ops.bsr_spmv(st, x2d)
+        yp = bsr_ops.bsr_spmv_plain(st, x2d)
+        vs_plain[f"shootout {label}"] = {
+            "kernel": "bsr_spmv", "rows": st.rows, "blocks": st.nblocks,
+            "max_abs_err": close(y, yp, 1e-5, f"shootout {label} vs plain")}
+        del x2d, y, yp
+    del keep
+    torch.cuda.empty_cache()
+    rec["shootout"] = {k: shoot[k] for k in ("platform", "platform_fp",
+                                             "verdicts")}
+    rec["shootout"]["packed"] = [c["label"] for c in packed]
+    rec["shootout_launches"] = dict(launches)
+
+    # (b) the traced smoke bench (its LEGATE_SPARSE_TPU_OBS=1 mode).
+    trace_path = os.path.join(art_dir, "bench_smoke.trace.json")
+    os.environ["LEGATE_SPARSE_TPU_OBS_FILE"] = trace_path
+    obs.reset_all()
+    obs.enable()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        smoke = bench_torch.main(["--smoke"])
+    finally:
+        obs.disable()
+        obs.reset_all()
+        del os.environ["LEGATE_SPARSE_TPU_OBS_FILE"]
+    seconds["bench_smoke_traced"] = time.perf_counter() - t0
+    smoke_launches = read_counts()
+    check(smoke["trace_file"] == trace_path and smoke["trace_spans"] > 0,
+          f"bench_torch --smoke: trace {smoke.get('trace_file')}, "
+          f"{smoke.get('trace_spans')} spans")
+    launches = {k: n + smoke_launches[k] for k, n in launches.items()}
+    rec["bench_smoke"] = {"trace_spans": smoke["trace_spans"],
+                          "launches": smoke_launches}
+
+    def tool(run, module, *args):
+        """(exit code, stdout, stderr) of ``module.main(args)``: the
+        ``python -m`` entry point, in this process."""
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = module.main(list(args))
+        seconds[run] = time.perf_counter() - t0
+        return rc, out.getvalue(), err.getvalue()
+
+    # (c) bench_compare on phase 19's bench.
+    bench_path = os.path.join(art_dir, "bench.json")
+    with open(bench_path, "w") as f:
+        f.write(json.dumps(bench) + "\n")
+    doubled = os.path.join(art_dir, "bench_doubled.json")
+    with open(doubled, "w") as f:
+        f.write(json.dumps(dict(bench, spmv_ms=2 * bench["spmv_ms"])) + "\n")
+    rc, same_out, same_err = tool("bench_compare_self", bench_compare,
+                                  bench_path, bench_path)
+    check(rc == 0 and "clean: no out-of-band regressions" in same_out,
+          f"bench_compare on itself: exit {rc}: {same_err[-2000:]}")
+    rc2, _, worse_err = tool("bench_compare_doubled", bench_compare,
+                             bench_path, doubled)
+    check(rc2 == 1 and "REGRESSED" in worse_err and "spmv_ms" in worse_err,
+          f"bench_compare, spmv_ms doubled: exit {rc2}: {worse_err[-2000:]}")
+    rec["bench_compare"] = {
+        "self_exit": rc, "doubled_exit": rc2,
+        "doubled_regressed": worse_err.strip().splitlines()[-1],
+        "gated_rows": len(same_out.splitlines())}
+
+    # (d) trace_summary over (b)'s trace.
+    rc, text, err = tool("trace_summary", trace_summary, trace_path,
+                         "--comm", "--autotune", "--gateway", "--latency")
+    check(rc == 0, f"trace_summary: exit {rc}: {err[-2000:]}")
+    tables = {}
+    for head in ("comm ledger:", "autotune ledger:", "gateway ledger:",
+                 "latency histograms:"):
+        check(head in text, f"trace_summary: no {head!r}")
+        body = text.split(head, 1)[1].lstrip("\n").split("\n\n", 1)[0]
+        lines = body.splitlines()
+        check(len(lines) > 2 and not body.startswith("no "),
+              f"trace_summary: {head} {body[:200]!r}")
+        tables[head.rstrip(":")] = lines
+    rec["trace_summary"] = {
+        "op_rows": len(text.split("\n\n", 1)[0].splitlines()) - 2,
+        "tables": {k: len(v) - 2 for k, v in tables.items()},
+        "comm": tables["comm ledger"], "autotune": tables["autotune ledger"]}
+    log({"phase": "tools_trace_summary", "stdout": text[-20000:]})
+    rec["seconds"] = dict(seconds, total=time.perf_counter() - t_phase)
+    return rec, launches, vs_plain
+
+
 def main() -> int:
     import torch
 
@@ -6152,20 +6307,26 @@ def main() -> int:
          "launches": phase19, "seconds_total": time.perf_counter() - t0})
     torch.cuda.empty_cache()
 
+    # ---- 20. the tools ---------------------------------------------------------
+    t_rec, phase20, tools_vs_plain = phase20_tools(e_rec["bench"], smi_line)
+    log({"phase": "main_path_tools", "nvidia_smi": smi_line, **t_rec,
+         "launches": phase20, "kernel_vs_plain": tools_vs_plain})
+
     for row in (dia_row, bsr_row, dia_spmm_row, bsr_spmm_row,
                 dia_spgemm_row):
         row["launches"] += (phase10[row["name"]] + phase11[row["name"]]
                             + phase12[row["name"]] + phase14[row["name"]]
                             + phase15[row["name"]] + phase16[row["name"]]
                             + phase17[row["name"]] + phase18[row["name"]]
-                            + phase19[row["name"]])
+                            + phase19[row["name"]] + phase20[row["name"]])
         row["max_abs_err"] = max([row["max_abs_err"]] + [
             h["max_abs_err"] for h in (list(kernel_vs_plain.values())
                                        + list(spec_vs_plain.values())
                                        + list(comp_vs_plain.values())
                                        + list(p14["kernel_vs_plain"]
                                               .values())
-                                       + list(entry_vs_plain.values()))
+                                       + list(entry_vs_plain.values())
+                                       + list(tools_vs_plain.values()))
             if h["kernel"] == row["name"]])
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -46,6 +46,7 @@ import scipy.sparse as _scipy_sparse
 from . import runtime  # noqa: F401
 from .module import *  # noqa: F401,F403  (module.__all__)
 from .types import SparseEfficiencyWarning  # noqa: F401
+from .base import CompressedBase  # noqa: F401
 from .coverage import clone_module as _clone_module
 from . import linalg  # noqa: F401
 from . import graph  # noqa: F401

@@ -63,6 +63,12 @@ def reset() -> None:
         _store = None
 
 
+def autotune_enabled() -> bool:
+    """Fast routing check: one attribute read on the settings
+    singleton."""
+    return _settings_ref.autotune
+
+
 def route_matvec(A, x):
     """Verdict-routed ``A @ x``: ``(y, label)``, or None (fall through
     to the heuristic dispatch)."""

@@ -424,3 +424,18 @@ def _install_unary_ufuncs(cls) -> None:
 
 
 _install_unary_ufuncs(CompressedBase)
+
+
+class DenseSparseBase:
+    """Base of the formats with a structure-sharing constructor (CSR;
+    reference ``base.py:256-268``)."""
+
+    @classmethod
+    def make_with_same_nnz_structure(cls, mat, arg, shape=None, dtype=None):
+        """``cls(arg)`` with ``mat``'s shape and dtype unless given, on
+        ``mat``'s device."""
+        if shape is None:
+            shape = mat.shape
+        if dtype is None:
+            dtype = mat.dtype
+        return cls(arg, shape=shape, dtype=dtype, device=mat.device)

@@ -34,6 +34,11 @@ import torch
 
 REPS = 25
 INNER = 10                     # calls per timed sample
+# The card's peaks that a bound is priced at: the least time of a
+# function is the larger of its bytes over the memory rate and its
+# operations over the peak rate for their type.
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+F32_OPS_PER_S = 67e12          # H100 SXM data sheet, f32 outside tensor cores
 
 
 def _is_cuda(device) -> bool:

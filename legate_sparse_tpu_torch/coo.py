@@ -89,6 +89,10 @@ class coo_array(CsrDelegateMixin):
         return self.data.device
 
     @property
+    def dim(self) -> int:
+        return 2
+
+    @property
     def nnz(self) -> int:
         return int(self.data.shape[0])
 

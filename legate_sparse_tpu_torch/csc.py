@@ -79,6 +79,10 @@ class csc_array(CsrDelegateMixin):
         return self._t.device
 
     @property
+    def dim(self) -> int:
+        return 2
+
+    @property
     def nnz(self) -> int:
         return self._t.nnz
 

@@ -66,8 +66,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .base import (CompressedBase, _is_scalar, _power, _scalar_dtype,
-                   _scalar_op, _extreme)
+from .base import (CompressedBase, DenseSparseBase, _is_scalar, _power,
+                   _scalar_dtype, _scalar_op, _extreme)
 from .ops import convert as _convert
 from .ops import dia_kernel as _dia_kernel
 from .ops import dia_ops as _dia_ops
@@ -124,7 +124,7 @@ _COMPARE = {
 }
 
 
-class csr_array(CompressedBase):
+class csr_array(CompressedBase, DenseSparseBase):
     """Compressed Sparse Row array backed by PyTorch tensors.
 
     Constructor forms: ``csr_array(dense_2d)``, ``csr_array(scipy_sparse)``,
@@ -277,6 +277,10 @@ class csr_array(CompressedBase):
         return type(self)(self, copy=True)
 
     # ---------------- properties ----------------
+    @property
+    def dim(self) -> int:
+        return len(self.shape)
+
     @property
     def nnz(self) -> int:
         return int(self._data.shape[0])
@@ -1501,6 +1505,27 @@ class csr_array(CompressedBase):
         self.spmm_path = path
         return Y
 
+    def _operand_bytes(self, x) -> Tuple[int, int]:
+        """(bytes of ``x``, bytes of ``A @ x``) for ``spmv_traffic_bytes``."""
+        out_bytes = self.shape[0] * torch.promote_types(self.dtype,
+                                                        x.dtype).itemsize
+        if x.dim() == 2:
+            out_bytes *= int(x.shape[1])
+        return x.numel() * x.element_size(), out_bytes
+
+    def bsr_traffic_bytes(self, st, x) -> int:
+        """Bytes one ``A @ x`` through the BSR kernels over the block
+        list ``st`` (``ops/bsr.py::build_structure`` of this matrix)
+        must move: the stored nonzeros, ``indptr``, the block list
+        (``bcol``, ``bptr``), x and y.  ``spmv_traffic_bytes``'s
+        ``"bsr"`` model, for a structure the matrix has not cached."""
+        x_bytes, out_bytes = self._operand_bytes(x)
+        return int(self.nnz * (self._data.element_size()
+                               + self._indices.element_size())
+                   + sum(t.numel() * t.element_size()
+                         for t in (self._indptr, st.bcol, st.bptr))
+                   + x_bytes + out_bytes)
+
     def spmv_traffic_bytes(self, x, path: Optional[str] = None) -> int:
         """Bytes one ``A @ x`` (or ``A @ X``) must move through the path
         ``path`` (a dispatch label; None: the path the built structure
@@ -1516,25 +1541,16 @@ class csr_array(CompressedBase):
         (``bcol``, ``bptr``), where the JAX package prices its
         densified blocks.  The ``-bf16`` variants stream what their
         families do, at the storage's itemsizes."""
-        n = self.shape[0]
         if path is not None and path.endswith("-bf16"):
             path = path[: -len("-bf16")]
-        x_bytes = x.numel() * x.element_size()
-        out_bytes = n * torch.promote_types(self.dtype,
-                                            x.dtype).itemsize
-        if x.dim() == 2:
-            out_bytes *= int(x.shape[1])
+        x_bytes, out_bytes = self._operand_bytes(x)
         val_b = self._data.element_size()
         idx_b = self._indices.element_size()
         dia = self._dia if self._dia is not False else None
         if path is not None and not path.startswith("dia"):
             dia = None
         if path == "bsr" and self._bsr not in (None, False):
-            st = self._bsr
-            return int(self.nnz * (val_b + idx_b)
-                       + sum(t.numel() * t.element_size()
-                             for t in (self._indptr, st.bcol, st.bptr))
-                       + x_bytes + out_bytes)
+            return self.bsr_traffic_bytes(self._bsr, x)
         if dia is not None:
             dia_data, _offsets, mask = dia
             mask_bytes = mask.numel() if mask is not None else 0

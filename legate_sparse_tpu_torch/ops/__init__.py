@@ -4,8 +4,25 @@
 
 ``dia_kernel`` and ``bsr`` each hold a hand-written CUDA kernel
 (sources in ``../csrc``, built by ``_build``) beside its plain PyTorch
-version; ``convert``, ``spmv`` and ``dia_ops`` are plain PyTorch.
+version; ``convert``, ``spmv``, ``spgemm`` and ``dia_ops`` are plain
+PyTorch.  The package re-exports the JAX package's names: the plain
+products, conversions and SpGEMM (``dia_spmv``/``dia_spmm`` are
+``dia_ops``' plain DIA products; the kernel wrappers are
+``kernel_wrappers()``'s).
 """
+
+from .spmv import csr_spmv, csr_spmm  # noqa: F401
+from .convert import (  # noqa: F401
+    row_ids_from_indptr,
+    indptr_from_row_ids,
+    dense_to_csr,
+    csr_to_dense,
+    coo_to_csr,
+    csr_transpose,
+    csr_diagonal,
+)
+from .spgemm import spgemm_csr_csr_csr_impl, coalesce_coo  # noqa: F401
+from .dia_ops import dia_spmv, dia_spmm  # noqa: F401
 
 
 def kernel_wrappers() -> dict:

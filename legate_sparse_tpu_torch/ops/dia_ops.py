@@ -24,6 +24,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from ..types import coord_dtype_for, index_dtype, nnz_dtype
+from . import dia_kernel as _dia_kernel
 from .convert import row_ids_from_indptr
 
 
@@ -76,6 +77,13 @@ def dia_from_csr(data, indices, row_ids, offsets: Tuple[int, ...],
                        device=data.device)
     mask[d_idx, col] = True
     return out, mask
+
+
+def dia_spmv(data, x, offsets: Tuple[int, ...],
+             shape: Tuple[int, int]) -> torch.Tensor:
+    """y = A @ x over scipy-layout DIA storage (``A[j-off, j] =
+    data[d, j]``), every slot explicit."""
+    return dia_spmv_nopad(data, None, x, offsets, shape)
 
 
 def dia_spmv_nopad(data, mask, x, offsets: Tuple[int, ...],
@@ -155,6 +163,11 @@ def dia_spmm_masked(data, mask, X, offsets: Tuple[int, ...],
             contrib = torch.where(mask[d, j_lo:j_hi, None], contrib, zero)
         Y[j_lo - off:j_hi - off] += contrib
     return Y
+
+
+# The JAX package's plain DIA SpGEMM: here it is the SpGEMM kernel's plain
+# version.
+dia_spgemm = _dia_kernel.dia_spgemm_plain
 
 
 def band_product_offsets(offs_a: Tuple[int, ...],

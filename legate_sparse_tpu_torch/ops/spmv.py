@@ -150,6 +150,11 @@ def ell_pack(data, indices, indptr, rows: int, W: int):
     return ell_data, ell_cols, counts
 
 
+# The JAX package's name for its device-side pack; every pack here is
+# built on the matrix's device.
+ell_pack_device = ell_pack
+
+
 def ell_spmv(ell_data, ell_cols, ell_counts, x) -> torch.Tensor:
     """SpMV over an ELL pack: one 2-D gather and a masked row sum."""
     W = ell_data.shape[1]

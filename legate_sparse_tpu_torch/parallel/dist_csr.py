@@ -179,6 +179,13 @@ class DistCSR:
         return self.mesh.get_local_rank(ROW_AXIS)
 
     @property
+    def shard_row_starts(self) -> np.ndarray:
+        """Global first row of each shard, host int64 (the JAX
+        package's formula)."""
+        return (np.arange(self.num_shards, dtype=np.int64)
+                * np.int64(self.rows_per_shard))
+
+    @property
     def rows_padded(self) -> int:
         if self.grid is not None:
             return self.grid[0] * self.rows_per_shard

@@ -29,6 +29,15 @@ wide_coord_ty = torch.int64
 # indptr / nnz counts.
 nnz_ty = torch.int64
 
+# The JAX module's dtype aliases: numpy dtypes, as there.
+float32 = np.dtype(np.float32)
+float64 = np.dtype(np.float64)
+int32 = np.dtype(np.int32)
+int64 = np.dtype(np.int64)
+uint64 = np.dtype(np.uint64)
+complex64 = np.dtype(np.complex64)
+complex128 = np.dtype(np.complex128)
+
 SUPPORTED_DATATYPES = (
     torch.bfloat16,
     torch.float32,

@@ -20,6 +20,7 @@ JAX package runs with x64 on).
 
 from __future__ import annotations
 
+import math
 from typing import Any, Tuple
 
 import numpy as np
@@ -144,6 +145,17 @@ def require_supported_dtype(dtype: torch.dtype) -> None:
             f"Operation not supported for dtype {dtype}; supported: "
             f"{[str(d) for d in SUPPORTED_DATATYPES]}"
         )
+
+
+def factor_int(n: int) -> Tuple[int, int]:
+    """Decompose n into a near-square grid (reference
+    ``utils.py:118-124``)."""
+    val = math.ceil(math.sqrt(n))
+    val2 = int(n / val)
+    while val2 * val != float(n):
+        val -= 1
+        val2 = int(n / val)
+    return val, val2
 
 
 def fill_out(result: torch.Tensor, out, check_shape: bool = True):

@@ -23,10 +23,11 @@ PORT_FILES = sorted(p.relative_to(ROOT).as_posix()
                     for p in PKG.rglob("*.py")) + ["bench_torch.py",
                                                    "chip_smoke.py",
                                                    "chip_spgemm_ab.py"]
-# ``bench`` and ``examples``' modules (``common`` among them) import the
-# JAX package at run time: the port keeps its own copies.
+# ``bench`` and ``examples``' modules (``common`` among them) and the
+# repo's ``tools`` import the JAX package at run time: the port keeps its
+# own copies.
 FORBIDDEN = ("jax", "jaxlib", "legate_sparse_tpu", "bench", "common",
-             "examples")
+             "examples", "tools")
 
 
 def _forbidden(module: str) -> bool:
@@ -105,10 +106,15 @@ def test_import_loads_no_jax():
         "import legate_sparse_tpu_torch.resilience.health\n"
         "import legate_sparse_tpu_torch.resilience.outcomes\n"
         "import legate_sparse_tpu_torch.resilience.policy\n"
+        "import legate_sparse_tpu_torch.tools\n"
+        "import legate_sparse_tpu_torch.tools.bench_compare\n"
+        "import legate_sparse_tpu_torch.tools.trace_summary\n"
+        "import legate_sparse_tpu_torch.tools.tune_irregular\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib',\n"
         "                                    'legate_sparse_tpu', 'bench',\n"
-        "                                    'common', 'examples'))\n"
+        "                                    'common', 'examples',\n"
+        "                                    'tools'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -151,7 +157,9 @@ def test_forbidden_matches_exact_module_names():
     assert _forbidden("jax.numpy")
     assert _forbidden("legate_sparse_tpu.ops.bsr")
     assert _forbidden("bench") and _forbidden("examples.common")
+    assert _forbidden("tools.bench_compare")
     assert not _forbidden("legate_sparse_tpu_torch.ops.bsr")
+    assert not _forbidden("legate_sparse_tpu_torch.tools.trace_summary")
     assert not _forbidden("bench_torch")
 
 
@@ -210,6 +218,22 @@ def test_tensor_inputs_keep_their_device(no_cuda):
 def test_facade_entry_points_raise_without_cuda(no_cuda, make):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make()
+
+
+def test_tools_run_on_cuda_unless_asked(no_cuda):
+    """``tune_irregular`` runs on ``cuda`` by default and raises without
+    a card; ``bench_compare`` and ``trace_summary`` read files only."""
+    from legate_sparse_tpu_torch.tools import tune_irregular
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tune_irregular.main(["--smoke"])
+    for name in ("bench_compare", "trace_summary"):
+        tree = ast.parse((PKG / "tools" / f"{name}.py").read_text())
+        mods = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                for a in n.names]
+        mods += [n.module or "" for n in ast.walk(tree)
+                 if isinstance(n, ast.ImportFrom)]
+        assert not [m for m in mods if m.split(".")[0] == "torch"], mods
 
 
 def test_facade_entry_points_on_request(no_cuda):
