@@ -43,13 +43,14 @@ import argparse
 import contextlib
 import json
 import sys
-import time
 
 import numpy as np
 import torch
 
 from .. import linalg
 from ..csr import csr_array, csr_matrix
+from ..obs import timeline as _timeline
+from ..obs import trace as _trace
 from ..runtime import resolve_device
 from ..types import to_torch_dtype
 from .common import diffusion2D, poisson2D
@@ -60,18 +61,10 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-class _Clock:
-    """Seconds between calls of ``lap``, the device synchronised."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        _sync(device)
-        self.t = time.perf_counter()
-
-    def lap(self) -> float:
-        _sync(self.device)
-        t, self.t = self.t, time.perf_counter()
-        return self.t - t
+def _synced_ns(device: torch.device) -> int:
+    """``obs``'s clock, read once the device is synchronised."""
+    _sync(device)
+    return _trace.clock_ns()
 
 
 def max_eigenvalue(A, iters: int = 15) -> float:
@@ -185,41 +178,57 @@ class GMG:
     def compute_operators(self, A):
         """The (R, A_c, P) of every level; ``self.build_s`` splits the
         seconds between the restriction operators, the Galerkin
-        products and the smoother's set-up."""
+        products and the smoother's set-up, each the sum of its laps
+        (the device synchronised at every lap's end).  While tracing,
+        each lap is a span ``gmg.build.<part>`` with its ``level``."""
         operators = []
         dim = self.N
         self.build_s = {"restriction": 0.0, "galerkin": 0.0, "smoother": 0.0}
-        clock = _Clock(A.device)
+        t = _synced_ns(A.device)
+
+        def lap(part: str, level: int) -> None:
+            nonlocal t
+            now = _synced_ns(A.device)
+            self.build_s[part] += (now - t) * 1e-9
+            _trace.complete_span("gmg.build." + part, t, now - t,
+                                 level=level)
+            t = now
+
         self.smoother.init_level_params(A, 0)
-        self.build_s["smoother"] += clock.lap()
+        lap("smoother", 0)
         for level in range(self.levels):
             R, dim = self.restriction_op(dim, dtype=A.dtype, device=A.device)
             P = R.T
-            self.build_s["restriction"] += clock.lap()
+            lap("restriction", level)
             RA = R @ A              # Galerkin triple product: two SpGEMMs
             A = RA @ P
             self.spgemm_paths.append({"R@A": R.spgemm_path,
                                       "RA@P": RA.spgemm_path})
             del RA
-            self.build_s["galerkin"] += clock.lap()
+            lap("galerkin", level + 1)
             self.smoother.init_level_params(A, level + 1)
-            self.build_s["smoother"] += clock.lap()
+            lap("smoother", level + 1)
             operators.append((R, A, P))
         return operators
 
     def cycle(self, r):
-        return self._cycle(self.A, r, 0)
+        """One V-cycle (a span ``gmg.cycle`` while tracing)."""
+        with _trace.span("gmg.cycle"):
+            return self._cycle(self.A, r, 0)
 
     def _cycle(self, A, r, level: int):
-        if level == self.levels - 1:
-            return self.smoother.coarse(A, r, None, level=level)
-        R, coarse_A, P = self.operators[level]
-        x = self.smoother.pre(A, r, None, level=level)
-        fine_r = r - A.dot(x)
-        coarse_r = R.dot(fine_r)
-        coarse_x = self._cycle(coarse_A, coarse_r, level + 1)
-        x_corrected = x + P @ coarse_x
-        return self.smoother.post(A, r, x_corrected, level=level)
+        """The V-cycle from ``level`` down (a span ``gmg.level`` while
+        tracing, holding the spans of the levels below)."""
+        with _trace.span("gmg.level", level=level, rows=A.shape[0]):
+            if level == self.levels - 1:
+                return self.smoother.coarse(A, r, None, level=level)
+            R, coarse_A, P = self.operators[level]
+            x = self.smoother.pre(A, r, None, level=level)
+            fine_r = r - A.dot(x)
+            coarse_r = R.dot(fine_r)
+            coarse_x = self._cycle(coarse_A, coarse_r, level + 1)
+            x_corrected = x + P @ coarse_x
+            return self.smoother.post(A, r, x_corrected, level=level)
 
     def linear_operator(self):
         return linalg.LinearOperator(self.A.shape, dtype=self.A.dtype,
@@ -248,29 +257,21 @@ def print_diagnostics(operators) -> str:
 
 
 def profile_device(fn, device: torch.device, top: int = 12) -> dict:
-    """Run ``fn`` once under ``torch.profiler``: the device time summed
-    over kernels, its share of the wall time (the profiler's own
-    overhead included, so a lower bound) and the ``top`` kernels by
-    device time.  A first, empty profile takes the profiler's one-off
-    start-up out of the measured one."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts):
-        torch.zeros(1, device=device).add_(1)
-        _sync(device)
-    clock = _Clock(device)
-    with profile(activities=acts) as prof:
+    """Run ``fn`` once inside ``obs.timeline.Slice``: the device time
+    summed over its operations, its share of the slice's wall time and
+    the ``top`` operations by device time.  Off a card nothing is
+    profiled and the device time reads 0."""
+    t0 = _trace.clock_ns()
+    with _timeline.Slice(device) as sl:
         fn()
-        _sync(device)
-    wall_ms = clock.lap() * 1e3
-    # Kernels only: an operator's event repeats its kernels' time.
-    rows = sorted(((ev.self_device_time_total / 1e3, ev.key, ev.count)
-                   for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA),
+    tl = sl.timeline
+    wall_ms = (sl.wall_s * 1e3 if tl is not None
+               else (_trace.clock_ns() - t0) * 1e-6)
+    by: dict = {}
+    for name, start, end, _ in (tl.ops if tl is not None else ()):
+        ms, count = by.get(name, (0.0, 0))
+        by[name] = (ms + (end - start) * 1e-3, count + 1)
+    rows = sorted(((ms, k, c) for k, (ms, c) in by.items()),
                   key=lambda r: -r[0])
     device_ms = sum(r[0] for r in rows)
     return {"wall_ms": wall_ms, "device_ms": device_ms,
@@ -319,21 +320,23 @@ def solve(N: int, levels: int, gridop: str = "linear", tol: float = 1e-10,
     A = _operator(data, N, dtype, dev)
     b64 = torch.from_numpy(np.random.default_rng(0).random(N * N)).to(dev)
     b = b64.to(dtype)
-    clock = _Clock(dev)
+    t0 = _synced_ns(dev)
     mg = GMG(A, (N, N), levels, "jacobi", gridop, power_iters)
     M = mg.linear_operator()
-    build_s = clock.lap()
+    t1 = _synced_ns(dev)
     # Warm the structure caches (DIA, ELL and BSR packs) and kernels
     # outside the timed solve.
     zero = torch.zeros(N * N, dtype=dtype, device=dev)
     A.dot(zero)
     M.matvec(zero)
-    first_cycle_s = clock.lap()
+    t2 = _synced_ns(dev)
     with watch():
         x, iters = linalg.cg(
             A, b, rtol=tol, maxiter=maxiter, M=M,
             callback=_residual_printer(A, b) if verbose else None)
-    solve_s = clock.lap()
+    t3 = _synced_ns(dev)
+    build_s, first_cycle_s, solve_s = (
+        (t1 - t0) * 1e-9, (t2 - t1) * 1e-9, (t3 - t2) * 1e-9)
     rel, floor = _residuals(A, b64, x)
     out = {"grid": f"{N}x{N}", "n": N * N, "data": data, "levels": levels,
            "gridop": gridop, "dtype": str(dtype).split(".")[-1],
@@ -348,9 +351,9 @@ def solve(N: int, levels: int, gridop: str = "linear", tol: float = 1e-10,
            "smoother_spgemm_paths": mg.smoother.spgemm_paths,
            "spmv_paths": mg.spmv_paths(), "x": x, "gmg": mg}
     if compare_plain:
-        clock.lap()
+        t0 = _synced_ns(dev)
         xp, iters_p = linalg.cg(A, b, rtol=tol, maxiter=plain_maxiter)
-        plain_s = clock.lap()
+        plain_s = (_synced_ns(dev) - t0) * 1e-9
         rel_p, _ = _residuals(A, b64, xp)
         out.update(plain_iters=int(iters_p), plain_s=plain_s,
                    plain_ms_per_iter=plain_s * 1e3 / max(int(iters_p), 1),
@@ -395,16 +398,16 @@ def _distributed_rank(rank, world, N, data, levels, gridop, tol, maxiter,
     A = _operator(data, N, dtype, dev)
     b64 = torch.from_numpy(np.random.default_rng(0).random(N * N)).to(dev)
     b = b64.to(dtype)
-    clock = _Clock(dev)
+    t0 = _synced_ns(dev)
     dA = P.shard_csr(A, mesh=P.make_row_mesh())
     mg = P.DistGMG(dA, levels=levels, gridop=gridop, power_iters=power_iters)
-    build_s = clock.lap()
+    build_s = (_synced_ns(dev) - t0) * 1e-9
     diagnostics = mg.diagnostics()
     callback = _residual_printer(A, b, rank == 0) if verbose else None
-    clock.lap()
+    t0 = _synced_ns(dev)
     x, iters = P.dist_cg(dA, b, M=mg.cycle, rtol=tol, maxiter=maxiter,
                          callback=callback)
-    solve_s = clock.lap()
+    solve_s = (_synced_ns(dev) - t0) * 1e-9
     x = x.full_tensor()
     rel, floor = _residuals(A, b64, x)
     out = {"mode": "distributed", "grid": f"{N}x{N}", "n": N * N,

@@ -1361,19 +1361,21 @@ class csr_array(CompressedBase, DenseSparseBase):
         else:
             A, x = cast_to_common_type(self, x)
             src = self if A is self else None
-        with _lat.timer("lat.spmv." + _lat.shape_bucket(rows)), \
-                _trace.span("spmv") as sp:
-            y, path = self._routed(src, x, _engine_route_matvec,
-                                   _autotune_route_matvec)
-            if y is None:
-                y, path = self._spmv(A, src, x, lowp)
+        with _trace.span("spmv") as sp:
+            with _lat.timer("lat.spmv." + _lat.shape_bucket(rows)):
+                y, path = self._routed(src, x, _engine_route_matvec,
+                                       _autotune_route_matvec)
+                if y is None:
+                    y, path = self._spmv(A, src, x, lowp)
             if sp is not None:
-                # The engine's plan is the CSR gather over padded
-                # operands: its traffic is the CSR model's.
-                sp.set(path=path, rows=rows, nnz=self.nnz,
-                       bytes=A.spmv_traffic_bytes(
-                           x, path="csr" if path == "engine" else path),
-                       flops=2 * self.nnz)
+                # Priced after the span's interval ends.  The engine's
+                # plan is the CSR gather over padded operands: its
+                # traffic is the CSR model's.
+                sp.stop().set(path=path, rows=rows, nnz=self.nnz,
+                              bytes=A.spmv_traffic_bytes(
+                                  x, path="csr" if path == "engine"
+                                  else path),
+                              flops=2 * self.nnz)
         self.spmv_path = path
         if squeeze:
             y = y[:, None]
@@ -1498,10 +1500,12 @@ class csr_array(CompressedBase, DenseSparseBase):
                                            rows, serial=self._serial_rows())
                     path = "csr"
             if sp is not None:
-                sp.set(path=path, rows=rows, k=int(k), nnz=self.nnz,
-                       flops=2 * self.nnz * int(k),
-                       bytes=A.spmv_traffic_bytes(
-                           X, path="csr" if path == "engine" else path))
+                # Priced after the span's interval ends.
+                sp.stop().set(path=path, rows=rows, k=int(k), nnz=self.nnz,
+                              flops=2 * self.nnz * int(k),
+                              bytes=A.spmv_traffic_bytes(
+                                  X, path="csr" if path == "engine"
+                                  else path))
         self.spmm_path = path
         return Y
 

@@ -58,7 +58,6 @@ from __future__ import annotations
 import atexit
 import itertools
 import threading
-import time
 import weakref
 from concurrent.futures import Future
 from typing import Dict, List, Optional, Tuple
@@ -122,7 +121,7 @@ class _Request:
         # mints one; rides the record because contextvars do not cross
         # into the worker thread that dispatches this request.
         self.tctx = _context.mint(rid=self.rid)
-        self.t_ns = time.perf_counter_ns()
+        self.t_ns = _trace.clock_ns()
         # Stamped when the request is popped from the queue into a
         # dispatch group ("batched"); None when it never queued
         # (inline service, admission shed, rejection).
@@ -144,7 +143,7 @@ class _Request:
         if self._finished:
             return
         self._finished = True
-        now = time.perf_counter_ns()
+        now = _trace.clock_ns()
         t_pop = self.t_popped if self.t_popped is not None else now
         queue_ms = (t_pop - self.t_ns) / 1e6
         batch_ms = ((t_dispatch - t_pop) / 1e6
@@ -175,7 +174,7 @@ class _Request:
 
     def shed(self, site: str, reason: str = "deadline_shed") -> None:
         """Resolve with the typed Rejected outcome (never dispatched)."""
-        waited_ms = (time.perf_counter_ns() - self.t_ns) / 1e6
+        waited_ms = (_trace.clock_ns() - self.t_ns) / 1e6
         _obs.inc("resil.shed")
         _obs.inc(f"resil.shed.{site}")
         _obs.event("resil.shed", site=site, reason=reason,
@@ -334,7 +333,7 @@ class RequestExecutor:
     def _stamp_popped(group: List[_Request]) -> None:
         """Lifecycle transition queued -> batched: the group just left
         the queue as one dispatch unit."""
-        now = time.perf_counter_ns()
+        now = _trace.clock_ns()
         for r in group:
             r.t_popped = now
 
@@ -350,7 +349,7 @@ class RequestExecutor:
         is zero and the pick is simply oldest-first."""
         if not self._groups:
             return None
-        now = time.perf_counter_ns()
+        now = _trace.clock_ns()
         age_bound_ns = 2.0 * self.timeout_ms * 1e6
         aged = [t for t, g in self._groups.items()
                 if now - g[0].t_ns >= age_bound_ns]
@@ -402,7 +401,7 @@ class RequestExecutor:
                     self._cv.wait()
                 if self._shutdown:
                     return
-                now = time.perf_counter_ns()
+                now = _trace.clock_ns()
                 oldest = min(g[0].t_ns for g in self._groups.values())
                 wait_s = (oldest + self.timeout_ms * 1e6 - now) / 1e9
                 if wait_s > 0:
@@ -422,7 +421,7 @@ class RequestExecutor:
         # ("inline", ~0 wait) from a queued-and-batched request served
         # here after its batch dispatch failed ("fallback", real
         # queue wait) — conflating them would corrupt the ledger.
-        t0 = time.perf_counter_ns()
+        t0 = _trace.clock_ns()
         if req.t_popped is None:
             req.t_popped = t0
         try:
@@ -456,7 +455,7 @@ class RequestExecutor:
                 return
             group = live
         k = len(group)
-        t_disp = time.perf_counter_ns()
+        t_disp = _trace.clock_ns()
         queue_ns = sum(t_disp - r.t_ns for r in group)
         _obs.inc("engine.exec.batches")
         _obs.inc("engine.exec.batched_requests", k)

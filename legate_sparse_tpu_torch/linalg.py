@@ -34,8 +34,9 @@ cycle.
 Observability, under the JAX package's names (``obs``): ``op.cg``,
 ``op.gmres`` and ``op.bicgstab`` per call; ``lat.cg.solve.<bucket>``,
 ``lat.gmres.cycle.<bucket>`` and ``lat.bicgstab.solve.<bucket>``
-histograms of host time; spans ``cg``, ``gmres.cycle``, ``bicgstab``
-and ``<solver>.refine`` while tracing is on; and
+histograms of host time; spans ``cg``, ``cg.iter`` (each CG
+iteration), ``cg.fetch`` (each convergence fetch), ``gmres.cycle``,
+``bicgstab`` and ``<solver>.refine`` while tracing is on; and
 ``transfer.host_sync.{cg_conv,gmres_conv,<solver>_refine}`` at each
 fetch.  The JAX package's one-shot CG loop never fetches, so it counts
 no ``cg_conv`` (its chunked resilience loop does); the port's CG
@@ -562,38 +563,46 @@ def _cg_stretch(A_mv: Callable, M_mv: Callable, state, limit: int,
     real_dt = atol2.dtype
     stats = fetched = None
     while iters < limit:
-        z = M_mv(r)
-        rho = _vdot(r, z)
-        if iters == 0:
-            beta = torch.zeros_like(rho)
-        else:
-            beta = _safe_div(rho, rho_old)
-        p = z + beta * p
-        q = A_mv(p)
-        alpha = _safe_div(rho, _vdot(p, q))
-        x = x + alpha * p
-        r = r - alpha * q
-        rho_old = rho
-        iters += 1
-        if callback is not None:
-            callback(x)
-        if iters % conv_test_iters == 0 or iters == maxiter - 1:
-            rnorm2 = _vdot(r, r).real
-            if not hold:
-                converged = _host_fetch(rnorm2 < atol2)[0]
-                _obs_counters.handle("transfer.host_sync.cg_conv").inc()
-                if converged:
+        with _trace.span("cg.iter"):
+            z = M_mv(r)
+            rho = _vdot(r, z)
+            if iters == 0:
+                beta = torch.zeros_like(rho)
+            else:
+                beta = _safe_div(rho, rho_old)
+            p = z + beta * p
+            q = A_mv(p)
+            alpha = _safe_div(rho, _vdot(p, q))
+            x = x + alpha * p
+            r = r - alpha * q
+            rho_old = rho
+            iters += 1
+            if callback is not None:
+                callback(x)
+            if iters % conv_test_iters == 0 or iters == maxiter - 1:
+                rnorm2 = _vdot(r, r).real
+                if not hold:
+                    if _cg_fetch(rnorm2 < atol2)[0]:
+                        break
+                    continue
+                stats = torch.stack([(rnorm2 < atol2).to(real_dt), rnorm2])
+                if iters == limit:
                     break
-                continue
-            stats = torch.stack([(rnorm2 < atol2).to(real_dt), rnorm2])
-            if iters == limit:
-                break
-            fetched = _host_fetch(stats)
-            _obs_counters.handle("transfer.host_sync.cg_conv").inc()
-            stats = None
-            if fetched[0]:
-                break
+                fetched = _cg_fetch(stats)
+                stats = None
+                if fetched[0]:
+                    break
     return (x, r, p, rho_old, iters), stats, fetched
+
+
+def _cg_fetch(t: torch.Tensor) -> List[float]:
+    """``_host_fetch`` of a CG convergence test: counted as
+    ``transfer.host_sync.cg_conv`` and, while tracing, inside a
+    ``cg.fetch`` span."""
+    with _trace.span("cg.fetch"):
+        out = _host_fetch(t)
+    _obs_counters.handle("transfer.host_sync.cg_conv").inc()
+    return out
 
 
 def _cg_loop(A_mv: Callable, M_mv: Callable, b: torch.Tensor,
@@ -645,8 +654,7 @@ def _cg_loop(A_mv: Callable, M_mv: Callable, b: torch.Tensor,
         with _lat.timer(lat_name):
             state, stats, fetched = _rpolicy.run(site, attempt)
         if stats is not None:
-            fetched = _host_fetch(stats)
-            _obs_counters.handle("transfer.host_sync.cg_conv").inc()
+            fetched = _cg_fetch(stats)
         it = state[4]
         done = False
         if fetched is not None:
@@ -750,14 +758,15 @@ def cg(A, b, x0=None, tol=None, maxiter=None, M=None,
     if callback is not None:
         return _cg_loop(A_op.matvec, M_op.matvec, b, x, atol, int(maxiter),
                         int(conv_test_iters), callback)
-    with _lat.timer("lat.cg.solve." + _lat.shape_bucket(n)), \
-            _trace.span("cg", n=n, maxiter=int(maxiter)) as sp:
-        x, iters = _cg_loop(
-            A_op.matvec, M_op.matvec, b, x, atol, int(maxiter),
-            int(conv_test_iters),
-            site="solver.cg.conv" if _resil_solver_active() else None)
+    with _trace.span("cg", n=n, maxiter=int(maxiter)) as sp:
+        with _lat.timer("lat.cg.solve." + _lat.shape_bucket(n)):
+            x, iters = _cg_loop(
+                A_op.matvec, M_op.matvec, b, x, atol, int(maxiter),
+                int(conv_test_iters),
+                site="solver.cg.conv" if _resil_solver_active() else None)
         if sp is not None:
-            sp.set(iters=iters)
+            # Priced after the span's interval ends.
+            sp.stop().set(iters=iters)
             src = getattr(A_op, "A", None)
             if isinstance(src, csr_array):
                 sp.set(nnz=src.nnz * iters,

@@ -28,6 +28,8 @@ JAX package's names, so one dashboard or test reads both packages:
 - ``slo`` — per-(op, QoS) latency objectives evaluated as burn rates
   over the ``lat.*`` histograms; inert without
   ``LEGATE_SPARSE_TPU_OBS_SLO``;
+- ``timeline`` — the spans joined to a ``torch.profiler`` trace:
+  device time and idle gaps by program span (``timeline.Slice``);
 - ``report`` / ``regress`` — the ledger tables and the bench-trajectory
   comparator; ``doctor`` (``python -m legate_sparse_tpu_torch.obs.doctor``)
   diagnoses saved artifacts.
@@ -42,12 +44,13 @@ Enable tracing with ``LEGATE_SPARSE_TPU_OBS=1`` (read once at import),
 
 Disabled (the default) the span API is a no-op returning a shared null
 context manager; counters and histograms stay live either way.  No
-span, timer or counter synchronises with the card.
+span, timer or counter synchronises with the card; only
+``timeline``'s anchors do.
 """
 
 from . import (  # noqa: F401
     attrib, capacity, comm, context, counters, export, latency, memory,
-    regress, report, slo, trace,
+    regress, report, slo, timeline, trace,
 )
 from .counters import inc, snapshot  # noqa: F401
 from .export import snapshot_openmetrics, write_openmetrics  # noqa: F401
@@ -59,7 +62,7 @@ from .trace import (  # noqa: F401
 
 __all__ = [
     "attrib", "capacity", "comm", "context", "counters", "export",
-    "latency", "memory", "regress", "report", "slo", "trace",
+    "latency", "memory", "regress", "report", "slo", "timeline", "trace",
     "inc", "snapshot", "observe",
     "snapshot_openmetrics", "write_openmetrics",
     "complete_span", "enable", "disable", "enabled", "event", "records",

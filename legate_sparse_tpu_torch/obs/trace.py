@@ -21,7 +21,15 @@ Tracing activates only through ``LEGATE_SPARSE_TPU_OBS=1`` (read at
 import, the JAX package's switch), ``settings.obs = True`` or
 ``enable()``.  A span times the host's dispatch of its body and never
 synchronises with the card: a kernel launched inside it may still be
-running when it closes.  Device time is measured with CUDA events.
+running when it closes.  Device time is measured with CUDA events, or
+by joining the spans to a ``torch.profiler`` trace (``obs.timeline``).
+
+Clock
+-----
+Every time stamp here (``Span``, ``event``) comes from ``clock_ns``,
+and callers of ``complete_span`` take theirs from it too, so all
+records share one time axis.  ``obs.timeline`` maps that axis onto the
+profiler's with an offset read from an anchor both sides record.
 
 First call vs steady state
 --------------------------
@@ -103,6 +111,11 @@ def reset() -> None:
         _seq_by_name.clear()
 
 
+def clock_ns() -> int:
+    """The clock of every record: ``time.perf_counter_ns``."""
+    return time.perf_counter_ns()
+
+
 def _depth_stack() -> list:
     st = getattr(_tls, "stack", None)
     if st is None:
@@ -115,27 +128,34 @@ class Span:
     attributes discovered while the op runs (kernel choice, output
     nnz)."""
 
-    __slots__ = ("name", "attrs", "_t0", "_depth")
+    __slots__ = ("name", "attrs", "_t0", "_t1", "_depth")
 
     def __init__(self, name: str, attrs: Dict[str, Any]):
         self.name = name
         self.attrs = attrs
         self._t0 = 0
+        self._t1 = 0
         self._depth = 0
 
     def set(self, **attrs: Any) -> "Span":
         self.attrs.update(attrs)
         return self
 
+    def stop(self) -> "Span":
+        """End the span's interval here: the rest of the body (pricing
+        the span's own attributes) runs outside it."""
+        self._t1 = clock_ns()
+        return self
+
     def __enter__(self) -> "Span":
         st = _depth_stack()
         self._depth = len(st)
         st.append(self.name)
-        self._t0 = time.perf_counter_ns()
+        self._t0 = clock_ns()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
-        dur = time.perf_counter_ns() - self._t0
+        dur = (self._t1 or clock_ns()) - self._t0
         st = _depth_stack()
         if st and st[-1] == self.name:
             st.pop()
@@ -225,9 +245,10 @@ def complete_span(name: str, start_ns: int, dur_ns: int,
                   **attrs: Any) -> None:
     """Record an externally-timed span — a lifecycle that starts in
     one thread and ends in another, where a context manager can't
-    bracket it.  Takes the same per-name sequence slot and buffer-cap
-    treatment as ``Span``; ``depth`` is 0 (cross-thread lifecycles
-    have no nesting stack)."""
+    bracket it, or laps a caller already takes.  ``start_ns`` is a
+    ``clock_ns`` reading.  Takes the same per-name sequence slot and
+    buffer-cap treatment as ``Span``; ``depth`` is 0 (cross-thread
+    lifecycles have no nesting stack)."""
     if not _enabled:
         return
     if "trace_id" not in attrs and "trace_ids" not in attrs:
@@ -271,7 +292,7 @@ def event(name: str, **attrs: Any) -> None:
         rec: Dict[str, Any] = {
             "type": "event",
             "name": name,
-            "ts_ns": time.perf_counter_ns(),
+            "ts_ns": clock_ns(),
             "tid": threading.get_ident(),
         }
         if attrs:
@@ -281,10 +302,18 @@ def event(name: str, **attrs: Any) -> None:
         _records.append(rec)
 
 
-def records() -> List[Dict[str, Any]]:
-    """Snapshot of the buffered records (copy; safe to mutate)."""
+def mark() -> int:
+    """Where the buffer ends now: ``records(mark())`` later holds the
+    records made since."""
     with _lock:
-        return [dict(r) for r in _records]
+        return len(_records)
+
+
+def records(since: int = 0) -> List[Dict[str, Any]]:
+    """Snapshot of the buffered records from position ``since`` on
+    (copy; safe to mutate)."""
+    with _lock:
+        return [dict(r) for r in _records[since:]]
 
 
 def _json_default(obj: Any) -> Any:
