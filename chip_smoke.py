@@ -10,7 +10,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 Phases, each printing one JSON line:
 
 1. device: the card's name and ``nvidia-smi`` power limit;
-2. build: the five CUDA kernels from ``legate_sparse_tpu_torch/csrc``
+2. build: the six CUDA kernels from ``legate_sparse_tpu_torch/csrc``
    (one nvcc each, started together), their seconds and ptxas'
    registers and spills;
 3. kernels against their plain PyTorch versions on the card: DIA SpMV
@@ -65,10 +65,19 @@ Phases, each printing one JSON line:
    true relative residual in f64 beside its f32 floor) and plain CG on
    the same system and tolerance, which must take more iterations.
    The launch counts are those of the GMG-CG solve alone, and must
-   equal what its operators' SpMV paths call for.  Every level's
-   Galerkin product is held to scipy's f64 ``R @ A @ P`` on a seeded
-   sample of rows, and x to the exact solution of the f64 system (by
-   the discrete sine transform on the host);
+   equal what its operators' SpMV paths call for (``dia_spmv``,
+   ``bsr_spmv``, and the ELL SpMV of R and P at the fine levels).  Every
+   level's Galerkin product is held to scipy's f64 ``R @ A @ P`` on a
+   seeded sample of rows, every R and P on the ELL route (the ELL
+   kernel) bit for bit to its products summed in slot order
+   (``ell_spmv_ordered``) and within 1e-5 of the plain ops, and x to
+   the exact solution of the f64 system (by the discrete sine transform
+   on the host).  Then (``timing_ell``) the 8192x8192 grid's level-0
+   restriction (W 9) and prolongation (W 4), the 8192² GMG cell's ELL
+   products, held the same way and to the library product, and timed
+   as phase 13 times a kernel, ``bound_ms`` from the bytes the product
+   needs (the stored entries, the row counts, x and y) beside the
+   padded pack's bytes;
 9. the scipy facade (``main_path_facade``) at full size, into the
    kernels: on the pde_4096 operator, ``tril(A) + triu(A, 1)`` equal to
    A bit for bit and its ``@ x`` through ``"dia-kernel"`` equal to
@@ -189,7 +198,8 @@ Phases, each printing one JSON line:
    its device time per call under ``torch.profiler`` over the same 10
    calls (the trace must hold no copy and fewer synchronisations than
    calls), and the aliased ``A @ A`` whole and split into the kernel and
-   ``band_to_csr``;
+   ``band_to_csr``.  The ELL SpMV, which replaces no TPU kernel, is
+   timed in phase 8 and takes two rows of the ``kernels`` line;
 14. the distribution layer (``main_path_distributed``,
    ``phase14_rank``) on one NCCL rank started by
    ``parallel.launch.run_ranks`` (a ``FileStore`` rendezvous in a
@@ -220,7 +230,9 @@ Phases, each printing one JSON line:
    phase 8's settings (its build s, the products' realization, the
    V-cycle's routes per level, phase 8's iteration count, x within 2e-4
    of phase 8's iterate, the f64 true residual within twice its f32
-   floor, a V-cycle's ms and profile); every run's launches exactly
+   floor, its ELL launches what its routes call for, each R and P row
+   block on the ELL route held as in phase 8, a V-cycle's ms and
+   profile); every run's launches exactly
    what it calls for, the ``comm.*`` counters empty as their formulas
    predict at one rank, and the timings of the distributed SpMV and
    SpMM beside the kernels on the window (ms, host ms a call, a
@@ -389,7 +401,10 @@ in phase 16, the gateway load) drives its path and read just after; the
 ``kernels`` line's launches add phases 10's, 11's, 12's, 14's, 15's,
 16's, 17's, 18's, 19's and 20's to those of phases 4-7, and its
 ``max_abs_err`` is the largest over the kernel's shapes in phases 4-7,
-10-12, 14, 19 and 20.  Any
+10-12, 14, 19 and 20.  The ELL SpMV's two rows (level 0's R and P at
+8192², ``replaces`` null) count every launch of its kernel in this
+process and in phase 14's rank, and take the largest error of its
+checks against the plain ops in phases 8 and 14.  Any
 failed check raises, so the script exits non-zero; it exits non-zero
 without printing a result when there is no CUDA device.  The last three
 lines are the ``kernels`` JSON object, the ``nvidia-smi`` line and
@@ -552,7 +567,8 @@ def phase14_rank(rank, world, gmg_ref=None):
     from legate_sparse_tpu_torch import parallel as P
     from legate_sparse_tpu_torch.apps import gmg as gmg_app
     from legate_sparse_tpu_torch.ops import bsr as bsr_ops
-    from legate_sparse_tpu_torch.ops import dia_kernel
+    from legate_sparse_tpu_torch.ops import dia_kernel, ell_kernel
+    from legate_sparse_tpu_torch.ops import spmv as spmv_ops
     from legate_sparse_tpu_torch.parallel import dist_csr as D
 
     spgemm_mod = importlib.import_module(
@@ -1000,9 +1016,15 @@ def phase14_rank(rank, world, gmg_ref=None):
             return fine + it * cyc
         return count
 
+    ell0 = ell_kernel.ell_spmv.launches
     xg, itg = run("DistGMG-CG", lambda: P.dist_cg(
         dG, bg, rtol=1e-5, maxiter=200, M=mg.cycle),
         dia_spmv=gmg_want("dia-kernel"), bsr_spmv=gmg_want("bsr"))
+    gmg_rec["ell_launches"] = ell_kernel.ell_spmv.launches - ell0
+    gmg_rec["ell_launches_expected"] = gmg_want("ell")((xg, itg))
+    check(gmg_rec["ell_launches"] == gmg_rec["ell_launches_expected"],
+          f"DistGMG-CG launched ell_spmv {gmg_rec['ell_launches']} times, "
+          f"its routes call for {gmg_rec['ell_launches_expected']}")
     gmg_rec["routes"] = [{"A": levels_A[lv].spmv_path,
                           "R": mg.operators[lv][0].spmv_path,
                           "P": mg.operators[lv][2].spmv_path}
@@ -1046,6 +1068,28 @@ def phase14_rank(rank, world, gmg_ref=None):
     check(len(gmg_rec["bsr_held"]) == sum(
         r == "bsr" for lv in gmg_rec["routes"] for r in lv.values()),
         "a BSR route of the V-cycle was not held against its plain version")
+    # Every V-cycle R and P row block that took the ELL route: the kernel
+    # bit for bit its slot-order sum and within 1e-5 of the plain ops, on
+    # a seeded x as long as the block's columns reach.
+    gmg_rec["ell_held"] = []
+    for lv in range(gmg_levels - 1):
+        for role, M in (("R", mg.operators[lv][0]),
+                        ("P", mg.operators[lv][2])):
+            if M.spmv_path != "ell":
+                continue
+            xs = torch.from_numpy(rng.standard_normal(
+                int(M.cols.max()) + 1).astype(np.float32)).to(dev)
+            pack = (M.data, M.cols, M.counts)
+            got = ell_kernel.ell_spmv(*pack, xs)
+            name = f"DistGMG level {lv} {role} row block (ELL)"
+            hold(name + " vs slot order", "ell_spmv", got,
+                 ell_kernel.ell_spmv_ordered(*pack, xs), True)
+            hold(name + " vs plain", "ell_spmv", got,
+                 spmv_ops.ell_spmv_plain(*pack, xs), False)
+            gmg_rec["ell_held"].append([lv, role, list(M.shape)])
+    check(len(gmg_rec["ell_held"]) == sum(
+        (lv["R"] == "ell") + (lv["P"] == "ell") for lv in gmg_rec["routes"]),
+        "an ELL route of the V-cycle was not held against its plain ops")
     gmg_rec["diagnostics"] = mg.diagnostics().splitlines()
     # One V-cycle alone: its ms and where its device time goes.
     gmg_rec["cycle_ms"] = time_ms(lambda: mg.cycle(bg), reps=5)
@@ -1062,7 +1106,9 @@ def phase14_rank(rank, world, gmg_ref=None):
     check(not any(b for v in predicted.values() for b in v.values())
           and not any(comm.values()),
           f"one rank moved bytes: {predicted}, {comm}")
-    return {"runs": runs, "launches": launches, "kernel_vs_plain": vs_plain,
+    return {"runs": runs, "launches": launches,
+            "ell_launches": ell_kernel.ell_spmv.launches,
+            "kernel_vs_plain": vs_plain,
             "timing": timing, "builds": builds, "band_spgemm": band_rec,
             "esc_spgemm": esc_rec, "dist_gmg": gmg_rec, "reshard": reshard_rec,
             "spmv_max_abs_err_vs_scipy_f64": vs_scipy,
@@ -3494,6 +3540,7 @@ def main() -> int:
     from legate_sparse_tpu_torch.ops import bsr as bsr_ops
     from legate_sparse_tpu_torch.ops import dia_kernel
     from legate_sparse_tpu_torch.ops import dia_ops
+    from legate_sparse_tpu_torch.ops import ell_kernel
     from legate_sparse_tpu_torch.ops import spmv as spmv_ops
 
     warnings.filterwarnings(
@@ -4335,8 +4382,10 @@ def main() -> int:
     @contextlib.contextmanager
     def counted():
         reset_counts()
+        ell0 = ell_kernel.ell_spmv.launches
         yield
-        gmg_counts.update(read_counts())
+        gmg_counts.update(read_counts(),
+                          ell_spmv=ell_kernel.ell_spmv.launches - ell0)
 
     grid = 4096
     sol = gmg_app.solve(grid, 8, gridop="linear", tol=1e-5,
@@ -4365,8 +4414,11 @@ def main() -> int:
     want = {"dia_spmv": (iters + 1) * (cycle[0]["A"] == "dia-kernel")
             + iters * 2 * sum(p["A"] == "dia-kernel" for p in cycle),
             "bsr_spmv": iters * sum((p["R"] == "bsr") + (p["P"] == "bsr")
+                                    for p in cycle),
+            "ell_spmv": iters * sum((p["R"] == "ell") + (p["P"] == "ell")
                                     for p in cycle)}
     check(want["dia_spmv"] > 0, "the GMG V-cycle has no DIA kernel path")
+    check(want["ell_spmv"] > 0, "the GMG V-cycle has no ELL kernel path")
     for name, count in want.items():
         check(gmg_counts[name] == count,
               f"GMG-CG launched {name} {gmg_counts[name]} times, its "
@@ -4401,6 +4453,32 @@ def main() -> int:
         A_h = Ac_h
     del A_h, R_h, P_h, Ac_h, ref, mag, diff, bad
 
+    # Every R and P of the V-cycle that took the ELL route, on a seeded x
+    # of its column count: the kernel bit for bit the products summed in
+    # slot order from +0.0 (``ell_spmv_ordered``), and within 1e-5 of the
+    # plain ops (``ell_spmv_plain``, whose row sums take another order).
+    ell_held = []
+    ell_rng = np.random.default_rng(8)
+    for level, (R_l, _A_c, P_l) in enumerate(mg.operators):
+        for role, M in (("R", R_l), ("P", P_l)):
+            if M.spmv_path != "ell":
+                continue
+            ell = M._get_ell()
+            v = torch.from_numpy(ell_rng.standard_normal(
+                M.shape[1]).astype(np.float32)).to(dev)
+            y = ell_kernel.ell_spmv(*ell, v)
+            what = f"GMG level {level} {role} ELL kernel"
+            check(torch.equal(y, ell_kernel.ell_spmv_ordered(*ell, v)),
+                  f"{what}: not bit for bit its slot-order sum")
+            err = close(y, spmv_ops.ell_spmv_plain(*ell, v), 1e-5,
+                        f"{what} vs plain")
+            ell_held.append({"level": level, "role": role,
+                             "shape": list(M.shape), "W": ell[0].shape[1],
+                             "max_abs_err": err})
+    check(len(ell_held) == sum((p["R"] == "ell") + (p["P"] == "ell")
+                               for p in cycle),
+          "an ELL route of the V-cycle was not held against its plain ops")
+
     # x against the exact solution of the f64 system, by the discrete
     # sine transform on the host: A = T (x) I + I (x) T with T =
     # tridiag(-1, 2, -1), whose eigenvectors are the DST-I basis.
@@ -4419,6 +4497,7 @@ def main() -> int:
          "first_cycle_s_with_host_bsr_pack": [8.72, 14.43],
          "launches": gmg_counts,
          "launches_expected": want, "galerkin_vs_scipy_f64": galerkin,
+         "ell_held": ell_held,
          "rel_error_to_exact": x_err, "exact_ref_rel_residual": ref_res,
          "hierarchy_report": hierarchy.splitlines()})
     # x is ~10^6 times b: the f64 rounding of x alone leaves ~5e-10.
@@ -4432,6 +4511,58 @@ def main() -> int:
                "iters": sol["iters"], "ms_per_iter": sol["ms_per_iter"]}
     np.save(gmg_ref["x"], x_gmg.cpu().numpy())
     del x_gmg, sol, mg, A_sp, x_ref, b64
+    torch.cuda.empty_cache()
+
+    # ---- 8a. ELL timings at the 8192^2 V-cycle's level 0 ---------------------
+    # The restriction R (W 9) and prolongation P = R.T (W 4) that the
+    # 8192^2 GMG cell's V-cycle gives to the ELL kernel, f32, int32
+    # columns: the kernel bit for bit its slot-order sum and within 1e-5
+    # of the plain ops and the library, then timed.  ``bound_ms`` counts
+    # the bytes the product needs, each once: the stored entries' values
+    # and columns, the row counts, x and y; ``pack_bytes`` the ELL pack's
+    # (its padded slots too), which the kernel reads.
+    R8, _ = gmg_app.linear_operator(8192 * 8192, dtype=torch.float32,
+                                    device=dev)
+    ell_rows = []
+    v8 = randx(R8.shape[1])
+    for role, M, v in (("R", R8, v8), ("P", R8.T, None)):
+        if v is None:
+            v = R8.dot(v8)
+        M.dot(v)
+        check(M.spmv_path == "ell", f"8192^2 {role} took {M.spmv_path}")
+        ell = M._get_ell()
+        rows_e, W = ell[0].shape
+        ci = ell[1].element_size()
+        y = ell_kernel.ell_spmv(*ell, v)
+        what = f"8192^2 level-0 {role} ELL kernel"
+        check(torch.equal(y, ell_kernel.ell_spmv_ordered(*ell, v)),
+              f"{what}: not bit for bit its slot-order sum")
+        err = close(y, spmv_ops.ell_spmv_plain(*ell, v), 1e-5,
+                    f"{what} vs plain")
+        M_lib = torch.sparse_csr_tensor(M.indptr.to(torch.int32),
+                                        M.indices.to(torch.int32), M.data,
+                                        size=M.shape, check_invariants=False)
+        close(M_lib @ v, y, 1e-5, f"library csr SpMV vs {what}")
+        work_bytes = (M.nnz * (4 + ci) + 4 * rows_e + 4 * M.shape[1]
+                      + 4 * rows_e)
+        pack_bytes = (rows_e * W * (4 + ci) + 4 * rows_e + 4 * M.shape[1]
+                      + 4 * rows_e)
+        ell_rows.append({
+            "name": "ell_spmv", "route": "cuda",
+            "source": "legate_sparse_tpu_torch/csrc/ell_spmv.cu",
+            "replaces": None, "launches": 0, "max_abs_err": err,
+            "ms": time_ms(lambda: ell_kernel.ell_spmv(*ell, v)),
+            "plain_ms": time_ms(lambda: spmv_ops.ell_spmv_plain(*ell, v)),
+            **bound(work_bytes, 2 * M.nnz),
+            "library_ms": time_ms(lambda: M_lib @ v),
+            "shape": {"operator": role, "rows": rows_e,
+                      "cols": int(M.shape[1]), "W": W, "nnz": int(M.nnz),
+                      "dtype": "float32", "index_dtype": str(ell[1].dtype),
+                      "bytes": work_bytes,
+                      "pack_bytes": pack_bytes}})
+        log({"phase": "timing_ell", **ell_rows[-1]})
+        del ell, y, M_lib
+    del R8, M, v, v8
     torch.cuda.empty_cache()
 
     # ---- 9. the scipy facade on the main path -------------------------------
@@ -6329,11 +6460,26 @@ def main() -> int:
                                        + list(tools_vs_plain.values()))
             if h["kernel"] == row["name"]])
 
+    # The ELL SpMV ports no TPU kernel and is not among the wrappers
+    # counted phase by phase: its rows take every launch of the kernel in
+    # this process and in phase 14's rank (holds and timing loops too),
+    # and the largest error of any check of it against the plain ops.
+    ell_err = max([r["max_abs_err"] for r in ell_rows]
+                  + [h["max_abs_err"] for h in ell_held]
+                  + [h["max_abs_err"] for h in (
+                      list(kernel_vs_plain.values())
+                      + list(p14["kernel_vs_plain"].values()))
+                     if h["kernel"] == "ell_spmv"])
+    for row in ell_rows:
+        row["launches"] = ell_kernel.ell_spmv.launches + p14["ell_launches"]
+        row["max_abs_err"] = ell_err
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     log({"kernels": [{k: row[k] for k in keys}
                      for row in (dia_row, bsr_row, dia_spmm_row,
-                                 bsr_spmm_row, dia_spgemm_row)]})
+                                 bsr_spmm_row, dia_spgemm_row,
+                                 *ell_rows)]})
     print(smi_line, flush=True)
     log({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                 "count": torch.cuda.device_count()}})

@@ -6,7 +6,8 @@ Mirrors ``legate_sparse_tpu/ops/spmv.py``: ``csr_spmv`` (``:39``),
 ``csr_spmv_rowids`` (``:58``), the masked padded-suffix products
 ``csr_spmv_rowids_masked`` (``:68``) and ``csr_spmm_rowids_masked``
 (``:85``) of the distributed blocks, ``ell_within_budget`` (``:545``),
-``ell_pack`` (``:551``), ``ell_spmv`` (``:161``), ``ell_spmm``
+``ell_pack`` (``:551``), ``ell_spmv`` (``:161``; on the card the CUDA
+kernel of ``ops/ell_kernel.py``), ``ell_spmm``
 (``:515``), ``csr_spmm_rowids`` (``:589``), ``csr_spmm``
 (``:599``), the row-binned ELL ``sliced_ell_pack`` (``:180``) and
 ``sliced_ell_spmv`` (``:230``), the f32-accumulation variants of
@@ -37,6 +38,7 @@ import torch
 import numpy as np
 
 from .convert import gather_index, row_ids_from_indptr, segment_sum
+from . import ell_kernel as _ell_kernel
 
 
 def csr_spmv_rowids(data, indices, row_ids, x, rows: int, lengths=None,
@@ -156,7 +158,23 @@ ell_pack_device = ell_pack
 
 
 def ell_spmv(ell_data, ell_cols, ell_counts, x) -> torch.Tensor:
-    """SpMV over an ELL pack: one 2-D gather and a masked row sum."""
+    """SpMV over an ELL pack.  On the card, f32 or f64 values with x of
+    the same type, int32 or int64 columns and 1 to
+    ``ell_kernel.MAX_TILE_W`` slots a row take the CUDA kernel
+    (``ell_kernel.ell_spmv``: one pass over each row's slots, the
+    products added in slot order); every other dtype there (complex,
+    low-precision, integer, mixed), a wider pack, and every CPU operand
+    take ``ell_spmv_plain``."""
+    if x.device.type == "cuda" and _ell_kernel.supported(
+            ell_data, ell_cols, ell_counts, x):
+        return _ell_kernel.ell_spmv(ell_data, ell_cols, ell_counts,
+                                    x.contiguous())
+    return ell_spmv_plain(ell_data, ell_cols, ell_counts, x)
+
+
+def ell_spmv_plain(ell_data, ell_cols, ell_counts, x) -> torch.Tensor:
+    """SpMV over an ELL pack in plain PyTorch: one 2-D gather and a
+    masked row sum."""
     W = ell_data.shape[1]
     slot = torch.arange(W, dtype=ell_counts.dtype, device=ell_counts.device)
     valid = slot[None, :] < ell_counts[:, None]

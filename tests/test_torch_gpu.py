@@ -23,7 +23,13 @@ where a tile meets the matrix's edge, shared with
 SpMM kernels walk the stored nonzeros and sum in another order than
 the plain versions' batched dense product, so rtol = atol = 1e-5,
 with the NaN/inf pattern equal exactly where x holds inf or NaN
-(``nonfinite_case``).  The BSR cases are shared with the CPU tests
+(``nonfinite_case``).  The ELL SpMV kernel sums each row's products in
+slot order from +0.0, bit for bit its twin ``ell_spmv_ordered``
+(``ELL_KERNEL_WIDTHS``, f32 and f64, int32 and int64 columns, shared
+with the CPU tests ``test_torch_ell_kernel.py``; a wider pack takes the
+plain ops and launches nothing); the
+plain ELL ops (``ell_spmv_plain``) sum in another order, so 1e-5 (f32)
+and 1e-12 (f64).  The BSR cases are shared with the CPU tests
 (``test_torch_bsr.py``, ``test_torch_spmm.py``); the BSR kernels take
 int16 column indices (compressed storage) as they take int32 and int64,
 and the int16 SpMM agrees with the int32 one bit for bit.
@@ -67,6 +73,8 @@ import torch
 import legate_sparse_tpu_torch as sparse
 from legate_sparse_tpu_torch.ops import bsr as bsr_ops
 from legate_sparse_tpu_torch.ops import dia_kernel
+from legate_sparse_tpu_torch.ops import ell_kernel
+from legate_sparse_tpu_torch.ops import spmv as spmv_ops
 
 
 @pytest.fixture
@@ -331,7 +339,9 @@ def test_bsr_kernel_matches_plain(cuda, dtype, index_dtype, case):
 @pytest.mark.gpu
 def test_csr_dot_dispatch_on_card(cuda):
     """On the card a banded f32 matrix takes the DIA kernel and an
-    irregular one within the BSR budget takes the BSR kernel."""
+    irregular one within the BSR budget takes the BSR kernel; an
+    irregular f64 one within the ELL budget takes "ell", through the ELL
+    kernel up to ``MAX_TILE_W`` slots a row and the plain ops above."""
     rng = np.random.default_rng(1)
     S = _holey(5000, rng)
     A = sparse.csr_array(S, device=cuda)
@@ -346,6 +356,181 @@ def test_csr_dot_dispatch_on_card(cuda):
     y = B @ xr
     assert B.spmv_path == "bsr"
     np.testing.assert_allclose(y.cpu().numpy(), R @ xr, rtol=1e-4, atol=1e-4)
+    # f64 is outside the BSR kernel's types: an irregular f64 matrix
+    # within the ELL budget takes "ell", through the ELL kernel at 11
+    # slots a row, through the plain ops at R's 37.
+    N = sp.random(2048, 2048, density=0.002, format="csr", random_state=rng,
+                  dtype=np.float64)
+    x64 = xr.astype(np.float64)
+    for M, launched in ((N, 1), (R.astype(np.float64), 0)):
+        E = sparse.csr_array(M, device=cuda)
+        before = ell_kernel.ell_spmv.launches
+        y = E @ x64
+        assert E.spmv_path == "ell"
+        W = E._get_ell()[0].shape[1]
+        assert (W <= ell_kernel.MAX_TILE_W) == bool(launched)
+        assert ell_kernel.ell_spmv.launches == before + launched
+        np.testing.assert_allclose(y.cpu().numpy(), M @ x64, rtol=1e-12,
+                                   atol=1e-12)
+
+
+# ELL kernel widths: the V-cycle's R and P (9, 4), a single slot and the
+# widest the kernel is compiled for; one slot wider takes the plain ops.
+ELL_KERNEL_WIDTHS = (1, 4, 9, ell_kernel.MAX_TILE_W)
+ELL_WIDE_W = ell_kernel.MAX_TILE_W + 1
+
+
+def ell_case(rows, cols, W, rng, dtype, index_dtype, device):
+    """An ELL pack of a random matrix whose rows hold 0 to W entries
+    (every fifth row empty, rows 1 and 2 at least one), and its x.  The
+    padded slots (value 0) name column 0, where x is NaN, which no
+    stored slot names; row 1's first slot names column 1 (x = inf) and
+    row 2's column 2 (x = -inf)."""
+    counts = rng.integers(0, W + 1, rows)
+    counts[::5] = 0
+    counts[1:3] = np.maximum(counts[1:3], 1)
+    stored = np.arange(W)[None, :] < counts[:, None]
+    vals = np.where(stored, rng.standard_normal((rows, W)), 0.0)
+    idx = np.where(stored, rng.integers(3, cols, (rows, W)), 0)
+    idx[1, 0], idx[2, 0] = 1, 2
+    x = rng.standard_normal(cols)
+    x[:3] = np.nan, np.inf, -np.inf
+    return (torch.from_numpy(vals).to(device, dtype),
+            torch.from_numpy(idx).to(device, index_dtype),
+            torch.from_numpy(counts.astype(np.int32)).to(device),
+            torch.from_numpy(x).to(device, dtype))
+
+
+def assert_bitwise(got, want):
+    """Equal bits, NaN where NaN (``torch.equal`` fails every NaN)."""
+    assert torch.equal(got.isnan(), want.isnan())
+    fin = ~want.isnan()
+    assert torch.equal(got[fin], want[fin])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("W", ELL_KERNEL_WIDTHS)
+def test_ell_kernel_matches_slot_order(cuda, W, dtype, index_dtype):
+    """The kernel against the plain products summed in slot order from
+    +0.0 (``ell_spmv_ordered``): bit for bit, inf included; the NaN of x
+    at the padded slots stays out of y, and empty rows read +0.0;
+    against
+    ``ell_spmv_plain``, whose ``sum`` takes another order, at 1e-5 (f32)
+    and 1e-12 (f64) of each other, equal NaN/inf pattern.  3,001 rows:
+    a ragged last block."""
+    rng = np.random.default_rng(100 + W)
+    data, cols, counts, x = ell_case(3001, 4000, W, rng, dtype, index_dtype,
+                                     cuda)
+    before = ell_kernel.ell_spmv.launches
+    y = spmv_ops.ell_spmv(data, cols, counts, x)
+    assert ell_kernel.ell_spmv.launches == before + 1
+    assert y.dtype == dtype
+    want = ell_kernel.ell_spmv_ordered(data, cols, counts, x)
+    torch.cuda.synchronize()
+    assert_bitwise(y, want)
+    assert not y.isnan().any()
+    assert y[1].isinf() and y[2].isinf()
+    assert torch.equal(y[counts == 0], torch.zeros_like(y[counts == 0]))
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    yp = spmv_ops.ell_spmv_plain(data, cols, counts, x)
+    torch.testing.assert_close(y, yp, rtol=tol, atol=tol, equal_nan=True)
+
+
+@pytest.mark.gpu
+def test_ell_kernel_gmg_level0_r_and_p(cuda):
+    """Level 0's restriction R (W 9) and prolongation P = R.T (W 4) of
+    ``apps/gmg.linear_operator`` at a 256² grid.  In f32 (at this size
+    ``csr_array.dot`` gives them to BSR; at 8192² they exceed its block
+    budget) their ELL packs through ``spmv.ell_spmv``: the kernel, bit
+    for bit their slot-order products, within 1e-6 of the plain ops.  In
+    f64, outside BSR's types, ``dot`` itself takes "ell" and the kernel,
+    within 1e-12 of the plain ops."""
+    from legate_sparse_tpu_torch.apps.gmg import linear_operator
+    rng = np.random.default_rng(7)
+    x64 = torch.from_numpy(rng.standard_normal(256 * 256)).to(cuda)
+    for dtype, tol in ((torch.float32, 1e-6), (torch.float64, 1e-12)):
+        R, _ = linear_operator(256 * 256, dtype=dtype, device=cuda)
+        P = R.T
+        x = x64.to(dtype)
+        before = ell_kernel.ell_spmv.launches
+        if dtype == torch.float64:
+            r = R.dot(x)
+            p = P.dot(r)
+            assert R.spmv_path == P.spmv_path == "ell"
+        else:
+            r = spmv_ops.ell_spmv(*R._get_ell(), x)
+            p = spmv_ops.ell_spmv(*P._get_ell(), r)
+        assert ell_kernel.ell_spmv.launches == before + 2
+        for M, v, out, W in ((R, x, r, 9), (P, r, p, 4)):
+            ell = M._get_ell()
+            assert ell[0].shape[1] == W
+            assert_bitwise(out, ell_kernel.ell_spmv_ordered(*ell, v))
+            torch.testing.assert_close(out, spmv_ops.ell_spmv_plain(*ell, v),
+                                       rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_ell_kernel_rejects_bad_inputs(cuda):
+    """Non-contiguous operands, mismatched shapes, types and devices
+    raise before any launch; ``spmv.ell_spmv`` makes a strided x
+    contiguous for the kernel."""
+    rng = np.random.default_rng(3)
+    data, cols, counts, x = ell_case(500, 600, 4, rng, torch.float32,
+                                     torch.int32, cuda)
+    before = ell_kernel.ell_spmv.launches
+    bad = [
+        (ValueError, (data.t().contiguous().t(), cols, counts, x)),
+        (ValueError, (data, cols.t().contiguous().t(), counts, x)),
+        (ValueError, (data, cols, counts, torch.stack([x, x], 1)[:, 0])),
+        (ValueError, (data, cols[:-1], counts, x)),
+        (ValueError, (data, cols, counts[:-1], x)),
+        (ValueError, (data, cols, counts, x.cpu())),
+        (TypeError, (data, cols, counts, x.double())),
+        (TypeError, (data, cols, counts.long(), x)),
+        (TypeError, (data, cols.short(), counts, x)),
+        (ValueError, tuple(ell_case(500, 600, ELL_WIDE_W, rng,
+                                    torch.float32, torch.int32, cuda))),
+    ]
+    for exc, args in bad:
+        with pytest.raises(exc):
+            ell_kernel.ell_spmv(*args)
+    assert ell_kernel.ell_spmv.launches == before
+    xs = torch.stack([x, x], 1)[:, 0]
+    assert_bitwise(spmv_ops.ell_spmv(data, cols, counts, xs),
+                   spmv_ops.ell_spmv(data, cols, counts, x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ell_wide_pack_on_card_stays_plain(cuda, dtype, index_dtype):
+    """A pack wider than the kernel's ``MAX_TILE_W`` takes the plain ops
+    on the card, bit for bit, and launches nothing."""
+    rng = np.random.default_rng(5)
+    data, cols, counts, x = ell_case(900, 1000, ELL_WIDE_W, rng, dtype,
+                                     index_dtype, cuda)
+    before = ell_kernel.ell_spmv.launches
+    y = spmv_ops.ell_spmv(data, cols, counts, x)
+    assert ell_kernel.ell_spmv.launches == before
+    assert_bitwise(y, spmv_ops.ell_spmv_plain(data, cols, counts, x))
+
+
+@pytest.mark.gpu
+def test_ell_complex_on_card_stays_plain(cuda):
+    """complex64 on the card is outside the kernel's types: the plain
+    ops, no launch."""
+    rng = np.random.default_rng(4)
+    data, cols, counts, x = ell_case(700, 800, 9, rng, torch.float32,
+                                     torch.int32, cuda)
+    data = torch.complex(data, 0.5 * data)
+    x = torch.complex(x.nan_to_num(), -x.nan_to_num())
+    before = ell_kernel.ell_spmv.launches
+    y = spmv_ops.ell_spmv(data, cols, counts, x)
+    assert ell_kernel.ell_spmv.launches == before
+    assert y.dtype == torch.complex64
+    assert torch.equal(y, spmv_ops.ell_spmv_plain(data, cols, counts, x))
 
 
 def _cuda_band(n, offsets, rng, dtype, cuda, holes=False):
@@ -639,8 +824,11 @@ def test_bsr_spmm_int16_indices_match_int32(cuda, dtype, k, case):
 
 
 def _launches():
+    """Launch counts of the DIA SpMV and SpMM, BSR SpMV and SpMM, and
+    ELL SpMV kernels."""
     return (dia_kernel.dia_spmv.launches, dia_kernel.dia_spmm.launches,
-            bsr_ops.bsr_spmv.launches, bsr_ops.bsr_spmm.launches)
+            bsr_ops.bsr_spmv.launches, bsr_ops.bsr_spmm.launches,
+            ell_kernel.ell_spmv.launches)
 
 
 @pytest.mark.gpu
@@ -677,7 +865,8 @@ def test_compressed_bf16_operands_run_the_bf16_kernels(cuda):
     before = _launches()
     yr, Yr = Rc @ xr, Rc @ Xr
     assert Rc.spmv_path == Rc.spmm_path == "bsr"
-    assert _launches() == before[:2] + (before[2] + 1, before[3] + 1)
+    assert _launches() == before[:2] + (before[2] + 1, before[3] + 1) \
+        + before[4:]
     st = Rc._get_bsr()
     yp = bsr_ops.bsr_spmv_plain(st, xr.reshape(-1, 128))
     Yp = bsr_ops.bsr_spmm_plain(st, Xr)
@@ -1730,8 +1919,8 @@ def test_placed_dot_matches_unplaced_on_card(cuda):
             y = placement.route(A, name).dot(x)
             yg = gw.submit(A, x, tenant=name).result(timeout=60)
             moved = [b - a for a, b in zip(before, _launches())]
-            assert moved == ([2, 0, 0, 0] if route == "dia-kernel"
-                             else [0, 0, 2, 0])
+            assert moved == ([2, 0, 0, 0, 0] if route == "dia-kernel"
+                             else [0, 0, 2, 0, 0])
             assert torch.equal(y, ref) and torch.equal(yg, ref)
     finally:
         gw.shutdown()

@@ -431,7 +431,7 @@ def test_port_obs_names_are_documented():
     # The port's own names are on the port's page, not the JAX one's.
     port_exact, _ = obs_docs.doc_patterns(open(docs[1]).read())
     assert {"cg.fetch", "gmg.cycle", "gmg.level", "obs.anchor",
-            "gmg.build.restriction"} <= port_exact
+            "gmg.build.restriction", "kernel.ell_spmv"} <= port_exact
 
 
 # ---------------------------------------------------------------- #
