@@ -114,6 +114,17 @@ def _is_sparse_like(obj) -> bool:
     return hasattr(obj, "tocsr") and not hasattr(obj, "__array__")
 
 
+def _probed(sp, fmt: str, declined: bool, **count) -> None:
+    """The verdict of a structure probe (the first ``_get_dia``,
+    ``_get_bsr`` or ``_get_ell`` of a matrix): a decline counts in
+    ``dispatch.declined.<fmt>``; while tracing is on, the probe's
+    ``dispatch.probe`` span takes it and the count that decided it."""
+    if declined:
+        _obs_counters.handle("dispatch.declined." + fmt).inc()
+    if sp is not None:
+        sp.set(declined=declined, **count)
+
+
 # Comparison operators: the torch op for stored values, the numpy op
 # for the implicit-zero test and dense results (the JAX package applies
 # one ``jnp`` function to both).
@@ -1174,14 +1185,15 @@ class csr_array(CompressedBase, DenseSparseBase):
         if self._ell is not None:
             return self._ell if self._ell is not False else None
         rows = self.shape[0]
-        W = self._get_ell_width()
-        if not _spmv_ops.ell_within_budget(rows, W, self.nnz,
-                                           settings.ell_max_expand):
-            self._ell = False
-            return None
-        self._ell = _spmv_ops.ell_pack(self._data, self._indices,
-                                       self._indptr, rows, W)
-        return self._ell
+        with _trace.span("dispatch.probe", format="ell") as sp:
+            W = self._get_ell_width()
+            fits = _spmv_ops.ell_within_budget(rows, W, self.nnz,
+                                               settings.ell_max_expand)
+            self._ell = (_spmv_ops.ell_pack(self._data, self._indices,
+                                            self._indptr, rows, W)
+                         if fits else False)
+            _probed(sp, "ell", not fits, width=W)
+        return self._ell if fits else None
 
     def _get_bsr(self):
         """Cached BSR structure, or None.
@@ -1196,20 +1208,20 @@ class csr_array(CompressedBase, DenseSparseBase):
         stores can give NaN here."""
         if self._bsr is not None:
             return self._bsr if self._bsr is not False else None
-        if not settings.bsr_force and self.device.type != "cuda":
-            self._bsr = False
-            return None
-        if (settings.bsr_max_expand <= 0
-                or self.dtype not in (torch.float32, torch.bfloat16)
-                or not self.has_canonical_format):
-            self._bsr = False
-            return None
-        from .ops import bsr as _bsr_ops
+        with _trace.span("dispatch.probe", format="bsr") as sp:
+            st = None
+            if ((settings.bsr_force or self.device.type == "cuda")
+                    and settings.bsr_max_expand > 0
+                    and self.dtype in (torch.float32, torch.bfloat16)
+                    and self.has_canonical_format):
+                from .ops import bsr as _bsr_ops
 
-        st = _bsr_ops.build_structure(
-            self._data, self._indices, self._indptr, self._get_row_ids(),
-            self.shape, settings.bsr_max_expand)
-        self._bsr = st if st is not None else False
+                st = _bsr_ops.build_structure(
+                    self._data, self._indices, self._indptr,
+                    self._get_row_ids(), self.shape,
+                    settings.bsr_max_expand, probe=sp)
+            self._bsr = st if st is not None else False
+            _probed(sp, "bsr", st is None)
         return st
 
     def _get_dia(self):
@@ -1223,21 +1235,27 @@ class csr_array(CompressedBase, DenseSparseBase):
         does for compressed storage: its band is zero-filled."""
         if self._dia is not None:
             return self._dia if self._dia is not False else None
+        with _trace.span("dispatch.probe", format="dia") as sp:
+            dia = self._build_dia(sp)
+            self._dia = dia if dia is not None else False
+            _probed(sp, "dia", dia is None)
+        return dia
+
+    def _build_dia(self, sp):
+        """``_get_dia``'s structure, or None; ``sp`` its probe's span."""
         rows, cols = self.shape
         nnz = self.nnz
         if (settings.dia_max_expand <= 0 or not nnz or not rows
                 or not self.has_canonical_format):
-            self._dia = False
             return None
         if self._dia_offsets is None:
             max_nd = int(min(settings.dia_max_diags,
                              settings.dia_max_expand * nnz / max(cols, 1)))
             offsets = (_dia_ops.csr_band_offsets(
-                self._indices, self._get_row_ids(), max_nd)
+                self._indices, self._get_row_ids(), max_nd, probe=sp)
                 if max_nd >= 1 else None)
             self._dia_offsets = offsets if offsets is not None else False
         if self._dia_offsets is False:
-            self._dia = False
             return None
         offsets = self._dia_offsets
         exact = _dia_ops.band_cover(offsets, self.shape, cols) == nnz
@@ -1247,13 +1265,11 @@ class csr_array(CompressedBase, DenseSparseBase):
             dia_data = _dia_ops.dia_from_csr(
                 self._data, self._indices, self._get_row_ids(), offsets,
                 cols)
-            self._dia = (dia_data, offsets, None)
-        else:
-            dia_data, mask = _dia_ops.dia_from_csr(
-                self._data, self._indices, self._get_row_ids(), offsets,
-                cols, with_mask=True)
-            self._dia = (dia_data, offsets, mask)
-        return self._dia
+            return (dia_data, offsets, None)
+        dia_data, mask = _dia_ops.dia_from_csr(
+            self._data, self._indices, self._get_row_ids(), offsets,
+            cols, with_mask=True)
+        return (dia_data, offsets, mask)
 
     def _get_dia_pack(self):
         """Cached row-aligned pack for the DIA kernel, or None when the

@@ -110,10 +110,11 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def build_structure(data, indices, indptr, row_ids, shape,
-                    max_expand: float):
+                    max_expand: float, probe=None):
     """The ``BsrStructure`` of a canonical CSR matrix, built from its
     device tensors (``row_ids``: its per-nonzero row ids), or None over
-    budget.
+    budget.  ``probe``, a live span (``csr_array._get_bsr``'s), takes
+    the blocks counted as ``blocks``.
 
     The budget is the JAX ``bsr_pack``'s: the present blocks plus one
     zero block per empty block-row number at most ``MAX_BLOCKS``, and
@@ -133,6 +134,8 @@ def build_structure(data, indices, indptr, row_ids, shape,
     has[uniq // nbc] = True
     missing = torch.nonzero(~has).reshape(-1)
     nb = int(uniq.shape[0]) + int(missing.shape[0])
+    if probe is not None:
+        probe.set(blocks=nb)
     if nb > MAX_BLOCKS or nb * B * B > max_expand * nnz:
         return None
     all_keys = torch.sort(torch.cat([uniq, missing * nbc])).values

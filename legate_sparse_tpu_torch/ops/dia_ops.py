@@ -45,14 +45,18 @@ def band_cover(offsets: Tuple[int, ...], shape: Tuple[int, int],
     return total
 
 
-def csr_band_offsets(indices, row_ids,
-                     max_diags: int) -> Optional[Tuple[int, ...]]:
+def csr_band_offsets(indices, row_ids, max_diags: int,
+                     probe=None) -> Optional[Tuple[int, ...]]:
     """Distinct diagonals (col - row) of a CSR structure, ascending, or
-    None when there are more than ``max_diags`` of them."""
+    None when there are more than ``max_diags`` of them.  ``probe``, a
+    live span (``csr_array._get_dia``'s), takes their count as
+    ``diagonals``."""
     if indices.shape[0] == 0:
         return None
     d = indices.to(index_dtype()) - row_ids.to(index_dtype())
     offs = torch.unique(d, sorted=True)
+    if probe is not None:
+        probe.set(diagonals=int(offs.shape[0]))
     if offs.shape[0] > max_diags:
         return None
     return tuple(int(o) for o in offs.tolist())

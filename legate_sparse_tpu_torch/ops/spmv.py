@@ -37,6 +37,7 @@ import torch
 
 import numpy as np
 
+from ..obs import trace as _trace
 from .convert import gather_index, row_ids_from_indptr, segment_sum
 from . import ell_kernel as _ell_kernel
 
@@ -51,14 +52,19 @@ def csr_spmv_rowids(data, indices, row_ids, x, rows: int, lengths=None,
     lengths (``csr_array._get_row_lengths``: counted from ``row_ids``
     when absent) and ``serial`` the summation order
     (``csr_array._serial_rows``: taken from the longest row, one host
-    sync, when absent)."""
-    prod = data * x[gather_index(indices)]
-    if not (prod.is_floating_point() or prod.is_complex()):
-        y = torch.zeros((rows,), dtype=prod.dtype, device=prod.device)
-        return y.index_add_(0, row_ids, prod)
-    if lengths is None:
-        lengths = _row_lengths(row_ids, rows)[:rows]
-    return row_sums(prod, lengths, serial)
+    sync, when absent).  While tracing is on, each call is a
+    ``kernel.csr_rowids`` span with its ``rows``, ``entries`` and
+    ``serial`` (None where ``row_sums`` chose)."""
+    with _trace.span("kernel.csr_rowids") as sp:
+        if sp is not None:
+            sp.set(rows=rows, entries=int(data.shape[0]), serial=serial)
+        prod = data * x[gather_index(indices)]
+        if not (prod.is_floating_point() or prod.is_complex()):
+            y = torch.zeros((rows,), dtype=prod.dtype, device=prod.device)
+            return y.index_add_(0, row_ids, prod)
+        if lengths is None:
+            lengths = _row_lengths(row_ids, rows)[:rows]
+        return row_sums(prod, lengths, serial)
 
 
 def csr_spmv_rowids_masked(data, indices, row_ids, valid_nnz, x,

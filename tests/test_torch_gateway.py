@@ -671,4 +671,11 @@ def test_request_trace_ids_draw_flow_arcs():
     assert batch and batch[0]["attrs"]["trace_ids"] == admits
     flows = [e for e in doc["traceEvents"] if e.get("cat") == "flow"]
     assert sorted({e["id"] for e in flows}) == sorted(admits)
-    assert {e["ph"] for e in flows} == {"s", "f"}
+    # Each arc starts once and finishes once; its steps are the
+    # structure probes (``dispatch.probe``) that the first request's
+    # admission paid for.
+    probes = {r["ts_ns"] / 1e3 for r in recs if r["name"] == "dispatch.probe"}
+    for tid in admits:
+        phases = [e["ph"] for e in flows if e["id"] == tid]
+        assert phases.count("s") == 1 and phases.count("f") == 1
+    assert {e["ts"] for e in flows if e["ph"] == "t"} <= probes
