@@ -78,6 +78,16 @@ Phases, each printing one JSON line:
    as phase 13 times a kernel, ``bound_ms`` from the bytes the product
    needs (the stored entries, the row counts, x and y) beside the
    padded pack's bytes;
+8b. ``timing_csr``: the ``rmat-s25.matvec`` cell's Graph500 graph
+   (``spbench/operators/kronecker.py``, SCALE 25, 1.05e9 entries, f32,
+   int32 columns) assembled on the card; its ``A @ x`` must take
+   ``"csr-rowids"``, launch the CSR kernel once and leave no row ids
+   held; the kernel held as ``hold_csr_kernel`` holds it (bit for bit
+   ``csr_spmv_ordered`` and the route's product, each entry within 1e-5
+   of its terms' magnitudes from the plain ops) and to the library
+   product, then timed beside the plain ops and the library, with its
+   device ms a kernel, the bytes held and a product's extra bytes, and
+   ``bound_ms`` from the operator's least bytes (``spmv_bytes``);
 9. the scipy facade (``main_path_facade``) at full size, into the
    kernels: on the pde_4096 operator, ``tril(A) + triu(A, 1)`` equal to
    A bit for bit and its ``@ x`` through ``"dia-kernel"`` equal to
@@ -93,7 +103,8 @@ Phases, each printing one JSON line:
    R.  An R-MAT graph (``gallery.rmat(20, nnz_per_row=8, rng=0)``, f64)
    built on the card, ``sum_duplicates`` and ``G + G.T`` against scipy
    (the pattern exactly, the values to 1e-12), its ``@ x`` on the path
-   the dispatch picks against scipy f64.  Each op's card ms (CUDA events, median of 5 after one
+   the dispatch picks (``"csr-rowids"``, the CSR kernel, held as in
+   8b) against scipy f64.  Each op's card ms (CUDA events, median of 5 after one
    warmup) beside scipy's host seconds for the same op, and the phase's
    launch counts (``dia_spmv`` and ``bsr_spmv`` must be among them);
 10. the solvers (``main_path_solvers``) at full width, each from
@@ -285,7 +296,10 @@ Phases, each printing one JSON line:
    1e-4, requests/s and p50/p99 latency to completion a stage.  (A)
    ``autotune.tune`` (5 trials) on A1 and on phase 9's scale-20 R-MAT
    (f64): each candidate's median, the verdict, the routed ``dot`` bit
-   for bit the verdict's candidate, the store through a JSON file.  (R)
+   for bit the verdict's candidate, the store through a JSON file; the
+   CSR kernel held as in 8b on A1 (and bit for bit the plain ops, whose
+   rows it sums in the same order) and on the R-MAT, and timed on both
+   beside the plain ops and the atomic ``index_add_``.  (R)
    with ``settings.resil``: one injected ``gateway.dispatch`` fault
    served inline bit for bit, an expired deadline shed at admission.
    ``engine.route.error``, ``gateway.dispatch_fallback`` and
@@ -404,7 +418,14 @@ in phase 16, the gateway load) drives its path and read just after; the
 10-12, 14, 19 and 20.  The ELL SpMV's two rows (level 0's R and P at
 8192², ``replaces`` null) count every launch of its kernel in this
 process and in phase 14's rank, and take the largest error of its
-checks against the plain ops in phases 8 and 14.  Any
+checks against the plain ops in phases 8 and 14.  The CSR SpMV's row
+(phase 8b's graph, ``replaces`` null) counts every launch of its kernel
+in this process: phase by phase (``CsrLaunches``) each must match the
+csr-rowids products whose operands the kernel takes (one a product, a
+column of an SpMM, a matrix of a stacked batch), phases 8b, 9 and 16
+must launch it, and the phases' counts must add up to the total
+(``csr_kernel`` line); its ``max_abs_err`` is the largest of its holds
+in phases 8b, 9 and 16.  Any
 failed check raises, so the script exits non-zero; it exits non-zero
 without printing a result when there is no CUDA device.  The last three
 lines are the ``kernels`` JSON object, the ``nvidia-smi`` line and
@@ -513,6 +534,128 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+class CsrLaunches:
+    """The CSR SpMV kernel's launches phase by phase, against the
+    csr-rowids products that call for them.  It wraps the three products
+    of ``ops/spmv.py`` that take the kernel on the card (every caller
+    reaches them through the module): one whose operands the kernel
+    takes (``spmv.csr_kernel_takes``) calls for one launch
+    (``csr_spmv_rowids``, with rows), one a column (``csr_spmm_rowids``)
+    or one a real matrix of the batch (``csr_multi_spmv_rowids_masked``:
+    its ``kernel`` entries, else ``b``); any other keeps the plain ops.
+    ``close(phase)`` checks the launches since the last close against
+    those calls and returns the phase's record."""
+
+    def __init__(self):
+        import threading
+
+        from legate_sparse_tpu_torch.ops import csr_kernel
+        from legate_sparse_tpu_torch.ops import spmv
+
+        self.kernel = csr_kernel.csr_spmv
+        self.lock = threading.Lock()
+        self.start = self.kernel.launches
+        self.counts = {"want": 0, "kernel": 0, "plain_on_card": 0, "cpu": 0}
+        self.phases = []
+        takes = spmv.csr_kernel_takes
+
+        def spmv_calls(data, indices, _rid, x, rows, *_, **__):
+            return (int(rows) > 0, takes(data, indices, x), x)
+
+        def spmm_calls(data, indices, _rid, X, rows, *_, **__):
+            k = int(X.shape[1])
+            return (k * (int(rows) > 0),
+                    k > 0 and takes(data, indices, X[:, 0]), X)
+
+        def multi_calls(data, indices, _rid, _valid, X, _rows, b, *_,
+                        kernel=None, **__):
+            return (b if kernel is None else len(kernel),
+                    X.shape[1] > 0 and takes(data[0], indices[0], X[0]), X)
+
+        for name, calls in (("csr_spmv_rowids", spmv_calls),
+                            ("csr_spmm_rowids", spmm_calls),
+                            ("csr_multi_spmv_rowids_masked", multi_calls)):
+            setattr(spmv, name, self._counted(getattr(spmv, name), calls))
+
+    def _counted(self, real, calls):
+        def counted(*args, **kwargs):
+            n, kernel, operand = calls(*args, **kwargs)
+            with self.lock:
+                if kernel:
+                    self.counts["want"] += int(n)
+                    self.counts["kernel"] += 1
+                elif operand.device.type == "cuda":
+                    self.counts["plain_on_card"] += 1
+                else:
+                    self.counts["cpu"] += 1
+            return real(*args, **kwargs)
+
+        return counted
+
+    def close(self, phase: str) -> dict:
+        with self.lock:
+            launched = self.kernel.launches - self.start
+            c = self.counts
+            rec = {"phase": phase, "launches": launched,
+                   "launches_expected": c["want"],
+                   "kernel_products": c["kernel"],
+                   "plain_products_on_card": c["plain_on_card"],
+                   "cpu_products": c["cpu"]}
+            self.start = self.kernel.launches
+            self.counts = dict.fromkeys(c, 0)
+        check(launched == rec["launches_expected"],
+              f"phase {phase}: the CSR kernel launched {launched} times, "
+              f"its csr-rowids products call for {rec['launches_expected']}")
+        self.phases.append(rec)
+        return rec
+
+
+def hold_csr_kernel(name, M, x, y=None) -> dict:
+    """The csr-rowids product of the csr_array ``M`` on the card's ``x``,
+    as ``csr_array.dot`` runs it (the CSR kernel over the cached offsets
+    and schedule): bit for bit its plain twin ``csr_spmv_ordered``, and
+    ``y`` (the route's own product) where given; each entry within 1e-5
+    (f32) or 1e-12 (f64) of the sum of its terms' magnitudes from the
+    plain ops (``csr_spmv_rowids_plain``), and bit for bit them where
+    the plain ops sum one thread a row (``M._serial_rows()``)."""
+    import torch
+
+    from legate_sparse_tpu_torch.ops import csr_kernel
+    from legate_sparse_tpu_torch.ops import spmv as spmv_ops
+
+    check(spmv_ops.csr_kernel_takes(M.data, M.indices, x),
+          f"{name}: the CSR kernel must take it")
+    rows, serial = M.shape[0], M._serial_rows()
+    lengths, sched = M._get_row_lengths(), M._get_csr_schedule()
+    got = spmv_ops.csr_spmv_rowids(M.data, M.indices, None, x, rows,
+                                   lengths=lengths, serial=serial,
+                                   offsets=M.indptr, schedule=sched)
+    check(torch.equal(got, csr_kernel.csr_spmv_ordered(
+        M.data, M.indices, M.indptr, x)),
+        f"{name}: the CSR kernel is not bit for bit csr_spmv_ordered")
+    check(y is None or torch.equal(got, y),
+          f"{name}: the route's product differs from the kernel's")
+    plain = spmv_ops.csr_spmv_rowids_plain(M.data, M.indices, None, x, rows,
+                                           lengths=lengths, serial=serial)
+    bitwise = bool(torch.equal(got, plain))
+    check(bitwise or not serial,
+          f"{name}: rows summed one thread a row, not bit for bit plain")
+    err = max_abs(got, plain)
+    mag = spmv_ops.csr_spmv_rowids_plain(M.data.abs(), M.indices, None,
+                                         x.abs(), rows, lengths=lengths,
+                                         serial=serial)
+    tol = 1e-5 if x.dtype == torch.float32 else 1e-12
+    check(bool(((got - plain).abs() <= tol * mag).all()),
+          f"{name}: the CSR kernel vs plain: max |Δ| {err} past {tol} of "
+          f"the terms' magnitudes")
+    hub_rows, chunks = sched.host_counts()
+    return {"case": name, "kernel": "csr_spmv", "rows": rows,
+            "nnz": int(M.nnz), "dtype": str(x.dtype),
+            "index_dtype": str(M.indices.dtype), "serial": serial,
+            "hub_rows": hub_rows, "chunks": chunks, "max_abs_err": err,
+            "plain_bitwise": bitwise}
 
 
 def block_clustered_arrays(rng, rows, blocks_per_row, per_block):
@@ -1749,11 +1892,17 @@ def phase16_serving():
     cold_s = time.perf_counter() - t0
     y_dot = A1.dot(x1)
     bits(y_cold, y_dot, "engine plan vs csr-rowids dot (A1)")
+    rec["csr_kernel_held"] = [hold_csr_kernel("engine A1", A1, x1, y_dot)]
     plan_ms = time_ms(lambda: eng.matvec(A1, x1, _checked=True))
     dot_ms = time_ms(lambda: A1.dot(x1))
+    # csr-rowids as the dot runs it (the CSR kernel over the cached
+    # offsets and schedule) and its plain ops.
     rowids_ms = time_ms(lambda: spmv_ops.csr_spmv_rowids(
-        A1.data, A1.indices, A1._get_row_ids(), x1, n,
-        lengths=A1._get_row_lengths(), serial=True))
+        A1.data, A1.indices, None, x1, n, lengths=A1._get_row_lengths(),
+        serial=True, offsets=A1.indptr, schedule=A1._get_csr_schedule()))
+    rowids_plain_ms = time_ms(lambda: spmv_ops.csr_spmv_rowids_plain(
+        A1.data, A1.indices, None, x1, n, lengths=A1._get_row_lengths(),
+        serial=True))
     reqs = 50
     sync()
     t0 = time.perf_counter()
@@ -1859,20 +2008,23 @@ def phase16_serving():
     pk = A1._engine_pack[1]
     pack_bytes = (2 * key.nnz_b * 4 + pk.lengths.numel() * 8
                   + 2 * key.cols_b * 4)
-    timing["engine_spmv"] = {"ms": plan_ms, "csr_rowids_ms": rowids_ms,
+    timing["engine_spmv"] = {"ms": plan_ms,
+                             "csr_rowids_kernel_ms": rowids_ms,
+                             "csr_rowids_plain_ms": rowids_plain_ms,
                              "dot_ms": dot_ms, "bytes": work_bytes,
                              "pack_bytes": pack_bytes,
                              "bound_ms": work_bytes / HBM_BYTES_PER_S * 1e3}
     timing["engine_spmm_k8"] = {
-        "ms": stack_ms, "csr_rowids_ms": time_ms(
+        "ms": stack_ms, "csr_rowids_kernel_ms": time_ms(
             lambda: spmv_ops.csr_spmm_rowids(
                 A1.data, A1.indices, None, torch.stack(xs, dim=1), n,
-                lengths=lens, serial=True)),
+                lengths=lens, serial=True, offsets=A1.indptr,
+                schedule=A1._get_csr_schedule())),
         "bytes": A1.nnz * 8 + n * 8 + 2 * 8 * n * 4}
     timing["engine_spmm_k8"]["bound_ms"] = (
         timing["engine_spmm_k8"]["bytes"] / HBM_BYTES_PER_S * 1e3)
     timing["engine_multi_k4"] = {
-        "ms": multi_ms, "csr_rowids_ms": 4 * rowids_ms,
+        "ms": multi_ms, "csr_rowids_kernel_ms": 4 * rowids_ms,
         "bytes": 4 * work_bytes,
         "bound_ms": 4 * work_bytes / HBM_BYTES_PER_S * 1e3}
 
@@ -2027,10 +2179,16 @@ def phase16_serving():
         return torch.zeros(M.shape[0], dtype=prod.dtype,
                            device=dev).index_add_(0, M._get_row_ids(), prod)
 
+    rec["csr_kernel_held"].append(hold_csr_kernel("rmat", G, xg))
     for name, M, x in (("A1", A1, x1), ("rmat", G, xg)):
         timing["csr_rowids_" + name] = {
-            "ms": time_ms(lambda: spmv_ops.csr_spmv_rowids(
-                M.data, M.indices, M._get_row_ids(), x, M.shape[0],
+            "kernel_ms": time_ms(lambda: spmv_ops.csr_spmv_rowids(
+                M.data, M.indices, None, x, M.shape[0],
+                lengths=M._get_row_lengths(), serial=M._serial_rows(),
+                offsets=M.indptr, schedule=M._get_csr_schedule()),
+                reps=5),
+            "plain_ms": time_ms(lambda: spmv_ops.csr_spmv_rowids_plain(
+                M.data, M.indices, None, x, M.shape[0],
                 lengths=M._get_row_lengths(), serial=M._serial_rows()),
                 reps=5),
             "atomic_index_add_ms": time_ms(lambda: atomic(M, x), reps=5),
@@ -3540,6 +3698,7 @@ def main() -> int:
     from legate_sparse_tpu_torch.ops import bsr as bsr_ops
     from legate_sparse_tpu_torch.ops import dia_kernel
     from legate_sparse_tpu_torch.ops import dia_ops
+    from legate_sparse_tpu_torch.ops import csr_kernel
     from legate_sparse_tpu_torch.ops import ell_kernel
     from legate_sparse_tpu_torch.ops import spmv as spmv_ops
 
@@ -3570,6 +3729,11 @@ def main() -> int:
     log({"phase": "build", "seconds": build_s, "ptxas": ptxas})
 
     counters = kernel_counters()
+    # Every csr-rowids product from here on, counted against the CSR
+    # kernel's launches phase by phase; the kernel's checks against its
+    # twin and the plain ops, at each shape that takes it.
+    csr_phases = CsrLaunches()
+    csr_held = []
 
     def bound(nbytes: float, nops: float) -> dict:
         """``bound_ms`` and ``bound_by`` of a kernel moving ``nbytes``
@@ -3961,6 +4125,8 @@ def main() -> int:
     del H, xh, yh, Xh, Yh, E
     torch.cuda.empty_cache()
 
+    csr_phases.close("3")
+
     # ---- 4. main path: pde_4096 -------------------------------------------
     reset_counts()
     grid = 4096
@@ -4035,6 +4201,8 @@ def main() -> int:
          "dia_launches": dia_launches})
     del sol
 
+    csr_phases.close("4")
+
     # ---- 6a. DIA timings at the pde shape -----------------------------------
     packed = A._get_dia_pack()
     nd = len(packed.offsets)
@@ -4065,6 +4233,8 @@ def main() -> int:
     }
     log({"phase": "timing_dia", **dia_row})
     del yk, yp, y_lib, b, v
+
+    csr_phases.close("6a")
 
     # ---- 5. SpMM on the pde operator ---------------------------------------
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -4113,13 +4283,16 @@ def main() -> int:
     del A, A_lib, packed, x, y, X, Y
     torch.cuda.empty_cache()
 
+    csr_phases.close("5")
+
     # ---- 6. irregular SpMV and SpMM through BSR -----------------------------
     rows = 1 << 20
     d, i, p = block_clustered(rows, 8, 2)
     R = sparse.csr_array((d, i, p), shape=(rows, rows))
     x = randx(rows)
     # The structure is built on the card from R's own tensors, after the
-    # band test that runs first on every matrix (and caches the row ids).
+    # band test that runs first on every matrix (the BSR probe caches the
+    # row ids it reads when it takes the matrix).
     check(R._get_dia() is None, "the irregular matrix must not be banded")
     sync()
     t0 = time.perf_counter()
@@ -4168,9 +4341,13 @@ def main() -> int:
     csr_bytes = (R.nnz * (R.data.element_size() + R.indices.element_size())
                  + R.indptr.numel() * 8 + st.nblocks * 4 + (st.nbr + 1) * 8)
     bsr_bytes = csr_bytes + 2 * 4 * rows
-    # csr-rowids as ``csr_array.dot`` runs it: the cached row lengths
-    # and summation order.
-    csr_rowids_ms = time_ms(lambda: spmv_ops.csr_spmv_rowids(
+    # csr-rowids as ``csr_array.dot`` would run it here: the CSR kernel
+    # over the cached row offsets and schedule; and its plain ops.
+    csr_rowids_kernel_ms = time_ms(lambda: spmv_ops.csr_spmv_rowids(
+        R.data, R.indices, None, x, rows, lengths=R._get_row_lengths(),
+        serial=R._serial_rows(), offsets=R.indptr,
+        schedule=R._get_csr_schedule()))
+    csr_rowids_plain_ms = time_ms(lambda: spmv_ops.csr_spmv_rowids_plain(
         R.data, R.indices, row_ids, x, rows,
         lengths=R._get_row_lengths(), serial=R._serial_rows()))
     bsr_row = {
@@ -4186,8 +4363,9 @@ def main() -> int:
                   "dtype": "float32", "bytes": bsr_bytes},
     }
     log({"phase": "timing_bsr", **bsr_row,
-         "csr_rowids_ms": csr_rowids_ms,
-         "csr_rowids_vs_bsr": csr_rowids_ms / bsr_row["ms"]})
+         "csr_rowids_kernel_ms": csr_rowids_kernel_ms,
+         "csr_rowids_plain_ms": csr_rowids_plain_ms,
+         "csr_rowids_kernel_vs_bsr": csr_rowids_kernel_ms / bsr_row["ms"]})
     del x2d, y, yk, yp
 
     X = torch.randn((rows, kX), generator=gen, device=dev)
@@ -4227,12 +4405,17 @@ def main() -> int:
         "shape": {"rows": rows, "blocks": st.nblocks, "k": kX,
                   "nnz": R.nnz, "dtype": "float32", "bytes": nb_},
     }
+    # csr-rowids SpMM as ``csr_array.dot`` would run it here: the CSR
+    # kernel a column at a time.
     log({"phase": "timing_bsr_spmm", **bsr_spmm_row,
-         "csr_rowids_ms": time_ms(lambda: spmv_ops.csr_spmm_rowids(
-             R.data, R.indices, row_ids, X, rows,
-             lengths=R._get_row_lengths(), serial=R._serial_rows()))})
+         "csr_rowids_kernel_ms": time_ms(lambda: spmv_ops.csr_spmm_rowids(
+             R.data, R.indices, None, X, rows,
+             lengths=R._get_row_lengths(), serial=R._serial_rows(),
+             offsets=R.indptr, schedule=R._get_csr_schedule()))})
     del R, R_lib, st, x, X, Y, row_ids
     torch.cuda.empty_cache()
+
+    csr_phases.close("6")
 
     # ---- 7. SpGEMM: banded (kernel) and general (ESC) -----------------------
     # examples/common.py::banded_matrix(2^24, 5): ones on 5 diagonals.
@@ -4376,6 +4559,8 @@ def main() -> int:
     del Ab, Ab_lib, da, b_band, Cd
     torch.cuda.empty_cache()
 
+    csr_phases.close("7")
+
     # ---- 8. GMG-preconditioned CG on the 4096x4096 Poisson grid -------------
     gmg_counts = {}
 
@@ -4513,6 +4698,8 @@ def main() -> int:
     del x_gmg, sol, mg, A_sp, x_ref, b64
     torch.cuda.empty_cache()
 
+    csr_phases.close("8")
+
     # ---- 8a. ELL timings at the 8192^2 V-cycle's level 0 ---------------------
     # The restriction R (W 9) and prolongation P = R.T (W 4) that the
     # 8192^2 GMG cell's V-cycle gives to the ELL kernel, f32, int32
@@ -4564,6 +4751,89 @@ def main() -> int:
         del ell, y, M_lib
     del R8, M, v, v8
     torch.cuda.empty_cache()
+
+    csr_phases.close("8a")
+
+    # ---- 8b. the CSR kernel at the rmat-s25 graph -----------------------------
+    # The ``rmat-s25.matvec`` cell's operator (``spbench/operators/
+    # kronecker.py``: a Graph500 Kronecker graph at SCALE 25, f32 values,
+    # int32 columns, int64 row offsets) through ``csr_array.dot``: the
+    # probes decline, the route is csr-rowids and takes the CSR kernel,
+    # and the matrix then holds no row ids.  The kernel bit for bit its
+    # twin and within 1e-5 of the plain ops, then timed beside the plain
+    # ops and the library; ``bound_ms`` prices the operator's least bytes
+    # (``kronecker.spmv_bytes``: values, columns and offsets read once, x
+    # read and y written once).
+    from spbench.operators import kronecker
+
+    with open(os.path.join("spbench", "configs", "rmat-s25.json")) as f:
+        g25_config = json.load(f)
+    t0 = time.perf_counter()
+    gd, gi, gp = kronecker.assemble(g25_config, torch.float32, dev, 0)
+    sync()
+    g25_assemble_s = time.perf_counter() - t0
+    n25 = int(gp.shape[0]) - 1
+    G25 = sparse.csr_array((gd, gi, gp), shape=(n25, n25))
+    del gd, gi, gp
+    x25 = torch.rand(n25, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(25))
+    launches0 = csr_kernel.csr_spmv.launches
+    sync()
+    t0 = time.perf_counter()
+    y25 = G25 @ x25
+    sync()
+    g25_first_s = time.perf_counter() - t0
+    check(G25.spmv_path == "csr-rowids",
+          f"the rmat-s25 graph took {G25.spmv_path}")
+    check(csr_kernel.csr_spmv.launches == launches0 + 1,
+          "the rmat-s25 product did not launch the CSR kernel once")
+    check(G25._row_ids is None, "the rmat-s25 graph holds row ids")
+    g25_held = torch.cuda.memory_allocated()
+    csr_held.append(hold_csr_kernel("rmat-s25 A @ x", G25, x25, y25))
+    sched25 = G25._get_csr_schedule()
+    lengths25, serial25 = G25._get_row_lengths(), G25._serial_rows()
+
+    def g25_kernel():
+        return spmv_ops.csr_spmv_rowids(
+            G25.data, G25.indices, None, x25, n25, lengths=lengths25,
+            serial=serial25, offsets=G25.indptr, schedule=sched25)
+
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    g25_kernel()
+    sync()
+    g25_product_bytes = torch.cuda.max_memory_allocated() - base
+    g25_profile = profile_calls(g25_kernel, "csr_spmv")
+    G25_lib = torch.sparse_csr_tensor(G25.indptr, G25.indices.to(torch.int64),
+                                      G25.data, size=G25.shape,
+                                      check_invariants=False)
+    close(G25_lib @ x25, y25, 1e-5, "library csr SpMV vs the rmat-s25 kernel")
+    g25_bytes = kronecker.spmv_bytes(g25_config)
+    csr_row = {
+        "name": "csr_spmv", "route": "cuda",
+        "source": "legate_sparse_tpu_torch/csrc/csr_spmv.cu",
+        "replaces": None, "launches": 0, "max_abs_err": 0.0,
+        "ms": time_ms(g25_kernel),
+        "plain_ms": time_ms(lambda: spmv_ops.csr_spmv_rowids_plain(
+            G25.data, G25.indices, None, x25, n25, lengths=lengths25,
+            serial=serial25), reps=5),
+        **bound(g25_bytes, 2 * G25.nnz),
+        "library_ms": time_ms(lambda: G25_lib @ x25, reps=5),
+        "shape": {"operator": "rmat-s25", "rows": n25, "nnz": int(G25.nnz),
+                  "dtype": "float32", "index_dtype": str(G25.indices.dtype),
+                  "offset_dtype": str(G25.indptr.dtype),
+                  "hub_rows": csr_held[-1]["hub_rows"],
+                  "chunks": csr_held[-1]["chunks"], "tiles": sched25.tiles,
+                  "bytes": g25_bytes}}
+    log({"phase": "timing_csr", **csr_row, "assemble_s": g25_assemble_s,
+         "first_spmv_s": g25_first_s, "held_bytes": g25_held,
+         "product_extra_bytes": g25_product_bytes,
+         "device_ms_per_kernel": g25_profile["kernels"],
+         "hold": csr_held[-1]})
+    del G25, G25_lib, x25, y25, sched25, lengths25
+    torch.cuda.empty_cache()
+
+    csr_phases.close("8b")
 
     # ---- 9. the scipy facade on the main path -------------------------------
     # The pde_4096 operator of phase 4, a block-clustered 2^20 matrix as in
@@ -4777,6 +5047,8 @@ def main() -> int:
     xgn = xg.cpu().numpy()
     rmat_err = within(yg, Gs_sp @ xgn, abs(Gs_sp) @ np.abs(xgn), 1e-12,
                       "(G + G.T) @ x")
+    check(Gs.spmv_path == "csr-rowids", f"(G + G.T) @ x took {Gs.spmv_path}")
+    csr_held.append(hold_csr_kernel("phase 9 (G + G.T) @ x", Gs, xg, yg))
     timed("rmat sum_duplicates", lambda g: g.sum_duplicates(),
           lambda g: g.sum_duplicates(), card_setup=G0.copy,
           host_setup=G0.toscipy)
@@ -4805,6 +5077,8 @@ def main() -> int:
          "seconds": time.perf_counter() - facade_t0})
     del G, G0, G_sp, Gs, Gs_sp, xg, yg
     torch.cuda.empty_cache()
+
+    csr_phases.close("9")
 
     # ---- 10. the solvers on the main path -----------------------------------
     # Three operators at full width, each solved from b = A @ x_true (x_true
@@ -5318,6 +5592,8 @@ def main() -> int:
          "grid": f"{grid}x{grid}", "rows": n, "irregular_rows": irr_rows,
          "runs": solver_runs, "launches": phase10,
          "kernel_vs_plain": kernel_vs_plain, "seconds": solver_seconds})
+    csr_phases.close("10")
+
     # ---- 11. the eigensolvers and csgraph on the main path -----------------
     # Each run from reset_counts(), its card ms by CUDA events around the
     # call (host syncs included), its host fetches through the solvers'
@@ -5826,6 +6102,8 @@ def main() -> int:
          "runs": spec_runs, "launches": phase11,
          "kernel_vs_plain": spec_vs_plain, "seconds": spec_seconds})
 
+    csr_phases.close("11")
+
     # ---- 12. compressed storage, refine= and the obs core -------------------
     # pde_4096 and phase 6's 2^20 block-clustered kind in compressed storage
     # (csr_array.compress: bf16 values; 2^24 and 2^20 columns keep int32
@@ -6329,10 +6607,12 @@ def main() -> int:
         "padded_slots": sum(b[0].numel() for b in bins),
         "f64": {"ms": time_ms(lambda: spmv_ops.sliced_ell_spmv(
                     bins, xg, g_rows), reps=5),
-                "csr_rowids_ms": time_ms(lambda: spmv_ops.csr_spmv_rowids(
-                    G.data, G.indices, g_rid, xg, g_rows,
-                    lengths=G._get_row_lengths(),
-                    serial=G._serial_rows()), reps=5),
+                "csr_rowids_kernel_ms": time_ms(
+                    lambda: spmv_ops.csr_spmv_rowids(
+                        G.data, G.indices, None, xg, g_rows,
+                        lengths=G._get_row_lengths(),
+                        serial=G._serial_rows(), offsets=G.indptr,
+                        schedule=G._get_csr_schedule()), reps=5),
                 "bytes": G.spmv_traffic_bytes(xg, path="sliced-ell"),
                 "max_abs_err": sliced_err},
         "bf16_f32acc": {
@@ -6358,6 +6638,8 @@ def main() -> int:
          "widening_timing": widening, "sliced_ell": sliced,
          "obs": obs_check, "seconds": comp_seconds})
 
+    csr_phases.close("12")
+
     # ---- 14. the distribution layer at world size 1 -------------------------
     from legate_sparse_tpu_torch.parallel.launch import run_ranks
 
@@ -6371,6 +6653,8 @@ def main() -> int:
     phase14 = p14["launches"]
     check(all(phase14[k] > 0 for k in ("dia_spmv", "dia_spmm", "bsr_spmv")),
           f"phase 14 launches {phase14}")
+
+    csr_phases.close("14")
 
     # ---- 15. graph analytics and the delta layer ---------------------------
     torch.cuda.empty_cache()
@@ -6386,13 +6670,18 @@ def main() -> int:
     phase15 = {k: m_launches[k] + p15["launches"][k] for k in m_launches}
     check(phase15["dia_spmv"] > 0, f"phase 15 launches {phase15}")
 
+    csr_phases.close("15")
+
     # ---- 16. the serving path ----------------------------------------------
     torch.cuda.empty_cache()
     s_rec, s_timing, phase16 = phase16_serving()
+    csr_held.extend(s_rec["csr_kernel_held"])
     log({"phase": "main_path_serving", "nvidia_smi": smi_line, **s_rec,
          "launches": phase16})
     log({"phase": "timing_serving", "nvidia_smi": smi_line, **s_timing})
     torch.cuda.empty_cache()
+
+    csr_phases.close("16")
 
     # ---- 17. the resilience layer -------------------------------------------
     r_rec, r_launches = phase17_resilience()
@@ -6414,6 +6703,8 @@ def main() -> int:
           f"phase 17 launches {phase17}")
     torch.cuda.empty_cache()
 
+    csr_phases.close("17")
+
     # ---- 18. the operations layer -------------------------------------------
     o_rec, phase18 = phase18_operations()
     log({"phase": "main_path_operations", "nvidia_smi": smi_line, **o_rec,
@@ -6431,12 +6722,16 @@ def main() -> int:
         log({"phase": "placement_submesh", "skipped": "1 card"})
     torch.cuda.empty_cache()
 
+    csr_phases.close("18")
+
     # ---- 19. the entry points ------------------------------------------------
     t0 = time.perf_counter()
     e_rec, phase19, entry_vs_plain = phase19_entry_points()
     log({"phase": "main_path_entry_points", "nvidia_smi": smi_line, **e_rec,
          "launches": phase19, "seconds_total": time.perf_counter() - t0})
     torch.cuda.empty_cache()
+
+    csr_phases.close("19")
 
     # ---- 20. the tools ---------------------------------------------------------
     t_rec, phase20, tools_vs_plain = phase20_tools(e_rec["bench"], smi_line)
@@ -6474,12 +6769,28 @@ def main() -> int:
         row["launches"] = ell_kernel.ell_spmv.launches + p14["ell_launches"]
         row["max_abs_err"] = ell_err
 
+    # The CSR SpMV ports no TPU kernel either: its row takes every launch
+    # of the kernel in this process, each checked phase by phase against
+    # the csr-rowids products that call for it, and the largest error of
+    # its checks against the plain ops.
+    csr_phases.close("20")
+    check(sum(r["launches"] for r in csr_phases.phases)
+          == csr_kernel.csr_spmv.launches,
+          "the CSR kernel's launches escaped the phases' counts")
+    check(all(sum(r["launches"] for r in csr_phases.phases
+                  if r["phase"] == p) > 0 for p in ("8b", "9", "16")),
+          f"a csr-rowids phase launched no CSR kernel: {csr_phases.phases}")
+    log({"phase": "csr_kernel", "launches_by_phase": csr_phases.phases,
+         "held": csr_held})
+    csr_row["launches"] = csr_kernel.csr_spmv.launches
+    csr_row["max_abs_err"] = max(h["max_abs_err"] for h in csr_held)
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     log({"kernels": [{k: row[k] for k in keys}
                      for row in (dia_row, bsr_row, dia_spmm_row,
                                  bsr_spmm_row, dia_spgemm_row,
-                                 *ell_rows)]})
+                                 *ell_rows, csr_row)]})
     print(smi_line, flush=True)
     log({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                 "count": torch.cuda.device_count()}})

@@ -28,8 +28,10 @@ from ..ops import spmv as _sp
 
 def _run_csr_rowids(A, operand, op: str):
     fn = _sp.csr_spmv_rowids if op == "spmv" else _sp.csr_spmm_rowids
-    return fn(A.data, A.indices, A._get_row_ids(), operand, A.shape[0],
-              lengths=A._get_row_lengths(), serial=A._serial_rows())
+    return fn(A.data, A.indices, A._rowids_for(operand), operand,
+              A.shape[0], lengths=A._get_row_lengths(),
+              serial=A._serial_rows(), offsets=A._indptr,
+              schedule=A._get_csr_schedule())
 
 
 def _run_ell(A, operand, op: str):

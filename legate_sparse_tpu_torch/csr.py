@@ -69,6 +69,7 @@ import torch
 from .base import (CompressedBase, DenseSparseBase, _is_scalar, _power,
                    _scalar_dtype, _scalar_op, _extreme)
 from .ops import convert as _convert
+from .ops import csr_kernel as _csr_kernel
 from .ops import dia_kernel as _dia_kernel
 from .ops import dia_ops as _dia_ops
 from .ops import spgemm as _spgemm_ops
@@ -245,6 +246,7 @@ class csr_array(CompressedBase, DenseSparseBase):
         # the first matvec (False = tried, not applicable).
         self._row_ids = None
         self._row_lengths = None
+        self._csr_schedule = None
         self._ell = None
         self._ell_width = None
         self._dia = None
@@ -278,6 +280,7 @@ class csr_array(CompressedBase, DenseSparseBase):
                                      self.shape, canonical=self._canonical)
         out._row_ids = self._row_ids
         out._row_lengths = self._row_lengths
+        out._csr_schedule = self._csr_schedule
         out._ell_width = self._ell_width
         out._dia_offsets = self._dia_offsets
         out._fingerprint = self._fingerprint
@@ -328,7 +331,7 @@ class csr_array(CompressedBase, DenseSparseBase):
             if self.nnz < 2:
                 self._canonical = True
             else:
-                row_ids = self._get_row_ids()
+                row_ids = self._probe_row_ids()
                 same_row = row_ids[1:] == row_ids[:-1]
                 increasing = self._indices[1:] > self._indices[:-1]
                 self._canonical = bool(torch.all(~same_row | increasing))
@@ -344,7 +347,7 @@ class csr_array(CompressedBase, DenseSparseBase):
             if self.nnz < 2:
                 self._sorted = True
             else:
-                row_ids = self._get_row_ids()
+                row_ids = self._probe_row_ids()
                 same_row = row_ids[1:] == row_ids[:-1]
                 nondecreasing = self._indices[1:] >= self._indices[:-1]
                 self._sorted = bool(torch.all(~same_row | nondecreasing))
@@ -448,6 +451,7 @@ class csr_array(CompressedBase, DenseSparseBase):
         if structure_changed:
             self._row_ids = None
             self._row_lengths = None
+            self._csr_schedule = None
             self._fingerprint = None
             self._ell_width = None
             self._dia_offsets = None
@@ -1150,6 +1154,25 @@ class csr_array(CompressedBase, DenseSparseBase):
                                                          self.nnz)
         return self._row_ids
 
+    def _rowids_for(self, operand):
+        """The row ids a csr-rowids product with ``operand`` reads:
+        cached, for an integer product (``index_add_``); None for a
+        float or complex one, which sums by the rows' lengths and, on
+        the card, reads the row offsets alone."""
+        if _spmv_ops.reads_row_ids(self._data, operand):
+            return self._get_row_ids()
+        return None
+
+    def _probe_row_ids(self) -> torch.Tensor:
+        """The row ids a structure probe or an order check reads: the
+        cached ones, else built for it alone.  A probe that takes the
+        matrix caches them; a check, or a probe that declines, leaves no
+        nnz-long array behind, so an irregular float matrix that settles
+        on csr-rowids holds none."""
+        if self._row_ids is not None:
+            return self._row_ids
+        return _convert.row_ids_from_indptr(self._indptr, self.nnz)
+
     def _get_row_lengths(self) -> torch.Tensor:
         """Cached stored entries per row (``indptr[1:] - indptr[:-1]``),
         the segment lengths of the csr-rowids sums: taken from indptr on
@@ -1157,6 +1180,22 @@ class csr_array(CompressedBase, DenseSparseBase):
         if self._row_lengths is None:
             self._row_lengths = self._indptr[1:] - self._indptr[:-1]
         return self._row_lengths
+
+    def _get_csr_schedule(self):
+        """Cached row schedule of the CSR SpMV kernel
+        (``ops/csr_kernel.py::build_schedule``), built on the device with
+        no host sync at the first product that takes the kernel (with
+        no chunk table where the rows sum one thread a row,
+        ``_serial_rows``); None where the matrix's values, columns or
+        device are not the kernel's."""
+        if (self._indptr.device.type != "cuda"
+                or self._data.dtype not in _csr_kernel.KERNEL_DTYPES
+                or self._indices.dtype not in _csr_kernel.INDEX_DTYPES):
+            return None
+        if self._csr_schedule is None:
+            self._csr_schedule = _csr_kernel.build_schedule(
+                self._indptr, self.nnz, hubs=not self._serial_rows())
+        return self._csr_schedule
 
     def _get_fingerprint(self):
         """Cached sparsity fingerprint (``autotune.Fingerprint``)."""
@@ -1216,10 +1255,12 @@ class csr_array(CompressedBase, DenseSparseBase):
                     and self.has_canonical_format):
                 from .ops import bsr as _bsr_ops
 
+                row_ids = self._probe_row_ids()
                 st = _bsr_ops.build_structure(
-                    self._data, self._indices, self._indptr,
-                    self._get_row_ids(), self.shape,
-                    settings.bsr_max_expand, probe=sp)
+                    self._data, self._indices, self._indptr, row_ids,
+                    self.shape, settings.bsr_max_expand, probe=sp)
+                if st is not None:
+                    self._row_ids = row_ids
             self._bsr = st if st is not None else False
             _probed(sp, "bsr", st is None)
         return st
@@ -1251,9 +1292,13 @@ class csr_array(CompressedBase, DenseSparseBase):
         if self._dia_offsets is None:
             max_nd = int(min(settings.dia_max_diags,
                              settings.dia_max_expand * nnz / max(cols, 1)))
-            offsets = (_dia_ops.csr_band_offsets(
-                self._indices, self._get_row_ids(), max_nd, probe=sp)
-                if max_nd >= 1 else None)
+            offsets = None
+            if max_nd >= 1:
+                row_ids = self._probe_row_ids()
+                offsets = _dia_ops.csr_band_offsets(self._indices, row_ids,
+                                                    max_nd, probe=sp)
+                if offsets is not None:
+                    self._row_ids = row_ids
             self._dia_offsets = offsets if offsets is not None else False
         if self._dia_offsets is False:
             return None
@@ -1445,9 +1490,10 @@ class csr_array(CompressedBase, DenseSparseBase):
                 rows), "csr-rowids-bf16"
         if src is not None:
             return _spmv_ops.csr_spmv_rowids(
-                A.data, A.indices, src._get_row_ids(), x, rows,
+                A.data, A.indices, src._rowids_for(x), x, rows,
                 lengths=src._get_row_lengths(),
-                serial=src._serial_rows()), "csr-rowids"
+                serial=src._serial_rows(), offsets=src._indptr,
+                schedule=src._get_csr_schedule()), "csr-rowids"
         return _spmv_ops.csr_spmv(A.data, A.indices, A.indptr, x, rows,
                                   serial=self._serial_rows()), "csr"
 
@@ -1507,9 +1553,10 @@ class csr_array(CompressedBase, DenseSparseBase):
                     path = "csr-rowids-bf16"
                 elif src is not None:
                     Y = _spmv_ops.csr_spmm_rowids(
-                        A.data, A.indices, src._get_row_ids(), X, rows,
+                        A.data, A.indices, src._rowids_for(X), X, rows,
                         lengths=src._get_row_lengths(),
-                        serial=src._serial_rows())
+                        serial=src._serial_rows(), offsets=src._indptr,
+                        schedule=src._get_csr_schedule())
                     path = "csr-rowids"
                 else:
                     Y = _spmv_ops.csr_spmm(A.data, A.indices, A.indptr, X,

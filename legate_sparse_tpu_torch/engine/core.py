@@ -54,14 +54,17 @@ class _Pack:
     """Bucket-padded operands of one matrix (tensors on its device):
     ``data``/``indices`` padded to ``nnz_b``, the segment ``lengths``
     (``rows_b`` rows, then the padding segments: ``plan_cache``'s pack
-    layout), ``valid``, the stored-entry count as a 0-d tensor, and
-    ``serial``, the order its rows sum in (``csr_array._serial_rows``)."""
+    layout), ``valid``, the stored-entry count as a 0-d tensor,
+    ``serial``, the order its rows sum in (``csr_array._serial_rows``),
+    and ``kernel``, the segments' offsets and the CSR SpMV kernel's
+    schedule (``ops/csr_kernel.py``), built once with the pack, or None
+    where the kernel does not take the pack's types or device."""
 
     __slots__ = ("data", "indices", "lengths", "valid", "serial", "rows",
-                 "cols", "nnz")
+                 "cols", "nnz", "kernel")
 
     def __init__(self, data, indices, lengths, valid, serial, rows, cols,
-                 nnz):
+                 nnz, kernel=None):
         self.data = data
         self.indices = indices
         self.lengths = lengths
@@ -70,6 +73,7 @@ class _Pack:
         self.rows = rows
         self.cols = cols
         self.nnz = nnz
+        self.kernel = kernel
 
 
 def _pad_tail(t: torch.Tensor, total: int, fill) -> torch.Tensor:
@@ -186,6 +190,8 @@ class Engine:
     # ---------------- per-matrix packs ----------------
 
     def _pack_for(self, A, key: PlanKey) -> _Pack:
+        from ..ops import csr_kernel as _csr_kernel
+        from ..ops import spmv as _spmv_ops
         from ..types import coord_dtype_for
 
         terms = (key.rows_b, key.cols_b, key.nnz_b, key.dtype)
@@ -211,8 +217,14 @@ class Engine:
             torch.full((1,), rest, **i64),
             torch.zeros((segs - full - 1,), **i64)])
         valid = torch.full((), nnz, **i64)
-        pack = _Pack(data, indices, lengths, valid, A._serial_rows(), rows,
-                     A.shape[1], nnz)
+        serial = A._serial_rows()
+        kernel = None
+        if _spmv_ops.csr_kernel_takes(data, indices, data):
+            offsets = _csr_kernel.offsets_from_lengths(lengths)
+            kernel = (offsets, _csr_kernel.build_schedule(
+                offsets, key.nnz_b, hubs=not serial))
+        pack = _Pack(data, indices, lengths, valid, serial, rows,
+                     A.shape[1], nnz, kernel)
         A._engine_pack = (terms, pack)
         return pack
 
@@ -243,7 +255,7 @@ class Engine:
         # the context) annotates the profiler as engine.spmv[<id>].
         with _context.profiler_scope("engine.spmv"):
             y_p = plan(pack.data, pack.indices, pack.lengths, x_p,
-                       pack.serial)
+                       pack.serial, pack.kernel)
         return y_p[: A.shape[0]]
 
     def matmat(self, A, X, _checked: bool = False):
@@ -269,7 +281,7 @@ class Engine:
         X_p[: X.shape[0], :k] = X
         with _context.profiler_scope("engine.spmm"):
             Y_p = plan(pack.data, pack.indices, pack.lengths, X_p,
-                       pack.serial)
+                       pack.serial, pack.kernel)
         return Y_p[: A.shape[0], :k]
 
     def multi_matvec(self, pairs, _checked: bool = False):
@@ -322,7 +334,9 @@ class Engine:
         for i, (A, x) in enumerate(pairs):
             X[i, : x.shape[0]] = x
         with _context.profiler_scope("engine.spmv_multi"):
-            Y = plan(data, indices, lengths, valid, X, packs[0].serial)
+            Y = plan(data, indices, lengths, valid, X, packs[0].serial,
+                     [p.kernel for p in packs]
+                     if packs[0].kernel is not None else None)
         return [Y[i, : A.shape[0]] for i, (A, _x) in enumerate(pairs)]
 
     def traceable_matvec(self, A) -> Optional[Callable]:
@@ -344,7 +358,7 @@ class Engine:
         def mv(x):
             x_p = _pad_tail(x.to(dtype), cols_b, 0)
             return fn(pack.data, pack.indices, pack.lengths, x_p,
-                      pack.serial)[:n]
+                      pack.serial, pack.kernel)[:n]
 
         mv.pack = pack
         return mv

@@ -201,7 +201,10 @@ class PlanCache:
 # real row sums its slots in the order of the unpadded product
 # (``pack.serial``, the matrix's ``_serial_rows``).  The padding is cut
 # into segments of ``PAD_SEGMENT`` slots: summed one thread a segment,
-# one long padding segment would be the critical path.
+# one long padding segment would be the critical path.  ``kernel`` is
+# the pack's segment offsets and CSR SpMV kernel schedule
+# (``_Pack.kernel``, built once with the pack), or None; the plans pass
+# them on, so a request builds no schedule.
 PAD_SEGMENT = 64
 
 
@@ -216,10 +219,12 @@ def build_spmv_plan(key: PlanKey) -> Plan:
 
     rows, segs = key.rows_b, key.rows_b + padding_segments(key.nnz_b)
 
-    def fn(data, indices, lengths, x, serial):
+    def fn(data, indices, lengths, x, serial, kernel=None):
+        offsets, schedule = kernel or (None, None)
         return spmv_ops.csr_spmv_rowids(data, indices, None, x, segs,
-                                        lengths=lengths,
-                                        serial=serial)[:rows]
+                                        lengths=lengths, serial=serial,
+                                        offsets=offsets,
+                                        schedule=schedule)[:rows]
 
     return Plan(key, fn=fn, meta={"kernel": "csr_spmv_rowids"})
 
@@ -231,10 +236,12 @@ def build_spmm_plan(key: PlanKey) -> Plan:
 
     rows, segs = key.rows_b, key.rows_b + padding_segments(key.nnz_b)
 
-    def fn(data, indices, lengths, X, serial):
+    def fn(data, indices, lengths, X, serial, kernel=None):
+        offsets, schedule = kernel or (None, None)
         return spmv_ops.csr_spmm_rowids(data, indices, None, X, segs,
-                                        lengths=lengths,
-                                        serial=serial)[:rows]
+                                        lengths=lengths, serial=serial,
+                                        offsets=offsets,
+                                        schedule=schedule)[:rows]
 
     return Plan(key, fn=fn, meta={"kernel": "csr_spmm_rowids"})
 
@@ -242,15 +249,16 @@ def build_spmm_plan(key: PlanKey) -> Plan:
 def build_spmv_multi_plan(key: PlanKey) -> Plan:
     """``k_b`` matrices of one shape bucket (different tenants, one
     gateway batch) in one stacked dispatch; slot ``i`` carries matrix
-    ``i``'s pack and its own x."""
+    ``i``'s pack and its own x, and ``kernel`` the real matrices' packs'
+    offsets and schedules (the slots past them are batch padding)."""
     from ..ops import spmv as spmv_ops
 
     rows, b = key.rows_b, key.k_b
 
-    def fn(data, indices, lengths, valid, X, serial):
+    def fn(data, indices, lengths, valid, X, serial, kernel=None):
         return spmv_ops.csr_multi_spmv_rowids_masked(
             data, indices, None, valid, X, rows, b, lengths=lengths,
-            serial=serial)
+            serial=serial, kernel=kernel)
 
     return Plan(key, fn=fn,
                 meta={"kernel": "csr_multi_spmv_rowids_masked"})

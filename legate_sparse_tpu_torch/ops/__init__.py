@@ -2,11 +2,12 @@
 # SPDX-License-Identifier: Apache-2.0
 """Kernels and plain tensor ops (mirrors ``legate_sparse_tpu/ops``).
 
-``dia_kernel``, ``bsr`` and ``ell_kernel`` each hold a hand-written
-CUDA kernel (sources in ``../csrc``, built by ``_build``) beside its
-plain PyTorch version; ``convert``, ``spmv`` (whose ``ell_spmv`` routes
-CUDA operands to ``ell_kernel``), ``spgemm`` and ``dia_ops`` are plain
-PyTorch.  The package re-exports the JAX package's names: the plain
+``dia_kernel``, ``bsr``, ``ell_kernel`` and ``csr_kernel`` each hold a
+hand-written CUDA kernel (sources in ``../csrc``, built by ``_build``)
+beside its plain PyTorch version; ``convert``, ``spmv`` (whose
+``ell_spmv`` routes CUDA operands to ``ell_kernel``, and whose
+csr-rowids products route them to ``csr_kernel``), ``spgemm`` and
+``dia_ops`` are plain PyTorch.  The package re-exports the JAX package's names: the plain
 products, conversions and SpGEMM (``dia_spmv``/``dia_spmm`` are
 ``dia_ops``' plain DIA products; the kernel wrappers are
 ``kernel_wrappers()``'s).
@@ -30,9 +31,9 @@ def kernel_wrappers() -> dict:
     """The wrappers of the five kernels that port the JAX package's
     Pallas kernels, by kernel name; each wrapper's ``launches`` counts
     its kernel's CUDA launches in this process (a CPU tensor takes the
-    plain version and counts none).  The ELL SpMV kernel ports no
-    Pallas kernel; its wrapper ``ell_kernel.ell_spmv`` counts its own
-    ``launches`` the same way."""
+    plain version and counts none).  The ELL and CSR SpMV kernels port
+    no Pallas kernel; their wrappers ``ell_kernel.ell_spmv`` and
+    ``csr_kernel.csr_spmv`` count their own ``launches`` the same way."""
     from . import bsr, dia_kernel
 
     return {"dia_spmv": dia_kernel.dia_spmv, "bsr_spmv": bsr.bsr_spmv,

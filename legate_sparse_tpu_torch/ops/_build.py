@@ -27,7 +27,8 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {"dia_spmv": "dia_spmv.cu", "bsr_spmv": "bsr_spmv.cu",
            "dia_spmm": "dia_spmm.cu", "bsr_spmm": "bsr_spmm.cu",
-           "dia_spgemm": "dia_spgemm.cu", "ell_spmv": "ell_spmv.cu"}
+           "dia_spgemm": "dia_spgemm.cu", "ell_spmv": "ell_spmv.cu",
+           "csr_spmv": "csr_spmv.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -3,7 +3,9 @@
 """Gather-class SpMV and SpMM in plain PyTorch.
 
 Mirrors ``legate_sparse_tpu/ops/spmv.py``: ``csr_spmv`` (``:39``),
-``csr_spmv_rowids`` (``:58``), the masked padded-suffix products
+``csr_spmv_rowids`` (``:58``; on the card, with ``csr_spmm_rowids``
+and ``csr_multi_spmv_rowids_masked``, the CUDA kernel of
+``ops/csr_kernel.py``), the masked padded-suffix products
 ``csr_spmv_rowids_masked`` (``:68``) and ``csr_spmm_rowids_masked``
 (``:85``) of the distributed blocks, ``ell_within_budget`` (``:545``),
 ``ell_pack`` (``:551``), ``ell_spmv`` (``:161``; on the card the CUDA
@@ -39,32 +41,75 @@ import numpy as np
 
 from ..obs import trace as _trace
 from .convert import gather_index, row_ids_from_indptr, segment_sum
+from . import csr_kernel as _csr_kernel
 from . import ell_kernel as _ell_kernel
 
 
+def csr_kernel_takes(data, indices, x) -> bool:
+    """Whether the csr-rowids products take the CUDA kernel
+    (``csr_kernel.csr_spmv``) for these operands: CUDA f32 or f64 values
+    with x of their type and int32 or int64 columns."""
+    return x.device.type == "cuda" and _csr_kernel.supported(data, indices, x)
+
+
+def _kernel_offsets(row_ids, rows: int, lengths, offsets):
+    """The rows' offsets the kernel reads: ``offsets`` as given, else
+    one ``cumsum`` of ``lengths`` (counted from ``row_ids`` when
+    absent)."""
+    if offsets is not None:
+        return offsets
+    if lengths is None:
+        lengths = _row_lengths(row_ids, rows)[:rows]
+    return _csr_kernel.offsets_from_lengths(lengths)
+
+
 def csr_spmv_rowids(data, indices, row_ids, x, rows: int, lengths=None,
-                    serial=None) -> torch.Tensor:
-    """y[i] = Σ data[j]·x[indices[j]] over the nonzeros j of row i, with
-    per-nonzero row ids precomputed.  Float rows sum through
-    ``row_sums``, the same bits on every call on the card (an atomic
-    ``index_add_`` sums in no fixed order); integers, whose sum does not
-    depend on order, keep ``index_add_``.  ``lengths`` are the rows'
-    lengths (``csr_array._get_row_lengths``: counted from ``row_ids``
-    when absent) and ``serial`` the summation order
-    (``csr_array._serial_rows``: taken from the longest row, one host
-    sync, when absent).  While tracing is on, each call is a
-    ``kernel.csr_rowids`` span with its ``rows``, ``entries`` and
-    ``serial`` (None where ``row_sums`` chose)."""
+                    serial=None, offsets=None,
+                    schedule=None) -> torch.Tensor:
+    """y[i] = Σ data[j]·x[indices[j]] over the nonzeros j of row i.  On
+    the card, f32 or f64 values with x of the same type and int32 or
+    int64 columns take the CUDA kernel (``csr_kernel.csr_spmv``: one pass
+    over the values and columns, each row summed in an order that
+    depends only on its own slots, slot order for rows of at most
+    ``csr_kernel.CHUNK`` entries); it reads ``offsets`` (the ``rows + 1``
+    row pointers, int32 or int64; one ``cumsum`` of ``lengths`` when
+    absent) and ``schedule`` (``csr_kernel.build_schedule``'s; built on
+    each call when absent).  Every other operand (complex, integer,
+    low-precision, int16 columns, mixed types) and every CPU operand
+    takes ``csr_spmv_rowids_plain``.  While tracing is on, each call is
+    a ``kernel.csr_rowids`` span with its ``rows``, ``entries`` and
+    ``serial`` (None where ``row_sums`` chose); the kernel's own
+    ``kernel.csr_spmv`` span nests in it."""
     with _trace.span("kernel.csr_rowids") as sp:
         if sp is not None:
             sp.set(rows=rows, entries=int(data.shape[0]), serial=serial)
-        prod = data * x[gather_index(indices)]
-        if not (prod.is_floating_point() or prod.is_complex()):
-            y = torch.zeros((rows,), dtype=prod.dtype, device=prod.device)
-            return y.index_add_(0, row_ids, prod)
-        if lengths is None:
-            lengths = _row_lengths(row_ids, rows)[:rows]
-        return row_sums(prod, lengths, serial)
+        if csr_kernel_takes(data, indices, x):
+            return _csr_kernel.csr_spmv(
+                data, indices, _kernel_offsets(row_ids, rows, lengths,
+                                               offsets),
+                x.contiguous(), schedule)
+        return csr_spmv_rowids_plain(data, indices, row_ids, x, rows,
+                                     lengths, serial)
+
+
+def csr_spmv_rowids_plain(data, indices, row_ids, x, rows: int,
+                          lengths=None, serial=None) -> torch.Tensor:
+    """``csr_spmv_rowids`` in plain PyTorch, with per-nonzero row ids
+    precomputed.  Float rows sum through ``row_sums``, the same bits on
+    every call on the card (an atomic ``index_add_`` sums in no fixed
+    order); integers, whose sum does not depend on order, keep
+    ``index_add_``.  ``lengths`` are the rows' lengths
+    (``csr_array._get_row_lengths``: counted from ``row_ids`` when
+    absent) and ``serial`` the summation order
+    (``csr_array._serial_rows``: taken from the longest row, one host
+    sync, when absent)."""
+    prod = data * x[gather_index(indices)]
+    if not (prod.is_floating_point() or prod.is_complex()):
+        y = torch.zeros((rows,), dtype=prod.dtype, device=prod.device)
+        return y.index_add_(0, row_ids, prod)
+    if lengths is None:
+        lengths = _row_lengths(row_ids, rows)[:rows]
+    return row_sums(prod, lengths, serial)
 
 
 def csr_spmv_rowids_masked(data, indices, row_ids, valid_nnz, x,
@@ -94,7 +139,7 @@ def csr_spmm_rowids_masked(data, indices, row_ids, valid_nnz, X,
 
 def csr_multi_spmv_rowids_masked(data, indices, row_ids, valid_nnz, X,
                                  rows: int, b: int, lengths=None,
-                                 serial=None) -> torch.Tensor:
+                                 serial=None, kernel=None) -> torch.Tensor:
     """``b`` independent masked SpMVs in one stacked dispatch (the
     gateway's cross-tenant batch): row ``i`` of the (b, nnz) operands
     is matrix ``i``'s padded pack, ``X[i]`` its own x.  Each matrix's
@@ -107,26 +152,74 @@ def csr_multi_spmv_rowids_masked(data, indices, row_ids, valid_nnz, X,
     each of them.  A slot with ``valid_nnz == 0`` (batch padding)
     contributes only exact zeros.  ``lengths`` is (b, s) with s >
     ``rows`` (an engine pack's: its rows, then its padding segments),
-    or, counted from ``row_ids`` when absent, (b, rows + 1)."""
+    or, counted from ``row_ids`` when absent, (b, rows + 1).
+
+    On the card, f32/f64 values with X of their type and int32 or int64
+    columns take ``csr_kernel.csr_spmv`` matrix by matrix: each masked
+    slot's value 0 and its column the zero entry appended to ``X[i]``,
+    so a masked slot's product is an exact +0.0 as above, and each row
+    sums as the kernel sums it in the single product, since its order
+    depends only on its own slots.  ``kernel`` holds the first
+    matrices' segment offsets and schedules (an engine pack's, built
+    once with it); the matrices past it are batch padding, whose rows
+    read +0.0 with no launch.  Absent, each matrix's are built on the
+    call from ``lengths``."""
     nnz = data.shape[1]
     slot = torch.arange(nnz, device=data.device)
-    gathered = torch.gather(X, 1, gather_index(indices))
-    prod = torch.where(slot[None, :] < valid_nnz[:, None], data * gathered,
-                       torch.zeros((), dtype=data.dtype, device=data.device))
+    live = slot[None, :] < valid_nnz[:, None]
+    zero = torch.zeros((), dtype=data.dtype, device=data.device)
     if lengths is None:
         lengths = torch.stack([_row_lengths(row_ids[i], rows)
                                for i in range(b)])
+    if X.shape[1] and csr_kernel_takes(data[0], indices[0], X[0]):
+        cols = X.shape[1]
+        if kernel is None:
+            kernel = []
+            for i in range(b):
+                offsets = _csr_kernel.offsets_from_lengths(lengths[i])
+                kernel.append((offsets,
+                               _csr_kernel.build_schedule(offsets, nnz)))
+        Xe = torch.nn.functional.pad(X, (0, 1))
+        vals = torch.where(live, data, zero)
+        idx = torch.where(live, indices,
+                          torch.full((), cols, dtype=indices.dtype,
+                                     device=data.device))
+        ys = [_csr_kernel.csr_spmv(vals[i], idx[i], offsets, Xe[i],
+                                   schedule)[:rows]
+              for i, (offsets, schedule) in enumerate(kernel)]
+        ys += [X.new_zeros((rows,))] * (b - len(ys))
+        return torch.stack(ys)
+    gathered = torch.gather(X, 1, gather_index(indices))
+    prod = torch.where(live, data * gathered, zero)
     out = row_sums(prod.reshape(-1), lengths.reshape(-1), serial)
     return out.reshape(b, lengths.shape[1])[:, :rows]
 
 
+def reads_row_ids(data, x) -> bool:
+    """Whether a csr-rowids product of ``data`` and ``x`` given its rows'
+    lengths reads per-entry row ids: an integer product alone
+    (``index_add_``); a float or complex one sums by the lengths (and,
+    on the card, reads the row offsets)."""
+    out = torch.promote_types(data.dtype, x.dtype)
+    return not (out.is_floating_point or out.is_complex)
+
+
+def _plain_row_ids(data, indptr, x):
+    """Row ids for the plain csr-rowids products where they read them
+    (``reads_row_ids``), else None."""
+    if not reads_row_ids(data, x):
+        return None
+    return row_ids_from_indptr(indptr, data.shape[0])
+
+
 def csr_spmv(data, indices, indptr, x, rows: int,
              serial=None) -> torch.Tensor:
-    """CSR SpMV that expands the row ids on every call."""
+    """CSR SpMV that expands the row ids on every call that needs
+    them."""
     return csr_spmv_rowids(data, indices,
-                           row_ids_from_indptr(indptr, data.shape[0]),
+                           _plain_row_ids(data, indptr, x),
                            x, rows, lengths=indptr[1:] - indptr[:-1],
-                           serial=serial)
+                           serial=serial, offsets=indptr)
 
 
 def ell_within_budget(rows: int, W: int, nnz: int,
@@ -215,14 +308,25 @@ def ell_spmm(ell_data, ell_cols, ell_counts, X) -> torch.Tensor:
 
 
 def csr_spmm_rowids(data, indices, row_ids, X, rows: int, lengths=None,
-                    serial=None) -> torch.Tensor:
+                    serial=None, offsets=None,
+                    schedule=None) -> torch.Tensor:
     """Y = A @ X with per-nonzero row ids precomputed: gather the rows
     of X, scale, sum per row.  Floats sum each column as
     ``csr_spmv_rowids`` sums its one (``row_sums``), so column j is bit
     for bit the SpMV of ``X[:, j]``; integers keep ``index_add_``.  The
     gather runs on X's transpose, one contiguous row a column: on CUDA
-    a gather of X's short rows is several times slower."""
+    a gather of X's short rows is several times slower.  Where
+    ``csr_spmv_rowids`` takes the CUDA kernel, each column is one
+    kernel product of that column (``offsets`` and ``schedule`` as
+    there, the schedule built once a call when absent)."""
     Xt = X.T.contiguous()
+    if X.shape[1] and csr_kernel_takes(data, indices, Xt[0]):
+        offsets = _kernel_offsets(row_ids, rows, lengths, offsets)
+        if schedule is None:
+            schedule = _csr_kernel.build_schedule(offsets, data.shape[0])
+        return torch.stack([_csr_kernel.csr_spmv(data, indices, offsets,
+                                                 Xt[j], schedule)
+                            for j in range(X.shape[1])], dim=1)
     prod = (data * Xt.index_select(1, gather_index(indices))).T
     if not (prod.is_floating_point() or prod.is_complex()):
         Y = torch.zeros((rows, X.shape[1]), dtype=prod.dtype,
@@ -235,11 +339,12 @@ def csr_spmm_rowids(data, indices, row_ids, X, rows: int, lengths=None,
 
 def csr_spmm(data, indices, indptr, X, rows: int,
              serial=None) -> torch.Tensor:
-    """CSR SpMM that expands the row ids on every call."""
+    """CSR SpMM that expands the row ids on every call that needs
+    them."""
     return csr_spmm_rowids(data, indices,
-                           row_ids_from_indptr(indptr, data.shape[0]),
+                           _plain_row_ids(data, indptr, X),
                            X, rows, lengths=indptr[1:] - indptr[:-1],
-                           serial=serial)
+                           serial=serial, offsets=indptr)
 
 
 def sliced_ell_pack(data, indices, indptr, rows: int):

@@ -29,7 +29,12 @@ slot order from +0.0, bit for bit its twin ``ell_spmv_ordered``
 with the CPU tests ``test_torch_ell_kernel.py``; a wider pack takes the
 plain ops and launches nothing); the
 plain ELL ops (``ell_spmv_plain``) sum in another order, so 1e-5 (f32)
-and 1e-12 (f64).  The BSR cases are shared with the CPU tests
+and 1e-12 (f64).  The CSR SpMV kernel (``test_csr_kernel_*``) is bit for
+bit its twin ``csr_spmv_ordered`` on rows at every class edge of its
+schedule (``CSR_KERNEL_HEAD``, shared with ``test_torch_csr_kernel.py``),
+bit for bit the plain ops on a matrix with no row past 1,024 entries,
+and within 1e-5 (f32) or 1e-12 (f64) of the largest |y| of a float64
+scatter, a Graph500 graph's edge list included.  The BSR cases are shared with the CPU tests
 (``test_torch_bsr.py``, ``test_torch_spmm.py``); the BSR kernels take
 int16 column indices (compressed storage) as they take int32 and int64,
 and the int16 SpMM agrees with the int32 one bit for bit.
@@ -72,6 +77,7 @@ import torch
 
 import legate_sparse_tpu_torch as sparse
 from legate_sparse_tpu_torch.ops import bsr as bsr_ops
+from legate_sparse_tpu_torch.ops import csr_kernel
 from legate_sparse_tpu_torch.ops import dia_kernel
 from legate_sparse_tpu_torch.ops import ell_kernel
 from legate_sparse_tpu_torch.ops import spmv as spmv_ops
@@ -341,7 +347,9 @@ def test_csr_dot_dispatch_on_card(cuda):
     """On the card a banded f32 matrix takes the DIA kernel and an
     irregular one within the BSR budget takes the BSR kernel; an
     irregular f64 one within the ELL budget takes "ell", through the ELL
-    kernel up to ``MAX_TILE_W`` slots a row and the plain ops above."""
+    kernel up to ``MAX_TILE_W`` slots a row and the plain ops above; an
+    irregular f32 one over every budget takes "csr-rowids", through the
+    CSR kernel."""
     rng = np.random.default_rng(1)
     S = _holey(5000, rng)
     A = sparse.csr_array(S, device=cuda)
@@ -372,6 +380,16 @@ def test_csr_dot_dispatch_on_card(cuda):
         assert ell_kernel.ell_spmv.launches == before + launched
         np.testing.assert_allclose(y.cpu().numpy(), M @ x64, rtol=1e-12,
                                    atol=1e-12)
+    # An irregular f32 matrix over every budget (a 704-entry row breaks
+    # ELL's and BSR's) takes csr-rowids, through the CSR kernel.
+    G = engine_style(20_000)
+    Gc = sparse.csr_array(G, device=cuda)
+    xg = rng.standard_normal(20_000).astype(np.float32)
+    before = csr_kernel.csr_spmv.launches
+    y = Gc @ xg
+    assert Gc.spmv_path == "csr-rowids"
+    assert csr_kernel.csr_spmv.launches == before + 1
+    np.testing.assert_allclose(y.cpu().numpy(), G @ xg, rtol=1e-5, atol=1e-5)
 
 
 # ELL kernel widths: the V-cycle's R and P (9, 4), a single slot and the
@@ -531,6 +549,234 @@ def test_ell_complex_on_card_stays_plain(cuda):
     assert ell_kernel.ell_spmv.launches == before
     assert y.dtype == torch.complex64
     assert torch.equal(y, spmv_ops.ell_spmv_plain(data, cols, counts, x))
+
+
+# ---- the CSR SpMV kernel (csrc/csr_spmv.cu) ------------------------------
+#
+# Rows at every class edge of the kernel's schedule: empty rows leading
+# and trailing, CHUNK - 1, CHUNK (the longest summed in slot order) and
+# CHUNK + 1 (the shortest hub row, two chunks), 2 CHUNK and 2 CHUNK + 1,
+# a hub row of many chunks, a regular and a hub row whose products are
+# all -0.0 (column 3, x = -0.0), a row that stores column 1 (x = NaN)
+# and a hub row that stores column 2 (x = inf); column 0 (x = NaN) is
+# stored nowhere.  ``tail`` adds 2,000 short rows, a run of 2,500 empty
+# rows (more than a tile's TILE_ROWS) and 300 rows of 0 to 1,500.
+_C = csr_kernel.CHUNK
+CSR_KERNEL_HEAD = (0, 0, 3, _C - 1, _C, _C + 1, 0, 1, 2 * _C, 2 * _C + 1,
+                   40 * _C + 3, 5, _C + 5, 7, 3 * _C)
+CSR_NEG_ZERO_ROWS = (11, 12)
+CSR_NAN_ROW, CSR_INF_ROW = 13, 14
+
+
+def csr_kernel_case(rng, dtype, index_dtype, offset_dtype, device,
+                    tail=True, cols=50_000):
+    """``(data, indices, offsets, x)`` of the rows above."""
+    lengths = list(CSR_KERNEL_HEAD)
+    if tail:
+        lengths += (list(rng.integers(0, 41, 2000)) + [0] * 2500
+                    + list(rng.integers(0, 1501, 300)))
+    lengths += [0, 0]
+    offsets = np.zeros(len(lengths) + 1, dtype=np.int64)
+    np.cumsum(lengths, out=offsets[1:])
+    nnz = int(offsets[-1])
+    idx = rng.integers(4, cols, nnz)
+    data = rng.standard_normal(nnz)
+    for r in CSR_NEG_ZERO_ROWS:
+        a, b = offsets[r], offsets[r + 1]
+        idx[a:b] = 3
+        data[a:b] = np.abs(data[a:b]) + 0.5
+    idx[offsets[CSR_NAN_ROW] + 2] = 1
+    idx[offsets[CSR_INF_ROW] + 1500] = 2
+    x = rng.standard_normal(cols)
+    x[:4] = np.nan, np.nan, np.inf, -0.0
+    return (torch.from_numpy(data).to(device, dtype),
+            torch.from_numpy(idx).to(device, index_dtype),
+            torch.from_numpy(offsets).to(device, offset_dtype),
+            torch.from_numpy(x).to(device, dtype))
+
+
+def csr_f64_reference(data, indices, offsets, x):
+    """``A @ x`` scattered in float64 on the CPU."""
+    offsets = offsets.cpu().to(torch.int64)
+    lengths = offsets[1:] - offsets[:-1]
+    rows = torch.repeat_interleave(torch.arange(lengths.shape[0]), lengths)
+    return torch.zeros(lengths.shape[0], dtype=torch.float64).index_add_(
+        0, rows, data.cpu().double() * x.cpu().double()[indices.cpu().long()])
+
+
+def assert_csr_case_rows(y, offsets):
+    """The special rows of ``csr_kernel_case``: empty and -0.0 rows read
+    +0.0, the NaN of x reaches its row alone, the inf its row."""
+    lengths = (offsets[1:] - offsets[:-1]).to(y.device)
+    quiet = torch.cat([y[lengths == 0], y[list(CSR_NEG_ZERO_ROWS)]])
+    assert torch.equal(quiet, torch.zeros_like(quiet))
+    assert not torch.signbit(quiet).any()
+    assert y.isnan().nonzero().flatten().tolist() == [CSR_NAN_ROW]
+    assert y[CSR_INF_ROW].isinf()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_csr_kernel_matches_ordered(cuda, dtype, index_dtype):
+    """The kernel against its plain twin ``csr_spmv_ordered`` bit for bit,
+    through ``spmv.csr_spmv_rowids`` (int64 offsets from the lengths)
+    and directly (int32 and int64 offsets), one launch each; within 1e-5
+    (f32) or 1e-12 (f64) of the largest |y| of a float64 scatter."""
+    rng = np.random.default_rng(40)
+    data, cols, offsets, x = csr_kernel_case(rng, dtype, index_dtype,
+                                             torch.int64, cuda)
+    want = csr_kernel.csr_spmv_ordered(data, cols, offsets, x)
+    lengths = offsets[1:] - offsets[:-1]
+    before = csr_kernel.csr_spmv.launches
+    y = spmv_ops.csr_spmv_rowids(data, cols, None, x, lengths.shape[0],
+                                 lengths=lengths)
+    assert csr_kernel.csr_spmv.launches == before + 1
+    assert y.dtype == dtype
+    torch.cuda.synchronize()
+    assert_bitwise(y, want)
+    assert_csr_case_rows(y, offsets)
+    for odt in (torch.int32, torch.int64):
+        assert_bitwise(csr_kernel.csr_spmv(data, cols, offsets.to(odt), x),
+                       want)
+    assert csr_kernel.csr_spmv.launches == before + 3
+    ref = csr_f64_reference(data, cols, offsets, x)
+    fin = ref.isfinite()
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    err = (y.cpu().double()[fin] - ref[fin]).abs().max()
+    assert err <= tol * ref[fin].abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_csr_kernel_serial_matrix_equals_plain(cuda, dtype):
+    """On an engine-style matrix (longest row 704, within
+    ``SERIAL_MAX_ROW``) every row sums in slot order: ``A @ x`` through
+    the kernel is bit for bit the plain ops' one-thread-a-row sums."""
+    A = sparse.csr_array(engine_style((1 << 16) - 91).astype(
+        np.float64 if dtype == torch.float64 else np.float32), device=cuda)
+    assert A._serial_rows()
+    x = _card_x(A.shape[1], cuda, dtype)
+    before = csr_kernel.csr_spmv.launches
+    y = A @ x
+    assert A.spmv_path == "csr-rowids"
+    assert csr_kernel.csr_spmv.launches == before + 1
+    plain = spmv_ops.csr_spmv_rowids_plain(
+        A.data, A.indices, A._get_row_ids(), x, A.shape[0],
+        lengths=A._get_row_lengths(), serial=True)
+    assert torch.equal(y, plain)
+
+
+@pytest.mark.gpu
+def test_csr_kernel_graph500(cuda):
+    """A Graph500 Kronecker graph at SCALE 18 (the benchmark's family,
+    ``utils_test/graph500_ref.py``): ``A @ x`` takes csr-rowids and the
+    kernel, bit for bit ``csr_spmv_ordered``, within 1e-5 of the largest
+    |y| of the edge list scattered in float64 (f32 sums of up to ~10^4
+    terms; one entry of typical size left out reads ~1e-3)."""
+    from utils_test import graph500_ref
+
+    data, cols, indptr = graph500_ref.assemble(18, 26)
+    n = indptr.shape[0] - 1
+    A = sparse.csr_array((data.float().numpy(), cols.numpy(),
+                          indptr.numpy()), shape=(n, n), device=cuda)
+    x = torch.rand(n, generator=torch.Generator().manual_seed(5))
+    before = csr_kernel.csr_spmv.launches
+    y = A @ x.to(cuda)
+    assert A.spmv_path == "csr-rowids" and not A._serial_rows()
+    assert csr_kernel.csr_spmv.launches == before + 1
+    # The probes that declined left no row ids behind.
+    assert A._row_ids is None
+    assert_bitwise(y, csr_kernel.csr_spmv_ordered(A.data, A.indices,
+                                                  A.indptr, x.to(cuda)))
+    ref = graph500_ref.apply(18, 26, x)
+    err = (y.cpu().double() - ref).abs().max() / ref.abs().max()
+    assert err <= 1e-5
+
+
+@pytest.mark.gpu
+def test_csr_kernel_rejects_bad_inputs(cuda):
+    """Non-contiguous operands, mismatched shapes, types and devices
+    raise before any launch; ``spmv.csr_spmv_rowids`` makes a strided x
+    contiguous for the kernel."""
+    rng = np.random.default_rng(41)
+    data, cols, offsets, x = csr_kernel_case(rng, torch.float32,
+                                             torch.int32, torch.int64, cuda,
+                                             tail=False)
+    before = csr_kernel.csr_spmv.launches
+    bad = [
+        (ValueError, (torch.stack([data, data], 1)[:, 0], cols, offsets, x)),
+        (ValueError, (data, torch.stack([cols, cols], 1)[:, 0], offsets, x)),
+        (ValueError, (data, cols, offsets, torch.stack([x, x], 1)[:, 0])),
+        (ValueError, (data, cols[:-1], offsets, x)),
+        (ValueError, (data, cols, offsets, x.cpu())),
+        (TypeError, (data, cols, offsets, x.double())),
+        (TypeError, (data, cols.short(), offsets, x)),
+        (TypeError, (data, cols, offsets.float(), x)),
+    ]
+    for exc, args in bad:
+        with pytest.raises(exc):
+            csr_kernel.csr_spmv(*args)
+    assert csr_kernel.csr_spmv.launches == before
+    rows = offsets.shape[0] - 1
+    lengths = offsets[1:] - offsets[:-1]
+    xs = torch.stack([x, x], 1)[:, 0]
+    assert_bitwise(spmv_ops.csr_spmv_rowids(data, cols, None, xs, rows,
+                                            lengths=lengths),
+                   spmv_ops.csr_spmv_rowids(data, cols, None, x, rows,
+                                            lengths=lengths))
+
+
+@pytest.mark.gpu
+def test_csr_complex_on_card_stays_plain(cuda):
+    """complex64 on the card is outside the kernel's types: the plain
+    ops, no launch."""
+    rng = np.random.default_rng(42)
+    data, cols, offsets, x = csr_kernel_case(rng, torch.float32,
+                                             torch.int32, torch.int64, cuda,
+                                             tail=False)
+    x = x.nan_to_num(nan=0.0, posinf=1.0)
+    data, x = torch.complex(data, 0.5 * data), torch.complex(x, -x)
+    rows = offsets.shape[0] - 1
+    lengths = offsets[1:] - offsets[:-1]
+    before = csr_kernel.csr_spmv.launches
+    y = spmv_ops.csr_spmv_rowids(data, cols, None, x, rows, lengths=lengths)
+    assert csr_kernel.csr_spmv.launches == before
+    assert y.dtype == torch.complex64
+    assert torch.equal(y, spmv_ops.csr_spmv_rowids_plain(
+        data, cols, None, x, rows, lengths=lengths))
+
+
+@pytest.mark.gpu
+def test_csr_kernel_span_nests_with_counts(cuda):
+    """While tracing is on, the kernel's ``kernel.csr_spmv`` span nests
+    in ``kernel.csr_rowids`` and carries the schedule's hub rows and
+    chunks."""
+    from legate_sparse_tpu_torch import obs
+
+    rng = np.random.default_rng(43)
+    data, cols, offsets, x = csr_kernel_case(rng, torch.float32,
+                                             torch.int32, torch.int64, cuda,
+                                             tail=False)
+    A = sparse.csr_array((data, cols, offsets),
+                         shape=(offsets.shape[0] - 1, x.shape[0]))
+    obs.reset_all()
+    obs.trace.enable()
+    try:
+        A @ x
+    finally:
+        obs.trace.disable()
+    recs = obs.records()
+    (outer,) = [r for r in recs if r["name"] == "kernel.csr_rowids"]
+    (inner,) = [r for r in recs if r["name"] == "kernel.csr_spmv"]
+    lengths = (offsets[1:] - offsets[:-1]).cpu()
+    hub = lengths > csr_kernel.CHUNK
+    assert inner["attrs"] == {
+        "hub_rows": int(hub.sum()),
+        "chunks": int(((lengths[hub] + csr_kernel.CHUNK - 1)
+                       // csr_kernel.CHUNK).sum())}
+    assert inner["depth"] > outer["depth"]
+    obs.reset_all()
 
 
 def _cuda_band(n, offsets, rng, dtype, cuda, holes=False):
@@ -824,11 +1070,11 @@ def test_bsr_spmm_int16_indices_match_int32(cuda, dtype, k, case):
 
 
 def _launches():
-    """Launch counts of the DIA SpMV and SpMM, BSR SpMV and SpMM, and
-    ELL SpMV kernels."""
+    """Launch counts of the DIA SpMV and SpMM, BSR SpMV and SpMM, ELL
+    SpMV and CSR SpMV kernels."""
     return (dia_kernel.dia_spmv.launches, dia_kernel.dia_spmm.launches,
             bsr_ops.bsr_spmv.launches, bsr_ops.bsr_spmm.launches,
-            ell_kernel.ell_spmv.launches)
+            ell_kernel.ell_spmv.launches, csr_kernel.csr_spmv.launches)
 
 
 @pytest.mark.gpu
@@ -1560,9 +1806,10 @@ def _card_x(n, cuda, dtype=torch.float32, seed=0, k=None):
 @pytest.mark.parametrize("case", ["rmat", "engine-style"])
 def test_csr_rowids_repeat_exactly(cuda, case):
     """csr-rowids sums in a fixed order on the card: ten calls give equal
-    bits, on the phase-9 R-MAT (rows past ``SERIAL_MAX_ROW``: one
-    segmented reduction a row) and on an engine-style matrix (one thread
-    a row)."""
+    bits, on the phase-9 R-MAT (rows past ``SERIAL_MAX_ROW``: the CSR
+    kernel's hub rows, in chunks) and on an engine-style matrix (slot
+    order); the SpMM's column 0 and the product from counted lengths
+    are ``A @ x``'s bits."""
     from legate_sparse_tpu_torch.ops import spmv as spmv_ops
 
     if case == "rmat":
@@ -1622,6 +1869,41 @@ def test_multi_matvec_on_card(cuda):
     assert ys is not None
     for y, M, x in zip(ys, mats, xs):
         assert torch.equal(y, eng.matvec(M, x))
+
+
+@pytest.mark.gpu
+def test_engine_packs_build_the_csr_schedule_once(cuda, monkeypatch):
+    """Each engine pack builds the CSR kernel's schedule once, with no
+    chunk table for a matrix whose rows sum one thread a row; warm
+    requests and a stacked batch build none, a request launches the
+    kernel once and a batch once a real matrix, each result bit for bit
+    its own plan's."""
+    from legate_sparse_tpu_torch.engine import Engine
+
+    built = []
+    real = csr_kernel.build_schedule
+
+    def counted(*args, **kwargs):
+        built.append(kwargs.get("hubs", True))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(csr_kernel, "build_schedule", counted)
+    n = (1 << 16) - 91
+    mats = [sparse.csr_array(engine_style(n, seed=s), device=cuda)
+            for s in (7, 13, 29)]
+    xs = [_card_x(n, cuda, seed=i) for i in range(3)]
+    eng = Engine()
+    for M, x in zip(mats, xs):
+        eng.matvec(M, x)
+    assert built == [False] * 3
+    before = csr_kernel.csr_spmv.launches
+    ys = [eng.matvec(M, x) for M, x in zip(mats, xs)]
+    assert csr_kernel.csr_spmv.launches == before + 3
+    batch = eng.multi_matvec(list(zip(mats, xs)))
+    assert csr_kernel.csr_spmv.launches == before + 6
+    assert built == [False] * 3
+    for y, yb in zip(ys, batch):
+        assert torch.equal(y, yb)
 
 
 @pytest.mark.gpu
@@ -1919,8 +2201,8 @@ def test_placed_dot_matches_unplaced_on_card(cuda):
             y = placement.route(A, name).dot(x)
             yg = gw.submit(A, x, tenant=name).result(timeout=60)
             moved = [b - a for a, b in zip(before, _launches())]
-            assert moved == ([2, 0, 0, 0, 0] if route == "dia-kernel"
-                             else [0, 0, 2, 0, 0])
+            assert moved == ([2, 0, 0, 0, 0, 0] if route == "dia-kernel"
+                             else [0, 0, 2, 0, 0, 0])
             assert torch.equal(y, ref) and torch.equal(yg, ref)
     finally:
         gw.shutdown()
